@@ -4,12 +4,24 @@ Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (one JSON line each; any failure exits non-zero):
-  build    compile the CUDA kernels from irgs_tpu_torch/csrc for sm_90a;
-  kernels  hold each kernel against its plain PyTorch version on the card;
-  stage2   run stage2_step at the bench workload (100k-surfel toy sphere,
-           400x400, 256 diffuse samples, 2^18 trace rays) and check that
-           both blend kernels ran on every step.
+    python3 chip_smoke.py --phases build,kernels,eval_small
+
+Phases (JSON lines; any failure exits non-zero):
+  build         compile the CUDA kernels from irgs_tpu_torch/csrc for sm_90a,
+                one nvcc per source, all started together;
+  kernels       hold each kernel against its plain PyTorch version on the
+                card: the blend at two slabs, the row gather (bit for bit) at
+                the JAX package's test shapes and the TPU probe kernels';
+  stage2_small  one test-scale stage-2 step on the card and on the CPU;
+  stage2        stage2_step at the bench workload (100k-surfel toy sphere,
+                400x400, 256 diffuse samples, 2^18 trace rays); both blend
+                kernels must run on every step;
+  eval_small    one test-scale NVS eval frame on the card and on the CPU;
+  eval          the NVS eval frame at the bench scene (workload.EVAL): one
+                untimed frame, which also records the row gather's real
+                inputs (held against the plain version as `kernels` lines),
+                then one timed frame with the gather kernel and one without;
+                the two must be equal bit for bit.
 Then a `kernels` summary line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -18,6 +30,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -101,11 +114,23 @@ def compare_fwd(a, b, S):
 # ---------------------------------------------------------------------------
 
 def phase_build():
-    from irgs_tpu_torch.ops import raster_blend as rb
-    path, secs, log = rb.build(verbose=True)
-    emit({"phase": "build", "ok": True, "seconds": round(secs, 3),
-          "library": os.path.relpath(path, ROOT),
-          "ptxas": [l for l in log.splitlines() if "Used" in l or "spill" in l]})
+    """Build every csrc/*.cu at once, one nvcc each (wall time is the
+    slowest build, not the sum)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from irgs_tpu_torch.ops import _cuda_build
+    names = sorted(p[:-3] for p in os.listdir(_cuda_build.CSRC)
+                   if p.endswith(".cu"))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        built = list(ex.map(lambda n: _cuda_build.build(n, verbose=True),
+                            names))
+    libs = [{"source": f"irgs_tpu_torch/csrc/{n}.cu",
+             "library": os.path.relpath(path, ROOT), "seconds": round(secs, 3),
+             "ptxas": [l.strip() for l in log.splitlines()
+                       if "Used" in l or "spill" in l]}
+            for n, (path, secs, log) in zip(names, built)]
+    emit({"phase": "build", "ok": True,
+          "seconds": round(time.perf_counter() - t0, 3), "libraries": libs})
 
 
 def _slab_for(n_surface, n_capacity, img, dup_capacity, dev, cam_index=0):
@@ -243,6 +268,60 @@ def phase_kernels(results):
         fail("kernels", "a kernel disagrees with its plain version")
 
 
+# the row gather's cases apart from the eval frame's own: the shapes of
+# tests/test_gather_pallas.py (M = 3T + 7, and its 5-row small batch) and
+# the two probe kernels of tools/_prof_collect_parts.py (`kern`, a row gather
+# of [1024, 128] by 128 rows; `kern2`, a flat gather of 8 x 128 elements
+# from 110592, i.e. rows of one word)
+GATHER_CASES = [("test_513x224", 513, 224, 3 * 513 + 7),
+                ("test_64x896", 64, 896, 3 * 64 + 7),
+                ("test_2048x56", 2048, 56, 3 * 2048 + 7),
+                ("test_small_batch", 10, 4, 5),
+                ("probe_kern_1024x128", 1024, 128, 128),
+                ("probe_kern2_flat", 110592, 1, 8 * 128)]
+
+
+def check_gather(results, name, table, idx):
+    """The gather kernel against table[idx] on the card, bit for bit, with
+    its time, the plain version's, index_select's, and its bound: the
+    distinct rows this idx reads, idx itself and the output, over the HBM
+    rate."""
+    import torch
+    from irgs_tpu_torch.ops import gather_rows as gr
+    out = gr.gather_rows_cuda(table, idx)
+    want = gr.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out.view(torch.int32), want.view(torch.int32)))
+    M, W = idx.shape[0], table.shape[1]
+    rows_read = int(torch.unique(idx).numel())
+    nbytes = 4 * W * rows_read + 8 * M + 4 * W * M
+    line = {"phase": "kernels", "kernel": "gather_rows", "case": name,
+            "ok": same, "bitwise_equal": same,
+            "max_abs_err": float((out - want).abs().max()) if M else 0.0,
+            "table": list(table.shape), "rows": M, "distinct_rows": rows_read,
+            "ms": cuda_ms(lambda: gr.gather_rows_cuda(table, idx)),
+            "plain_ms": cuda_ms(lambda: gr.gather_rows_plain(table, idx)),
+            "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+    emit(line)
+    results.setdefault("gather_rows", {})[name] = line
+    return same
+
+
+def phase_kernels_gather(results):
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    ok = True
+    for name, T, W, M in GATHER_CASES:
+        table = torch.randn((T, W), device=dev, generator=g)
+        idx = torch.randint(0, T, (M,), device=dev, generator=g)
+        ok &= check_gather(results, name, table, idx)
+    if not ok:
+        fail("kernels", "gather_rows differs from table[idx]")
+
+
 def phase_stage2_small():
     """One stage-2 step at the CPU tests' scale on the card and with the
     plain CPU path, from the same draws: the whole step, kernels included,
@@ -321,6 +400,7 @@ def phase_stage2(results, n_warm=1, n_timed=5):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = dict(rb.LAUNCHES)
     last = metrics[-1]
+    results.setdefault("launches", {})["stage2"] = launches
     line = {"phase": "stage2", "steps_timed": n_timed,
             "setup_s": round(setup_s, 3),
             "ms_per_step": statistics.median(times), "ms_steps": times,
@@ -344,36 +424,229 @@ def phase_stage2(results, n_warm=1, n_timed=5):
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
-    results["launches"] = launches
     if not line["ok"]:
         fail("stage2", f"checks failed: {checks}")
 
 
+# eval frame agreement, card against CPU or JAX: rtol 2e-4 / atol 2e-5 per
+# element (the JAX package's compact-vs-full eval test), except for a share
+# of outliers. The card and the CPU round the sample directions (sin, cos,
+# the batched matrix product) differently in the last bit, and the tracer's
+# discrete tests (alpha_min, the transmittance cut, the hit-cell dedup) can
+# then take or drop a hit on such a ray; a flipped hit moves one of a pixel's
+# S samples, so an outlier is bounded by 1/S.
+EVAL_RTOL, EVAL_ATOL = 2e-4, 2e-5
+EVAL_MAX_OUTLIER_SHARE = 0.01
+
+# the test-scale eval frame: 2k surfels, 64x64, 32 diffuse samples (one
+# chunk of 4096 pixels x 32 = 2^17 rays, so the chunked trace path runs), a
+# grid-16 eval tracer with adaptive, select_topk and the gather kernel
+EVAL_SMALL = dict(n_surface=2000, n_capacity=2048, img=64, diffuse=32,
+                  light=0, pallas_gather=8,
+                  tracer=dict(grid_res=16, pair_capacity=2 ** 15,
+                              max_cells=8, max_hits=24, select_tiles=4,
+                              retrace_select_tiles=8, hit_budget=8,
+                              retrace_hit_budget=12, max_crossings=12,
+                              retrace_max_crossings=16, retrace_max_cells=12,
+                              retrace_max_hits=48),
+                  dup_capacity=2 ** 16)
+
+
+def phase_eval_small():
+    """One test-scale eval frame on the card and on the CPU (plain versions
+    of every kernel), from the same scene."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.render.eval import render_ir_eval
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import raster_blend as rb
+
+    outs, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        params, aux, grid, cam, ecfg = workload.eval_setup(**EVAL_SMALL,
+                                                           device=dev)
+        rb.reset_launches()
+        gr.reset_launches()
+        stats[dev] = {}
+        out = render_ir_eval(params, aux, grid, cam, ecfg,
+                             stats_out=stats[dev])
+        outs[dev] = {k: v.cpu().numpy() for k, v in out.items()}
+        stats[dev]["launches"] = {**rb.LAUNCHES, **gr.LAUNCHES}
+    spp = EVAL_SMALL["diffuse"]
+    aovs, ok = {}, True
+    for k, want in outs["cpu"].items():
+        got = outs["cuda"][k]
+        d = np.abs(got - want)
+        share = float((d > EVAL_ATOL + EVAL_RTOL * np.abs(want)).mean())
+        aovs[k] = {"max_abs_err": float(d.max()), "outlier_share": share}
+        ok &= (bool(np.isfinite(got).all()) and share <= EVAL_MAX_OUTLIER_SHARE
+               and float(d.max()) <= 1.0 / spp)
+    lc = stats["cuda"]["launches"]
+    ok &= lc["blend_fwd"] == 1 and lc["gather_rows"] > 0
+    ok &= stats["cpu"]["launches"]["gather_rows"] == 0
+    ok &= stats["cuda"]["raster_overflow"] == 0
+    emit({"phase": "eval_small", "ok": bool(ok), "rtol": EVAL_RTOL,
+          "atol": EVAL_ATOL, "max_outlier_share": EVAL_MAX_OUTLIER_SHARE,
+          "max_abs_bound": 1.0 / spp, "stats": stats, "aovs": aovs})
+    if not ok:
+        fail("eval_small", "the eval frame on the card disagrees with the "
+             "CPU path")
+
+
+def phase_eval(results):
+    """The NVS eval frame at the bench scene, on the card."""
+    import dataclasses
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.render.eval import render_ir_eval
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params, aux, grid, cam, ecfg = workload.eval_setup(**workload.EVAL,
+                                                       device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the untimed frame records the gather's first inputs of the first pass
+    # and of the re-trace rounds, told apart by the select's tile budget
+    seen, current = {}, {}
+    kernel, select = gt.gather_rows_kernel, gt.select_hits_tiled
+
+    def select_rec(*args, **kw):
+        current["tiles"] = args[5].select_tiles     # its TracerConfig
+        return select(*args, **kw)
+
+    def gather_rec(table, idx, **kw):
+        seen.setdefault(current["tiles"], (table, idx.clone()))
+        return kernel(table, idx, **kw)
+
+    gt.gather_rows_kernel, gt.select_hits_tiled = gather_rec, select_rec
+    try:
+        a = time.perf_counter()
+        render_ir_eval(params, aux, grid, cam, ecfg)
+        torch.cuda.synchronize()
+        untimed_s = time.perf_counter() - a
+    finally:
+        gt.gather_rows_kernel, gt.select_hits_tiled = kernel, select
+
+    def frame(cfg):
+        stats = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rb.reset_launches()                  # count the main path only
+        gr.reset_launches()
+        a = time.perf_counter()
+        out = render_ir_eval(params, aux, grid, cam, cfg, stats_out=stats)
+        torch.cuda.synchronize()
+        stats["seconds"] = time.perf_counter() - a
+        stats["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        stats["launches"] = {**rb.LAUNCHES, **gr.LAUNCHES}
+        return out, stats
+
+    out_k, st_k = frame(ecfg)
+    plain_cfg = dataclasses.replace(
+        ecfg, tracer=dataclasses.replace(ecfg.tracer, pallas_gather=0))
+    out_p, st_p = frame(plain_cfg)
+    results.setdefault("launches", {})["eval"] = st_k["launches"]
+
+    equal = {k: bool(torch.equal(out_k[k], out_p[k])) for k in out_k}
+    rays = st_k["traced_rays"]
+    line = {"phase": "eval", "setup_s": round(setup_s, 3),
+            "untimed_frame_s": untimed_s,
+            "s_per_frame": st_k["seconds"],
+            "s_per_frame_gather_off": st_p["seconds"],
+            "fg_pixels": st_k["shaded_pixels"], "traced_rays": rays,
+            "mrays_per_s": rays / st_k["seconds"] / 1e6,
+            "max_memory_allocated": st_k["max_memory_allocated"],
+            "max_memory_allocated_gather_off": st_p["max_memory_allocated"],
+            "trace_trunc_frac": st_k.get("trace_trunc_frac"),
+            "trace_more_frac": st_k.get("trace_more_frac"),
+            "raster_overflow": st_k["raster_overflow"],
+            "launches_per_frame": st_k["launches"],
+            "launches_per_frame_gather_off": st_p["launches"],
+            "tracer": dataclasses.asdict(ecfg.tracer)}
+    checks = {
+        "aovs_finite": all(bool(torch.isfinite(v).all())
+                           for v in out_k.values()),
+        "aov_count_18": len(out_k) == 18,
+        "raster_overflow_zero": st_k["raster_overflow"] == 0,
+        "blend_fwd_once": st_k["launches"]["blend_fwd"] == 1,
+        "gather_launched": st_k["launches"]["gather_rows"] > 0,
+        "gather_off_not_launched": st_p["launches"]["gather_rows"] == 0,
+        "gather_on_off_bitwise_equal": all(equal.values()),
+        "real_gather_inputs_recorded": len(seen) == 2,
+    }
+    line["unequal_aovs"] = [k for k, v in equal.items() if not v]
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("eval", f"checks failed: {checks}")
+
+    ok = True
+    for tiles, (table, idx) in sorted(seen.items()):
+        where = ("first_pass" if tiles == ecfg.tracer.select_tiles
+                 else "retrace")
+        ok &= check_gather(results, f"eval_{where}_{idx.shape[0]}x"
+                           f"{table.shape[1]}", table, idx)
+    if not ok:
+        fail("kernels", "gather_rows differs from table[idx] on the eval "
+             "frame's inputs")
+
+
+# each kernel: its source, the Pallas functions it replaces, the case whose
+# numbers the summary line reports, and the main paths it runs on
 KERNELS = {
     "blend_fwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
-        replaces="irgs_tpu/ops/raster_pallas.py:141"),
+        replaces="irgs_tpu/ops/raster_pallas.py:141",
+        case="bench_400px_100k", paths=("stage2", "eval")),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
-        replaces="irgs_tpu/ops/raster_pallas.py:222"),
+        replaces="irgs_tpu/ops/raster_pallas.py:222",
+        case="bench_400px_100k", paths=("stage2",)),
+    "gather_rows": dict(
+        route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
+        replaces=("irgs_tpu/ops/gather_pallas.py:28; "
+                  "tools/_prof_collect_parts.py:121; "
+                  "tools/_prof_collect_parts.py:144"),
+        case="eval_first_pass", paths=("eval",)),
 }
 
 
 def kernels_line(results):
+    """The summary: one entry per kernel, with the numbers of its reported
+    case (the bench shape) and its launches on each main path run."""
     out = []
+    launches = results.get("launches", {})
     for name, meta in KERNELS.items():
-        bench = results[name]["bench_400px_100k"]
-        out.append({"name": name, **meta,
-                    "launches": results["launches"][name],
-                    "max_abs_err": bench["max_abs_err"], "ms": bench["ms"],
-                    "plain_ms": bench["plain_ms"],
-                    "bound_ms": bench["bound_ms"],
-                    "bound_by": bench["bound_by"],
-                    "matches_plain": all(c["ok"] for c in
-                                         results[name].values()),
-                    # no single PyTorch call computes the per-tile blend
-                    "library_ms": None})
+        cases = results.get(name, {})
+        bench = next((c for k, c in cases.items()
+                      if k.startswith(meta["case"])), {})
+        by_path = {p: launches[p][name] for p in meta["paths"]
+                   if p in launches}
+        out.append({"name": name, "route": meta["route"],
+                    "source": meta["source"], "replaces": meta["replaces"],
+                    "launches": sum(by_path.values()) if by_path else None,
+                    "launches_by_path": by_path,
+                    "max_abs_err": bench.get("max_abs_err"),
+                    "ms": bench.get("ms"), "plain_ms": bench.get("plain_ms"),
+                    "bound_ms": bench.get("bound_ms"),
+                    "bound_by": bench.get("bound_by"),
+                    # no single PyTorch call computes the per-tile blend;
+                    # the gather's is index_select
+                    "library_ms": bench.get("library_ms"),
+                    "case": next((k for k in cases
+                                  if k.startswith(meta["case"])), None),
+                    "matches_plain": all(c["ok"] for c in cases.values())})
     return {"kernels": out}
+
+
+PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small", "eval")
 
 
 def nvidia_smi_line():
@@ -384,6 +657,13 @@ def nvidia_smi_line():
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    phases = ap.parse_args().phases.split(",")
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
     if not os.path.isdir(PKG):
         print("chip_smoke.py must run from a checkout of the repository "
               "(irgs_tpu_torch/ not found)", file=sys.stderr)
@@ -398,11 +678,27 @@ def main():
 
     results = {}
     t0 = time.perf_counter()
-    phase_build()
-    phase_kernels(results)
-    phase_stage2_small()
-    phase_stage2(results)
-    print(json.dumps(kernels_line(results)), flush=True)
+    if "build" in phases:
+        phase_build()
+    if "kernels" in phases:
+        phase_kernels(results)
+        phase_kernels_gather(results)
+    if "stage2_small" in phases:
+        phase_stage2_small()
+    if "stage2" in phases:
+        phase_stage2(results)
+    if "eval_small" in phases:
+        phase_eval_small()
+    if "eval" in phases:
+        phase_eval(results)
+    summary = kernels_line(results)
+    print(json.dumps(summary), flush=True)
+    if set(phases) == set(PHASES):
+        # every kernel must have run on each of its main paths
+        idle = [(k["name"], p) for k in summary["kernels"]
+                for p, n in k["launches_by_path"].items() if n == 0]
+        if idle:
+            fail("done", f"kernels not launched on their main path: {idle}")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,4 @@
-"""Differentiable 2D-Gaussian-surfel ray tracer, training subset
-(≙ irgs_tpu/ops/grid_tracer.py).
+"""Differentiable 2D-Gaussian-surfel ray tracer (≙ irgs_tpu/ops/grid_tracer.py).
 
 A uniform voxel grid over per-Gaussian bounding spheres (disk-slab insertion),
 a loop-free DDA that records each ray's visited cells, a TILED hit selection
@@ -13,11 +12,12 @@ Cell collection and hit selection are index-only: they run under
 ``torch.no_grad()`` on detached inputs (≙ stop_gradient in the reference);
 only ``blend_hits`` and the carried T are differentiated.
 
-Ported: the training configuration (`TracerConfig.from_pipe`: tiled select,
-``tiled_direct`` collection, unrolled re-trace rounds). Not ported (raise
-NotImplementedError): the per-candidate select, the re-trace capacity ladder
-(`adaptive`), `select_topk`, `table_bf16`, `retrace_while`, `pallas_gather`
-and the oversize merge (`oversize_cap` > 0).
+Ported: the training and eval configurations of `TracerConfig.from_pipe`
+(tiled select, ``tiled_direct`` collection, unrolled re-trace rounds, and
+the eval switches: the re-trace capacity ladder `adaptive`, `select_topk`
+and `pallas_gather`, the row-gather kernel of ops/gather_rows.py). Not
+ported (raise NotImplementedError): the per-candidate select, `table_bf16`,
+`retrace_while` and the oversize merge (`oversize_cap` > 0).
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ import torch
 
 from ..utils import sh as sh_utils
 from ..utils.math3d import gather_rows, maximum, minimum
+from .gather_rows import gather_rows as gather_rows_kernel
 
 INF = 1e16
 
@@ -90,10 +91,8 @@ class TracerConfig:
         unsupported = {
             "select_tiles == 0 (per-candidate select)": self.select_tiles <= 0,
             "tiled_direct == False": not self.tiled_direct,
-            "adaptive": self.adaptive, "select_topk": self.select_topk,
             "table_bf16": self.table_bf16,
             "retrace_while": self.retrace_while,
-            "pallas_gather": self.pallas_gather > 0,
             "oversize_cap > 0": self.oversize_cap > 0,
         }
         bad = [k for k, v in unsupported.items() if v]
@@ -101,8 +100,38 @@ class TracerConfig:
             raise NotImplementedError(f"TracerConfig options not ported: {bad}")
 
     @classmethod
-    def from_pipe(cls, pipe) -> "TracerConfig":
-        """The training budgets of a PipelineConfig (config.py)."""
+    def from_pipe(cls, pipe, eval: bool = False) -> "TracerConfig":
+        """The training or (with `eval`) eval budgets of a PipelineConfig
+        (config.py), as irgs_tpu's from_pipe (:202-257)."""
+        if eval:
+            return cls(
+                grid_res=pipe.tracer_grid_res,
+                max_cells=pipe.tracer_max_cells_eval,
+                max_hits=pipe.tracer_max_hits_eval,
+                prefilter_width=pipe.tracer_prefilter_width_eval,
+                retrace_prefilter_width=pipe.tracer_retrace_prefilter_width_eval,
+                select_tiles=pipe.tracer_select_tiles_eval,
+                retrace_select_tiles=pipe.tracer_retrace_select_tiles_eval,
+                tile=pipe.tracer_tile,
+                tiled_direct=pipe.tracer_tiled_direct,
+                hit_budget=pipe.tracer_hit_budget_eval,
+                max_crossings=pipe.tracer_max_crossings_eval,
+                n_segments=pipe.tracer_n_segments_eval,
+                retrace_frac=pipe.tracer_retrace_frac_eval,
+                retrace_decay=pipe.tracer_retrace_decay_eval,
+                retrace_while=pipe.tracer_retrace_while_eval,
+                retrace_bulk=pipe.tracer_retrace_bulk_eval,
+                retrace_tail_frac=pipe.tracer_retrace_tail_frac_eval,
+                retrace_max_cells=pipe.tracer_retrace_max_cells_eval,
+                retrace_max_hits=pipe.tracer_retrace_max_hits_eval,
+                retrace_hit_budget=pipe.tracer_retrace_hit_budget_eval,
+                retrace_max_crossings=pipe.tracer_retrace_max_crossings_eval,
+                table_bf16=pipe.tracer_table_bf16_eval,
+                select_topk=pipe.tracer_select_topk_eval,
+                adaptive=pipe.tracer_adaptive_eval,
+                oversize_cap=pipe.tracer_oversize_cap,
+                transmittance_min=pipe.transmittance_min,
+                alpha_min=pipe.alpha_min)
         return cls(
             grid_res=pipe.tracer_grid_res,
             max_cells=pipe.tracer_max_cells,
@@ -552,38 +581,45 @@ def _pack_geom(inputs: TraceInputs):
                       inputs.rv, inputs.normals], dim=-1)          # [N, 13]
 
 
-class PairTable(NamedTuple):
-    """Pair-ordered candidate table in `tile`-wide rows (≙ the f32 table of
-    _pair_tab_from_geom, :938-1002, with the cell id kept as an int)."""
-    geo: torch.Tensor   # [T, 10, tile] mean3 | opacity | ru3 (flip folded) | rv3
-    cid: torch.Tensor   # [T, tile] cell id of each pair (0 in padding rows)
+_TAB_COMPS = 11    # mean3 | opacity | ru3 | rv3 | cell id bits
 
 
 @torch.no_grad()
-def _pair_tab_from_geom(grid: Grid, geom, tile: int = 16) -> PairTable:
+def _pair_tab_from_geom(grid: Grid, geom, tile: int = 16):
+    """[ceil(P/tile), 11·tile] f32 tile-row candidate table (≙
+    _pair_tab_from_geom, :938-1002): row t holds the 11 components of pairs
+    [t·tile, (t+1)·tile), component-major — mean3 | opacity | ru3 (the
+    stored normal's flip folded into its sign) | rv3 | the pair's cell id as
+    its raw int32 bits. One row gather fetches all of a tile. Rows are not
+    padded to 128 lanes as on the TPU: 11·tile words are 16-byte aligned
+    for any tile, which is what the card's gather needs."""
     rows13 = geom[grid.sorted_gauss]
     ru, rv, n_st = rows13[:, 4:7], rows13[:, 7:10], rows13[:, 10:13]
     cr = torch.linalg.cross(ru, rv, dim=-1)
     flip = torch.where(torch.sum(cr * n_st, dim=-1) < 0.0, -1.0, 1.0)
-    rows = torch.cat([rows13[:, 0:4], ru * flip[:, None], rv], dim=-1)
-    P = rows.shape[0]
+    cellf = grid.sorted_cell.to(torch.int32).view(torch.float32)
+    tab = torch.cat([rows13[:, 0:4], ru * flip[:, None], rv, cellf[:, None]],
+                    dim=-1)                                    # [P, 11]
+    P = tab.shape[0]
     pad = (-P) % tile
-    rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
-    cid = torch.nn.functional.pad(grid.sorted_cell, (0, pad))
+    tab = torch.nn.functional.pad(tab, (0, 0, 0, pad))
     T = (P + pad) // tile
-    return PairTable(geo=rows.reshape(T, tile, 10).transpose(1, 2).contiguous(),
-                     cid=cid.reshape(T, tile))
+    return tab.reshape(T, tile, _TAB_COMPS).transpose(1, 2).reshape(
+        T, _TAB_COMPS * tile)
 
 
 @torch.no_grad()
 def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
-                      pair_tab: PairTable, cfg: TracerConfig,
+                      pair_tab, cfg: TracerConfig,
                       back_culling: bool, t_start=None,
                       cand_skip=None) -> SelectedHits:
     """Tiled hit selection (≙ select_hits_tiled, :1005-1243): examine
     candidates in `tile`-wide blocks of the pair table, exact hit math,
-    dedup by hit-cell == pair-cell, keep the `hit_budget` nearest by the
-    (depth, pair position) key — one int64 key, depth bits high."""
+    dedup by hit-cell == pair-cell, keep the `hit_budget` nearest: by the
+    (depth, pair position) key, or with `select_topk` by (depth, lane), the
+    stable top-k order of the reference — one int64 key, depth bits high.
+    With `pallas_gather` > 0 the table rows come through the row-gather
+    kernel (ops/gather_rows.py), else through plain indexing."""
     TILE, ST = cfg.tile, cfg.select_tiles
     S1 = ST * TILE
     R, C = cells.starts.shape
@@ -618,13 +654,19 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     count_c = take_rc(counts)
     row_idx = start_c // TILE + tt
     tile_valid = (s < cumT[:, -1:]) & (cidx < C)
-    n_rows = pair_tab.geo.shape[0]
+    n_rows = pair_tab.shape[0]
     row_idx = torch.where(tile_valid, torch.clamp(row_idx, max=n_rows - 1),
                           zero(row_idx))
 
-    rows = pair_tab.geo[row_idx]                           # [R, ST, 10, TILE]
-    cols = [rows[:, :, i, :].reshape(R, S1) for i in range(10)]
-    pair_cid = pair_tab.cid[row_idx].reshape(R, S1)
+    # ONE row gather: [R·ST] tile rows of 11·TILE words
+    if cfg.pallas_gather:
+        rows = gather_rows_kernel(pair_tab, row_idx.reshape(-1),
+                                  inflight=cfg.pallas_gather)
+    else:
+        rows = pair_tab[row_idx.reshape(-1)]
+    blocks = rows.view(R, ST, _TAB_COMPS, TILE)
+    cols = [blocks[:, :, i, :].reshape(R, S1) for i in range(10)]
+    pair_cid = blocks[:, :, 10, :].reshape(R, S1).view(torch.int32)
     lane = torch.arange(TILE, device=dev)
     pos3 = row_idx[:, :, None] * TILE + lane
     lane_valid = (tile_valid[:, :, None] & (pos3 >= start_c[:, :, None])
@@ -655,13 +697,19 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     overflowed = n_accepted > kb
     nT_before = torch.where(fully, cumT, zero(cumT)).amax(-1)
 
-    # the kb smallest (depth, pair position) keys; depths > 0 so their f32
-    # bits order like the values
-    key = _f32_bits(d_key).long() * (1 << 32) + pair_pos
+    # the kb smallest keys; depths > 0 so their f32 bits order like the
+    # values. The second key is the pair position (the reference's two-key
+    # sort) or, with select_topk, the lane: jax.lax.top_k keeps equal keys
+    # in lane order, and lanes are not in pair order across cells
+    lane_id = torch.arange(S1, device=dev)
+    key = _f32_bits(d_key).long() * (1 << 32) + (
+        lane_id if cfg.select_topk else pair_pos)
     kk = min(kb, S1)
     top = torch.topk(key, kk, dim=-1, largest=False, sorted=True).values
     d_kb = _bits_f32(top >> 32)
     pos_kb = top & 0xFFFFFFFF
+    if cfg.select_topk:
+        pos_kb = torch.gather(pair_pos, 1, pos_kb)
     valid_kb = d_kb < INF
     gs_kb = grid.sorted_gauss[torch.clamp(pos_kb, 0, P - 1)]
     t_last_raw = torch.where(valid_kb, d_kb, zero(d_kb)).amax(-1)
@@ -758,15 +806,31 @@ def trace(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *, cfg: TracerConfig,
     return blend_hits(ray_o, ray_d, inputs, gs, valid, cfg, sh_deg)
 
 
+def ladder_capacity(capacity: int, n_need: int) -> int:
+    """The `adaptive` ladder's rung for `n_need` rays (:1602-1626): the
+    smallest of {max(1024, c/16), max(1024, c/4), c} that holds them, else
+    the full capacity `c`."""
+    rungs = sorted({max(1024, capacity // 16), max(1024, capacity // 4),
+                    capacity})
+    rungs = [c for c in rungs if c <= capacity] or [capacity]
+    return next((c for c in rungs if c >= n_need), rungs[-1])
+
+
 def retrace_pass(out: TraceOut, hits: SelectedHits, ray_o, ray_d, grid: Grid,
                  inputs: TraceInputs, cfg: TracerConfig, sh_deg: int,
                  capacity: int, back_culling: bool = False, pair_tab=None):
-    """One compacted re-trace round (non-ladder branch, :1585-1637). The
-    reference's lax.cond(any(need)) is a Python `if` here: one host sync
-    per round."""
+    """One compacted re-trace round (:1585-1637). The reference's
+    lax.cond(any(need)) and, with `adaptive`, its lax.switch over the
+    capacity ladder are decided here from one host read of the need count
+    per round. The ladder's result equals full capacity: the top-k
+    compaction places every needy ray before the padding slots, whose
+    contributions are masked to zero."""
     need = hits.more & (out.trans.detach() > cfg.transmittance_min)
-    if not bool(need.any()):
+    n_need = int(need.sum())
+    if n_need == 0:
         return out, hits
+    if cfg.adaptive:
+        capacity = ladder_capacity(capacity, n_need)
     return _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg,
                          sh_deg, capacity, back_culling, pair_tab=pair_tab)
 
@@ -776,8 +840,17 @@ def _top_index(score, k: int):
     return torch.sort(score, descending=True, stable=True).indices[:k]
 
 
-def _sel_chunk(sel_width: int) -> int:
-    return max(2 ** 12, (2 ** 18 * 48) // max(sel_width, 48))
+def _sel_chunk(cfg: TracerConfig) -> int:
+    """Rays per collect+select call: bounds the [rays, candidates] working
+    set (:1670-1672, and make_trace_fn's `target`)."""
+    width = max(cfg.select_tiles * cfg.tile, cfg.prefilter_width, cfg.max_hits)
+    return max(2 ** 12, (2 ** 18 * 48) // max(width, 48))
+
+
+def _blend_chunk(cfg: TracerConfig) -> int:
+    """Rays per re-trace blend (:1694-1697): bounds the [rays, kb] gathers
+    of the blend."""
+    return max(2 ** 12, (2 ** 22) // max(min(cfg.hit_budget, cfg.max_hits), 1))
 
 
 def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
@@ -793,7 +866,7 @@ def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
         pair_tab = _pair_tab_from_geom(grid, geom, cfg.tile)
 
     # per-ray independent: groups only bound the working set
-    group = _sel_chunk(cfg.select_tiles * cfg.tile)
+    group = _sel_chunk(cfg)
     args = (ro[idx], rd[idx], t_collect, t_accept, hits.cand_skip[idx])
     parts = []
     for a in range(0, capacity, group):
@@ -805,8 +878,16 @@ def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
     h2 = SelectedHits(*[torch.cat(xs) for xs in zip(*parts)])
     valid2 = h2.valid & picked[:, None]
     gs2, valid2 = merge_oversize(h2.gs, valid2, grid)
-    seg = blend_hits(ray_o[idx], ray_d[idx], inputs, gs2, valid2, cfg, sh_deg,
-                     t0=out.trans[idx])
+    # blend in bounded ray groups as well: the blend gathers [rays, kb]
+    # rows of every per-Gaussian table
+    bc = _blend_chunk(cfg)
+    b_args = (ray_o[idx], ray_d[idx], gs2, valid2, out.trans[idx])
+    segs = []
+    for a in range(0, capacity, bc):
+        o_i, d_i, g_i, v_i, t_i = (x[a:a + bc] for x in b_args)
+        segs.append(blend_hits(o_i, d_i, inputs, g_i, v_i, cfg, sh_deg,
+                               t0=t_i))
+    seg = TraceOut(*[torch.cat(xs) for xs in zip(*segs)])
 
     pk1 = picked
     pk2 = picked[:, None]
@@ -848,6 +929,15 @@ def retrace_rounds(out: TraceOut, hits: SelectedHits, ray_o, ray_d,
                                  sh_deg, cfg.round_capacity(n_rays, rnd),
                                  back_culling, pair_tab=pair_tab)
     return out, hits
+
+
+def trace_forward_only(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *,
+                       cfg: TracerConfig, sh_deg: int,
+                       back_culling: bool = False) -> TraceOut:
+    """trace() with no autograd graph (≙ trace_forward_only, :1826)."""
+    with torch.no_grad():
+        return trace(ray_o, ray_d, grid, inputs, cfg=cfg, sh_deg=sh_deg,
+                     back_culling=back_culling)
 
 
 def trace_segments(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *,

@@ -5,8 +5,8 @@ Replaces the Pallas TPU kernels of irgs_tpu/ops/raster_pallas.py:
 ``_make_fwd_kernel`` (forward) and ``_make_bwd_kernel`` (its custom VJP),
 joined by ``blend_tiles``. The kernels live in ``csrc/raster_blend.cu``; they
 are compiled with nvcc for sm_90a into a shared library with a plain C
-interface at first use, into ``build/irgs_tpu_torch/`` under the repository
-root, and called through ctypes on PyTorch's current stream.
+interface at first use (``ops/_cuda_build.py``), and called through ctypes on
+PyTorch's current stream.
 
 What bounds them on the card: fp32 operations. Each pixel x splat pair costs
 ~60 operations (an exp, a log1p, a division) against 4·F bytes of slab per
@@ -32,14 +32,10 @@ CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
+
+from . import _cuda_build
 
 TILE = 16
 TILE_PIX = TILE * TILE
@@ -54,8 +50,6 @@ MAX_S = 8  # feature widths the kernels are instantiated for
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "raster_blend.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "irgs_tpu_torch"
 _LIB = None
 
 
@@ -77,45 +71,13 @@ def reset_launches() -> None:
 
 
 # ---------------------------------------------------------------------------
-# build + bind
+# bind
 # ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the blend kernels are built from "
-                           f"{_SRC} on a machine with the CUDA toolkit")
-    return path
-
-
-def build(verbose: bool = False) -> tuple[Path, float, str]:
-    """Compile csrc/raster_blend.cu for sm_90a (if the library for this
-    source is not built yet). Returns (library path, seconds, compiler log)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:12]
-    lib = _BUILD_DIR / f"libraster_blend_{tag}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC)]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib, secs, res.stderr
-
 
 def _lib():
     global _LIB
     if _LIB is None:
-        path, _, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = _cuda_build.load("raster_blend")
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.irgs_blend_fwd.argtypes = [vp, vp, vp, vp, ci, ci, cll, ci, vp]
         lib.irgs_blend_fwd.restype = ci

@@ -67,10 +67,12 @@ class ShadeConfig:
 
 def rendering_equation(base_color, roughness, normals, position, viewdirs,
                        env_raw, env_pdf, trace_fn: Callable, cfg: ShadeConfig,
-                       theta_u=None):
+                       theta_u=None, env_transform=None, pixel_ids=None):
     """MC estimate of the rendering equation at [B] surface points, the
     diffuse-sampling branch (≙ rendering_equation, :78-104, :140-178).
-    `theta_u` [B, 1]: the sampler's uniforms (training)."""
+    `theta_u` [B, 1]: the sampler's uniforms (training). `env_transform`
+    [3, 3] rotates the environment lookups; `pixel_ids` keys the MIS
+    branch's light draws, which is not ported, so it is unused here."""
     s_d, s_l = cfg.diffuse_sample_num, cfg.light_sample_num
     if s_d <= 0:
         raise NotImplementedError("diffuse_sample_num must be > 0")
@@ -81,7 +83,8 @@ def rendering_equation(base_color, roughness, normals, position, viewdirs,
         normals, s_d, u=theta_u if cfg.training else None)
 
     global_incident = envlight.query_env(env_raw, incident_dirs,
-                                         activation=cfg.env_activation)
+                                         activation=cfg.env_activation,
+                                         transform=env_transform)
     rays_o = position[:, None] + incident_dirs * cfg.light_t_min
     trace_out = trace_fn(rays_o, incident_dirs)
     incident_visibility = 1.0 - trace_out.alpha[..., None]
@@ -159,7 +162,7 @@ def make_trace_fn(params, aux, grid, tracer_cfg: gt.TracerConfig, cam_pos,
             pair_tab = gt._pair_tab_from_geom(grid, geom, tracer_cfg.tile)
             # collect + select once over all rays, in groups that bound the
             # working set (per-ray independent, so grouping changes nothing)
-            group = gt._sel_chunk(tracer_cfg.select_tiles * tracer_cfg.tile)
+            group = gt._sel_chunk(tracer_cfg)
             parts = []
             for a in range(0, mp, group):
                 o_i, d_i = ro_sg[a:a + group], rd_sg[a:a + group]

@@ -54,8 +54,11 @@ def bilinear_latlong(img, u, v):
     return (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy
 
 
-def query_env(env_raw, dirs, activation: str = "exp"):
-    """Radiance along world directions (mode 'pure_env')."""
+def query_env(env_raw, dirs, activation: str = "exp", transform=None):
+    """Radiance along world directions (mode 'pure_env'); `transform` [3, 3]
+    rotates the directions first (dirs @ transform.T)."""
+    if transform is not None:
+        dirs = dirs @ transform.T
     u, v = dirs_to_uv(dirs)
     light = bilinear_latlong(env_raw, u, v)
     return maximum(activate(light, activation), 0.0)

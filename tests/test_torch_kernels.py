@@ -8,7 +8,8 @@ and no JAX:
 The kernel cases carry the `cuda` marker and skip where there is no card;
 the rasterizer on the card is held against the same call on the CPU (which
 takes the plain blend), on the 48-surfel, 32x32, S = 4 scene of
-tests/test_torch_raster.py.
+tests/test_torch_raster.py; the row gather is held bit for bit against
+``table[idx]``.
 """
 
 import os
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from irgs_tpu_torch.ops import gather_rows as gr
 from irgs_tpu_torch.ops import raster_blend as rb
 from irgs_tpu_torch.ops import surfel_raster as sr
 from irgs_tpu_torch.scene.cameras import Camera
@@ -114,6 +116,52 @@ def test_rasterize_on_card_matches_cpu(cuda_device):
                                    atol=GRAD_REL * float(g_p.abs().max()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(513, 224), (64, 896), (2048, 56),
+                                   (1000, 1), (1000, 3), (300, 6), (77, 352)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_gather_kernel_matches_plain(cuda_device, shape, dtype):
+    """Every width class of the kernel: 16-byte rows (W % 4 == 0), word
+    rows (W = 1, 3, 6), narrow and wide; out-of-order and repeated indices.
+    A copy, so bit for bit."""
+    T, W = shape
+    g = torch.Generator(cuda_device).manual_seed(W)
+    tab = torch.randn((T, W), device=cuda_device, generator=g)
+    if dtype == torch.int32:
+        tab = tab.view(torch.int32)
+    idx = torch.randint(0, T, (3 * T + 7,), device=cuda_device, generator=g)
+    gr.reset_launches()
+    out = gr.gather_rows(tab, idx)
+    assert out.dtype == dtype and out.shape == (idx.shape[0], W)
+    assert torch.equal(out.view(torch.int32), tab[idx].view(torch.int32))
+    assert gr.LAUNCHES["gather_rows"] == 1
+    # an offset view: a table that is not 16-byte aligned takes word copies
+    sub = tab.reshape(-1)[1:1 + (T - 1) * W].reshape(T - 1, W)
+    assert torch.equal(gr.gather_rows(sub, idx % (T - 1)), sub[idx % (T - 1)])
+
+
+@pytest.mark.cuda
+def test_gather_kernel_rejects_bad_inputs(cuda_device):
+    tab = torch.zeros((8, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="int64"):
+        gr.gather_rows(tab, torch.zeros(3, dtype=torch.int32,
+                                        device=cuda_device))
+    with pytest.raises(ValueError, match="float32 or int32"):
+        gr.gather_rows(tab.double(), torch.zeros(3, dtype=torch.long,
+                                                 device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        gr.gather_rows(tab.T, torch.zeros(3, dtype=torch.long,
+                                          device=cuda_device))
+
+
+def test_gather_rows_cpu_takes_plain():
+    tab = torch.arange(40.0).reshape(10, 4)
+    idx = torch.tensor([3, 3, 9, 0, 7])
+    gr.reset_launches()
+    assert torch.equal(gr.gather_rows(tab, idx), tab[idx])
+    assert gr.LAUNCHES["gather_rows"] == 0
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in JAX or the JAX
     package (whose __init__ imports JAX and sets its global config)."""
@@ -147,6 +195,28 @@ def test_entry_points_default_to_cuda():
     params, aux = toy.make_sphere_scene(64, n_capacity=128, env_resolution=8,
                                         device="cpu")
     assert params.xyz.device.type == "cpu" and aux.alive.device.type == "cpu"
+
+
+def test_eval_entry_points_default_to_cuda():
+    """eval_setup runs on the card unless asked for the CPU, and
+    render_ir_eval renders on the device of the scene it is given."""
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.render.eval import render_ir_eval
+    tiny = dict(n_surface=64, n_capacity=128, img=16, diffuse=4, light=0,
+                pallas_gather=8, tracer=dict(grid_res=8, pair_capacity=2 ** 12),
+                dup_capacity=2 ** 12)
+    if torch.cuda.is_available():
+        params, aux, grid, cam, ecfg = workload.eval_setup(**tiny)
+        assert params.xyz.device.type == "cuda"
+        out = render_ir_eval(params, aux, grid, cam, ecfg)
+        assert out["render"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            workload.eval_setup(**tiny)
+    params, aux, grid, cam, ecfg = workload.eval_setup(**tiny, device="cpu")
+    out = render_ir_eval(params, aux, grid, cam, ecfg)
+    assert out["render"].device.type == "cpu" and out["render"].shape == (16, 16, 3)
+    assert len(out) == 18
 
 
 def test_package_turns_tf32_off():

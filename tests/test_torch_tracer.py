@@ -1,7 +1,11 @@
 """The port's grid tracer (irgs_tpu_torch.ops.grid_tracer) against the JAX
 package's, on the same inputs (made with numpy from a seed), at a small
 tiled training config: grid 12, 4 tiles x 32 candidates, tiled_direct,
-4 segments."""
+4 segments; with and without the eval switches (`select_topk`, the
+`adaptive` capacity ladder) and at eval-like re-trace budgets."""
+
+import dataclasses
+
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,10 +20,16 @@ CFG = dict(grid_res=12, pair_capacity=2 ** 15, max_cells=8, max_hits=24,
            tile=32, tiled_direct=True, n_segments=4, retrace_frac=0.25)
 JCFG = gt.TracerConfig(**CFG)
 TCFG = tgt.TracerConfig(**CFG)
+# the eval budgets' shape at this size: wider re-trace rounds whose capacity
+# decays (TracerConfig.from_pipe(..., eval=True))
+EVAL_RETRACE = dict(retrace_frac=0.5, retrace_decay=0.5,
+                    retrace_select_tiles=8, retrace_hit_budget=24,
+                    retrace_max_cells=12, retrace_max_hits=48,
+                    retrace_max_crossings=16)
 FIELDS = ("means3d", "opacity", "ru", "rv", "normals", "shs", "features")
 
 
-def make_inputs(seed=0, n=96, s=4):
+def make_inputs(seed=0, n=96, s=4, r=256):
     """Surfels on a jittered unit sphere (dense enough that rays hit many
     of them and the re-trace rounds run), plus rays shot inward."""
     rng = np.random.default_rng(seed)
@@ -36,7 +46,6 @@ def make_inputs(seed=0, n=96, s=4):
                 shs=0.3 * rng.standard_normal((n, 16, 3)),
                 features=rng.uniform(size=(n, s)))
     arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
-    r = 256
     dirs = rng.standard_normal((r, 3))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     ro = (-2.5 * dirs).astype(np.float32)
@@ -75,19 +84,26 @@ def test_build_grid_csr_equal(setup):
     assert int(j_grid.oversize) == int(t_grid.oversize)
 
 
-def _hits(j_grid, t_grid, j_in, t_in, ro, rd):
-    jc = gt.collect_cells(jnp.asarray(ro), jnp.asarray(rd), j_grid, JCFG)
+def _cfgs(**over):
+    return (dataclasses.replace(JCFG, **over),
+            dataclasses.replace(TCFG, **over))
+
+
+def _hits(j_grid, t_grid, j_in, t_in, ro, rd, jcfg=JCFG, tcfg=TCFG):
+    jc = gt.collect_cells(jnp.asarray(ro), jnp.asarray(rd), j_grid, jcfg)
     jh = gt.select_hits(jnp.asarray(ro), jnp.asarray(rd), j_grid.sorted_gauss,
-                        jc, gt._pack_geom(j_in), JCFG, False, grid=j_grid)
-    tc = tgt.collect_cells(torch.tensor(ro), torch.tensor(rd), t_grid, TCFG)
+                        jc, gt._pack_geom(j_in), jcfg, False, grid=j_grid)
+    tc = tgt.collect_cells(torch.tensor(ro), torch.tensor(rd), t_grid, tcfg)
     th = tgt.select_hits(torch.tensor(ro), torch.tensor(rd), t_grid, tc,
-                         tgt._pack_geom(t_in), TCFG, False)
+                         tgt._pack_geom(t_in), tcfg, False)
     return jh, th
 
 
-def test_selected_hits_match_exactly(setup):
+@pytest.mark.parametrize("select_topk", [False, True])
+def test_selected_hits_match_exactly(setup, select_topk):
     arrs, alive, j_in, t_in, j_grid, t_grid, ro, rd = setup
-    jh, th = _hits(j_grid, t_grid, j_in, t_in, ro, rd)
+    jh, th = _hits(j_grid, t_grid, j_in, t_in, ro, rd,
+                   *_cfgs(select_topk=select_topk))
     valid = np.asarray(jh.valid)
     np.testing.assert_array_equal(valid, th.valid.numpy())
     assert valid.sum() > 200
@@ -100,18 +116,91 @@ def test_selected_hits_match_exactly(setup):
     np.testing.assert_allclose(np.asarray(jh.t_cell), th.t_cell.numpy(), rtol=1e-6)
 
 
+@pytest.mark.parametrize("select_topk", [False, True])
 @pytest.mark.parametrize("fn", ["trace", "trace_segments"])
-def test_trace_matches_jax(setup, fn):
+def test_trace_matches_jax(setup, fn, select_topk):
     arrs, alive, j_in, t_in, j_grid, t_grid, ro, rd = setup
+    jcfg, tcfg = _cfgs(select_topk=select_topk)
     jo = getattr(gt, fn)(jnp.asarray(ro), jnp.asarray(rd), j_grid, j_in,
-                         cfg=JCFG, sh_deg=3)
+                         cfg=jcfg, sh_deg=3)
     to = getattr(tgt, fn)(torch.tensor(ro), torch.tensor(rd), t_grid, t_in,
-                          cfg=TCFG, sh_deg=3)
+                          cfg=tcfg, sh_deg=3)
     assert float(jnp.max(jo.alpha)) > 0.5
     for name in jo._fields:
         np.testing.assert_allclose(np.asarray(getattr(jo, name)),
                                    getattr(to, name).detach().numpy(),
                                    atol=1e-5, err_msg=name)
+
+
+def test_adaptive_trace_segments_matches_jax_and_full_capacity(
+        setup, monkeypatch):
+    """The `adaptive` capacity ladder at the eval re-trace budgets (with
+    select_topk): the port's (one host read of the need count per round)
+    against the JAX package's lax.switch, and against the port's own
+    full-capacity rounds, which it must equal bit for bit. 2048 rays at a
+    re-trace fraction of 2 (clipped to the ray count, then halved by the
+    decay) make two rounds of capacity 2048, so that the ladder has two
+    rungs to choose from."""
+    arrs, alive, j_in, t_in, j_grid, t_grid, _, _ = setup
+    _, _, ro, rd = make_inputs(r=2048)
+    jcfg, tcfg = _cfgs(adaptive=True, select_topk=True,
+                       **dict(EVAL_RETRACE, retrace_frac=2.0, n_segments=3))
+    picks = []
+    orig = tgt.ladder_capacity
+    monkeypatch.setattr(tgt, "ladder_capacity",
+                        lambda c, n: picks.append((c, orig(c, n))) or orig(c, n))
+    jo = gt.trace_segments(jnp.asarray(ro), jnp.asarray(rd), j_grid, j_in,
+                           cfg=jcfg, sh_deg=3)
+    with torch.no_grad():
+        to = tgt.trace_segments(torch.tensor(ro), torch.tensor(rd), t_grid,
+                                t_in, cfg=tcfg, sh_deg=3)
+        tf = tgt.trace_segments(torch.tensor(ro), torch.tensor(rd), t_grid,
+                                t_in, cfg=dataclasses.replace(tcfg,
+                                                              adaptive=False),
+                                sh_deg=3)
+    for name in jo._fields:
+        np.testing.assert_allclose(np.asarray(getattr(jo, name)),
+                                   getattr(to, name).numpy(), atol=1e-5,
+                                   err_msg=name)
+        assert torch.equal(getattr(to, name), getattr(tf, name)), name
+    assert any(rung < cap for cap, rung in picks), picks
+
+
+def test_trace_forward_only_is_trace_without_graph(setup):
+    arrs, alive, j_in, t_in, j_grid, t_grid, ro, rd = setup
+    leaves = tgt.TraceInputs(*[x.clone().requires_grad_(True) for x in t_in])
+    want = tgt.trace(torch.tensor(ro), torch.tensor(rd), t_grid, leaves,
+                     cfg=TCFG, sh_deg=3)
+    got = tgt.trace_forward_only(torch.tensor(ro), torch.tensor(rd), t_grid,
+                                 leaves, cfg=TCFG, sh_deg=3)
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name).detach())
+        assert not getattr(got, name).requires_grad, name
+
+
+def test_ladder_capacity_rungs():
+    """The smallest of {max(1024, c/16), max(1024, c/4), c} that holds the
+    need count, as the reference's lax.switch picks it."""
+    assert tgt.ladder_capacity(65536, 1) == 4096
+    assert tgt.ladder_capacity(65536, 4096) == 4096
+    assert tgt.ladder_capacity(65536, 4097) == 16384
+    assert tgt.ladder_capacity(65536, 16385) == 65536
+    assert tgt.ladder_capacity(65536, 10 ** 6) == 65536
+    assert tgt.ladder_capacity(2048, 5) == 1024
+    assert tgt.ladder_capacity(512, 5) == 512
+
+
+def test_eval_from_pipe_matches_jax():
+    """TracerConfig.from_pipe(..., eval=True): the same budgets as the JAX
+    package's, and the port supports every option they switch on."""
+    from irgs_tpu.config import Config as JConfig
+    from irgs_tpu_torch.config import Config as TConfig
+    for ev in (False, True):
+        j = gt.TracerConfig.from_pipe(JConfig().pipe, eval=ev)
+        t = tgt.TracerConfig.from_pipe(TConfig().pipe, eval=ev)
+        assert dataclasses.asdict(t) == dataclasses.asdict(j)
+        t.check_supported()
+        dataclasses.replace(t, pallas_gather=8).check_supported()
 
 
 def test_trace_reference_matches_jax(setup):
