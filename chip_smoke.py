@@ -18,10 +18,11 @@ Phases (JSON lines; any failure exits non-zero):
                 kernels must run on every step;
   eval_small    one test-scale NVS eval frame on the card and on the CPU;
   eval          the NVS eval frame at the bench scene (workload.EVAL): one
-                untimed frame, which also records the row gather's real
-                inputs (held against the plain version as `kernels` lines),
-                then one timed frame with the gather kernel and one without;
-                the two must be equal bit for bit.
+                untimed frame, which also records the real inputs of the
+                forward blend and of the row gather (held against their
+                plain versions as `kernels` lines), then one timed frame with
+                the gather kernel and one without; the two must be equal bit
+                for bit.
 Then a `kernels` summary line, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.
 
@@ -182,6 +183,41 @@ def _bounds(chunks_run, S, fwd_out_bytes, backward):
             {"bytes": nbytes, "fp32_ops": ops, "pairs": pairs})
 
 
+def check_blend_fwd(results, name, args):
+    """The forward blend kernel against its plain version on `args`
+    (splat, starts, counts, grid_x, n_tiles, S), with its time, the plain
+    version's and its bound. Returns (ok, kernel output, plain output, the
+    plain version's chunks run per tile, output bytes)."""
+    import torch
+    from irgs_tpu_torch.ops import raster_blend as rb
+    counts, S = args[2], args[5]
+    with torch.no_grad():
+        out_k = rb.blend_fwd_cuda(*args)
+        torch.cuda.synchronize()
+        out_p, chunks_run = rb.blend_tiles_plain(*args, return_chunks=True)
+        torch.cuda.synchronize()
+    c = compare_fwd(out_k, out_p, S)
+    c_ok = (c["finite"] and c["outlier_share"] <= MAX_OUTLIER_SHARE
+            and c["med_ord_flip_share"] <= MAX_OUTLIER_SHARE)
+    ms = cuda_ms(lambda: rb.blend_fwd_cuda(*args))
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: rb.blend_tiles_plain(*args), reps=3)
+    fwd_bytes = 4 * out_k.numel()
+    bound_ms, bound_by, work = _bounds(chunks_run, S, fwd_bytes,
+                                       backward=False)
+    work["chunks_run"] = int(chunks_run.sum())
+    work["chunks_total"] = int(counts.sum()) // rb.K
+    line = {"phase": "kernels", "kernel": "blend_fwd", "case": name,
+            "ok": c_ok, **c, "atol": FWD_ATOL, "rtol": FWD_RTOL,
+            "max_outlier_share": MAX_OUTLIER_SHARE, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "slab_columns": int(args[0].shape[1]),
+            **work}
+    emit(line)
+    results.setdefault("blend_fwd", {})[name] = line
+    return c_ok, out_k, out_p, chunks_run, fwd_bytes
+
+
 def phase_kernels(results):
     import numpy as np
     import torch
@@ -195,29 +231,8 @@ def phase_kernels(results):
         splat, starts, counts, grid_x, n_tiles, S = _slab_for(n_s, n_cap, img,
                                                               dup, dev)
         args = (splat, starts, counts, grid_x, n_tiles, S)
-        with torch.no_grad():
-            out_k = rb.blend_fwd_cuda(*args)
-            torch.cuda.synchronize()
-            out_p, chunks_run = rb.blend_tiles_plain(*args, return_chunks=True)
-            torch.cuda.synchronize()
-        c = compare_fwd(out_k, out_p, S)
-        c_ok = (c["finite"] and c["outlier_share"] <= MAX_OUTLIER_SHARE
-                and c["med_ord_flip_share"] <= MAX_OUTLIER_SHARE)
-        ms = cuda_ms(lambda: rb.blend_fwd_cuda(*args))
-        with torch.no_grad():
-            plain_ms = cuda_ms(lambda: rb.blend_tiles_plain(*args), reps=3)
-        fwd_bytes = 4 * out_k.numel()
-        bound_ms, bound_by, work = _bounds(chunks_run, S, fwd_bytes,
-                                           backward=False)
-        work["chunks_run"] = int(chunks_run.sum())
-        work["chunks_total"] = int(counts.sum()) // rb.K
-        line = {"phase": "kernels", "kernel": "blend_fwd", "case": name,
-                "ok": c_ok, **c, "atol": FWD_ATOL, "rtol": FWD_RTOL,
-                "max_outlier_share": MAX_OUTLIER_SHARE, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, **work}
-        emit(line)
-        results.setdefault("blend_fwd", {})[name] = line
+        c_ok, out_k, out_p, chunks_run, fwd_bytes = check_blend_fwd(
+            results, name, args)
         ok &= c_ok
 
         rng = np.random.default_rng(7)
@@ -494,6 +509,23 @@ def phase_eval_small():
              "CPU path")
 
 
+def check_eval_inputs(results, blend_args, seen, first_pass_tiles):
+    """The kernels against their plain versions on the eval frame's recorded
+    inputs: the blend's one call, and the gather's first call of the first
+    pass and of the re-trace rounds."""
+    ok = len(blend_args) == 1 and len(seen) == 2
+    for args in blend_args:
+        ok &= check_blend_fwd(results, "eval_400px_100k", args)[0]
+    for tiles, (table, idx) in sorted(seen.items()):
+        where = "first_pass" if tiles == first_pass_tiles else "retrace"
+        ok &= check_gather(results, f"eval_{where}_{idx.shape[0]}x"
+                           f"{table.shape[1]}", table, idx)
+    if not ok:
+        fail("kernels", "a kernel differs from its plain version on the eval "
+             f"frame's inputs (blend calls recorded: {len(blend_args)}, "
+             f"gather stages: {len(seen)})")
+
+
 def phase_eval(results):
     """The NVS eval frame at the bench scene, on the card."""
     import dataclasses
@@ -511,10 +543,12 @@ def phase_eval(results):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    # the untimed frame records the gather's first inputs of the first pass
-    # and of the re-trace rounds, told apart by the select's tile budget
-    seen, current = {}, {}
-    kernel, select = gt.gather_rows_kernel, gt.select_hits_tiled
+    # the untimed frame records the kernels' real inputs: the G-buffer
+    # blend's, and the gather's first ones of the first pass and of the
+    # re-trace rounds, told apart by the select's tile budget
+    seen, current, blend_args = {}, {}, []
+    kernel, select, blend = (gt.gather_rows_kernel, gt.select_hits_tiled,
+                             rb.blend_tiles)
 
     def select_rec(*args, **kw):
         current["tiles"] = args[5].select_tiles     # its TracerConfig
@@ -524,7 +558,12 @@ def phase_eval(results):
         seen.setdefault(current["tiles"], (table, idx.clone()))
         return kernel(table, idx, **kw)
 
+    def blend_rec(*args):
+        blend_args.append(args)
+        return blend(*args)
+
     gt.gather_rows_kernel, gt.select_hits_tiled = gather_rec, select_rec
+    rb.blend_tiles = blend_rec
     try:
         a = time.perf_counter()
         render_ir_eval(params, aux, grid, cam, ecfg)
@@ -532,6 +571,12 @@ def phase_eval(results):
         untimed_s = time.perf_counter() - a
     finally:
         gt.gather_rows_kernel, gt.select_hits_tiled = kernel, select
+        rb.blend_tiles = blend
+
+    # hold both kernels against their plain versions on those inputs, and
+    # drop the inputs before the timed frames measure peak memory
+    check_eval_inputs(results, blend_args, seen, ecfg.tracer.select_tiles)
+    del blend_args, seen
 
     def frame(cfg):
         stats = {}
@@ -554,13 +599,19 @@ def phase_eval(results):
     results.setdefault("launches", {})["eval"] = st_k["launches"]
 
     equal = {k: bool(torch.equal(out_k[k], out_p[k])) for k in out_k}
-    rays = st_k["traced_rays"]
     line = {"phase": "eval", "setup_s": round(setup_s, 3),
             "untimed_frame_s": untimed_s,
             "s_per_frame": st_k["seconds"],
             "s_per_frame_gather_off": st_p["seconds"],
-            "fg_pixels": st_k["shaded_pixels"], "traced_rays": rays,
-            "mrays_per_s": rays / st_k["seconds"] / 1e6,
+            "fg_pixels": st_k["shaded_pixels"],
+            # the headline rate counts the shaded pixels' rays; the traced
+            # rays also count the last chunk's padding, which retraces
+            # pixel 0
+            "shaded_rays": st_k["shaded_rays"],
+            "traced_rays": st_k["traced_rays"],
+            "mrays_per_s": st_k["shaded_rays"] / st_k["seconds"] / 1e6,
+            "mrays_per_s_incl_padding":
+                st_k["traced_rays"] / st_k["seconds"] / 1e6,
             "max_memory_allocated": st_k["max_memory_allocated"],
             "max_memory_allocated_gather_off": st_p["max_memory_allocated"],
             "trace_trunc_frac": st_k.get("trace_trunc_frac"),
@@ -578,7 +629,6 @@ def phase_eval(results):
         "gather_launched": st_k["launches"]["gather_rows"] > 0,
         "gather_off_not_launched": st_p["launches"]["gather_rows"] == 0,
         "gather_on_off_bitwise_equal": all(equal.values()),
-        "real_gather_inputs_recorded": len(seen) == 2,
     }
     line["unequal_aovs"] = [k for k, v in equal.items() if not v]
     line["checks"] = checks
@@ -587,61 +637,54 @@ def phase_eval(results):
     if not line["ok"]:
         fail("eval", f"checks failed: {checks}")
 
-    ok = True
-    for tiles, (table, idx) in sorted(seen.items()):
-        where = ("first_pass" if tiles == ecfg.tracer.select_tiles
-                 else "retrace")
-        ok &= check_gather(results, f"eval_{where}_{idx.shape[0]}x"
-                           f"{table.shape[1]}", table, idx)
-    if not ok:
-        fail("kernels", "gather_rows differs from table[idx] on the eval "
-             "frame's inputs")
 
-
-# each kernel: its source, the Pallas functions it replaces, the case whose
-# numbers the summary line reports, and the main paths it runs on
+# each kernel: its source, the Pallas functions it replaces, and for each
+# main path it runs on, the case held at the shape that path gives it (the
+# summary's top-level numbers are those of the first path's case)
 KERNELS = {
     "blend_fwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:141",
-        case="bench_400px_100k", paths=("stage2", "eval")),
+        cases={"stage2": "bench_400px_100k", "eval": "eval_400px_100k"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
-        case="bench_400px_100k", paths=("stage2",)),
+        cases={"stage2": "bench_400px_100k"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
                   "tools/_prof_collect_parts.py:121; "
                   "tools/_prof_collect_parts.py:144"),
-        case="eval_first_pass", paths=("eval",)),
+        cases={"eval": "eval_first_pass"}),
 }
+_CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
 
 
 def kernels_line(results):
-    """The summary: one entry per kernel, with the numbers of its reported
-    case (the bench shape) and its launches on each main path run."""
+    """The summary: one entry per kernel, with the numbers of the case of its
+    first main path, its launches on each main path run, and per path the
+    case held at that path's shape."""
     out = []
     launches = results.get("launches", {})
     for name, meta in KERNELS.items():
         cases = results.get(name, {})
-        bench = next((c for k, c in cases.items()
-                      if k.startswith(meta["case"])), {})
-        by_path = {p: launches[p][name] for p in meta["paths"]
-                   if p in launches}
+        by_path = {}
+        for path, prefix in meta["cases"].items():
+            case = next((k for k in cases if k.startswith(prefix)), None)
+            by_path[path] = {
+                "launches": launches.get(path, {}).get(name), "case": case,
+                **{k: cases.get(case, {}).get(k) for k in _CASE_KEYS}}
+        top = next(iter(by_path.values()))
+        ran = [p["launches"] for p in by_path.values()
+               if p["launches"] is not None]
         out.append({"name": name, "route": meta["route"],
                     "source": meta["source"], "replaces": meta["replaces"],
-                    "launches": sum(by_path.values()) if by_path else None,
-                    "launches_by_path": by_path,
-                    "max_abs_err": bench.get("max_abs_err"),
-                    "ms": bench.get("ms"), "plain_ms": bench.get("plain_ms"),
-                    "bound_ms": bench.get("bound_ms"),
-                    "bound_by": bench.get("bound_by"),
-                    # no single PyTorch call computes the per-tile blend;
-                    # the gather's is index_select
-                    "library_ms": bench.get("library_ms"),
-                    "case": next((k for k in cases
-                                  if k.startswith(meta["case"])), None),
+                    "launches": sum(ran) if ran else None,
+                    # no single PyTorch call computes the per-tile blend
+                    # (library_ms null); the gather's is index_select
+                    **{k: top[k] for k in _CASE_KEYS}, "case": top["case"],
+                    "by_path": by_path,
                     "matches_plain": all(c["ok"] for c in cases.values())})
     return {"kernels": out}
 
@@ -696,7 +739,7 @@ def main():
     if set(phases) == set(PHASES):
         # every kernel must have run on each of its main paths
         idle = [(k["name"], p) for k in summary["kernels"]
-                for p, n in k["launches_by_path"].items() if n == 0]
+                for p, c in k["by_path"].items() if not c["launches"]]
         if idle:
             fail("done", f"kernels not launched on their main path: {idle}")
     emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})

@@ -89,7 +89,8 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
     `key` is unused: eval draws are deterministic. `mesh` (the sample-sharded
     multi-device eval) is not ported. `stats_out`, when given, receives the
     frame's `raster_overflow`, `shaded_pixels` (foreground pixels, or all),
-    `traced_rays` (chunk padding included) and the tracer's
+    `shaded_rays` (their incident rays), `traced_rays` (those plus the last
+    chunk's padding, which retraces pixel 0) and the tracer's
     `trace_trunc_frac` / `trace_more_frac` averaged over the chunks that
     report them."""
     if mesh is not None:
@@ -156,10 +157,11 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
               for k in outs[0]}
 
     if stats_out is not None:
+        spp = cfg.diffuse_sample_num + cfg.light_sample_num
         stats_out.update(
             raster_overflow=int(raster.overflow), shaded_pixels=n_shaded,
-            traced_rays=len(chunk_stats) * pc * (cfg.diffuse_sample_num
-                                                 + cfg.light_sample_num))
+            shaded_rays=n_shaded * spp,
+            traced_rays=len(chunk_stats) * pc * spp)
         for k in ("trace_trunc_frac", "trace_more_frac"):
             vals = [float(c[k]) for c in chunk_stats if k in c]
             if vals:

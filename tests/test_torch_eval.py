@@ -50,9 +50,13 @@ AOVS = ("render", "render_env", "render_sh", "diffuse", "specular",
 
 
 def _ecfg(mod, tcfg):
+    # 2^14 point samples per chunk: 1024 pixels, so the full frame and the
+    # compact one are one chunk each (the compact one padded), as at the
+    # default chunk, with a quarter of the padding rays to trace
     return mod.EvalConfig(img_w=IMG, img_h=IMG, active_sh_degree=3,
                           diffuse_sample_num=SPP, light_sample_num=0,
-                          dup_capacity=2 ** 14, tracer=tcfg)
+                          dup_capacity=2 ** 14, chunk_point_samples=2 ** 14,
+                          tracer=tcfg)
 
 
 @pytest.fixture(scope="module")
