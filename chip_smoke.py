@@ -10,8 +10,10 @@ Phases (JSON lines; any failure exits non-zero):
   build         compile the CUDA kernels from irgs_tpu_torch/csrc for sm_90a,
                 one nvcc per source, all started together;
   kernels       hold each kernel against its plain PyTorch version on the
-                card: the blend at two slabs, the row gather (bit for bit) at
-                the JAX package's test shapes and the TPU probe kernels';
+                card: the blend at two slabs (with how its work spreads over
+                the tiles, and the heaviest tile's time alone), the row
+                gather (bit for bit) at the JAX package's test shapes and the
+                TPU probe kernels';
   stage2_small  one test-scale stage-2 step on the card and on the CPU;
   stage2        stage2_step at the bench workload (100k-surfel toy sphere,
                 400x400, 256 diffuse samples, 2^18 trace rays); both blend
@@ -47,8 +49,10 @@ PKG = os.path.join(ROOT, "irgs_tpu_torch")
 # the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# fp32 operations per pixel x splat pair, counted from the kernel source
-# (each add, mul, compare, select, exp, log1p or division counts one):
+# fp32 operations per pixel x splat pair, counted from the first version of
+# the kernel source and kept as the yardstick, so that shares of the bound
+# compare across versions (each add, mul, compare, select, exp, log1p or
+# division counts one):
 # alpha_depth 55; the forward blend 30 + 2·NA (transmittance, cut, median
 # test, NA attribute FMAs, depth/distortion moments); the backward's pass A
 # replays alpha_depth and the weight and forms w·dL/dw (81 + 2·NA), pass B
@@ -94,6 +98,24 @@ def cuda_ms(fn, reps=20, warmup=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_queued(fn, n=20):
+    """Mean ms of fn() over n calls enqueued back to back between two CUDA
+    events: the host's launch overhead hides behind the device's work, so
+    this reads device time where cuda_ms (one synchronised call per event
+    pair, the yardstick of the kernel table) also counts the launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def compare_fwd(a, b, S):
@@ -183,6 +205,29 @@ def _bounds(chunks_run, S, fwd_out_bytes, backward):
             {"bytes": nbytes, "fp32_ops": ops, "pairs": pairs})
 
 
+def _tile_work(chunks_run):
+    """How the blend's work spreads over the tiles: the chunks of K splats
+    each tile blended before it stopped (`chunks_run`), over the tiles that
+    blended any. The heaviest tile bounds the kernel from below: one block
+    walks its chunks in order."""
+    busy = chunks_run[chunks_run > 0]
+    return {"tiles_with_work": int(busy.numel()),
+            "tile_chunks_max": int(busy.max()) if busy.numel() else 0,
+            "tile_chunks_p50": float(busy.float().median())
+            if busy.numel() else 0.0}
+
+
+def _heaviest_alone(counts, chunks_run):
+    """`counts` with every tile but the one that blends the most chunks
+    emptied: the kernels' time on it is the heaviest tile's critical path,
+    with the card otherwise idle."""
+    import torch
+    keep = torch.zeros_like(counts)
+    t = int(torch.argmax(chunks_run))
+    keep[t] = counts[t]
+    return keep
+
+
 def check_blend_fwd(results, name, args):
     """The forward blend kernel against its plain version on `args`
     (splat, starts, counts, grid_x, n_tiles, S), with its time, the plain
@@ -200,6 +245,9 @@ def check_blend_fwd(results, name, args):
     c_ok = (c["finite"] and c["outlier_share"] <= MAX_OUTLIER_SHARE
             and c["med_ord_flip_share"] <= MAX_OUTLIER_SHARE)
     ms = cuda_ms(lambda: rb.blend_fwd_cuda(*args))
+    ms_queued = cuda_ms_queued(lambda: rb.blend_fwd_cuda(*args))
+    alone = (*args[:2], _heaviest_alone(counts, chunks_run), *args[3:])
+    ms_alone = cuda_ms_queued(lambda: rb.blend_fwd_cuda(*alone))
     with torch.no_grad():
         plain_ms = cuda_ms(lambda: rb.blend_tiles_plain(*args), reps=3)
     fwd_bytes = 4 * out_k.numel()
@@ -207,11 +255,14 @@ def check_blend_fwd(results, name, args):
                                        backward=False)
     work["chunks_run"] = int(chunks_run.sum())
     work["chunks_total"] = int(counts.sum()) // rb.K
+    work.update(_tile_work(chunks_run))
     line = {"phase": "kernels", "kernel": "blend_fwd", "case": name,
             "ok": c_ok, **c, "atol": FWD_ATOL, "rtol": FWD_RTOL,
             "max_outlier_share": MAX_OUTLIER_SHARE, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "slab_columns": int(args[0].shape[1]),
+            "bound_by": bound_by, "ms_queued": ms_queued,
+            "ms_heaviest_tile_alone": ms_alone,
+            "slab_columns": int(args[0].shape[1]),
             **work}
     emit(line)
     results.setdefault("blend_fwd", {})[name] = line
@@ -261,6 +312,11 @@ def phase_kernels(results):
             r_ok &= share <= MAX_OUTLIER_SHARE
         ms = cuda_ms(lambda: rb.blend_bwd_cuda(splat, starts, counts, out_k,
                                                cot, grid_x, n_tiles, S))
+        ms_queued = cuda_ms_queued(lambda: rb.blend_bwd_cuda(
+            splat, starts, counts, out_k, cot, grid_x, n_tiles, S))
+        alone = _heaviest_alone(counts, chunks_run)
+        ms_alone = cuda_ms_queued(lambda: rb.blend_bwd_cuda(
+            splat, starts, alone, out_k, cot, grid_x, n_tiles, S))
         # the plain version's backward alone: autograd through its graph
         plain_ms = cuda_ms(lambda: torch.autograd.grad(out_sp, sp, cot,
                                                        retain_graph=True),
@@ -268,6 +324,7 @@ def phase_kernels(results):
         del out_sp
         bound_ms, bound_by, work = _bounds(chunks_run, S, fwd_bytes,
                                            backward=True)
+        work.update(_tile_work(chunks_run))
         d = (d_k - d_p).abs()
         line = {"phase": "kernels", "kernel": "blend_bwd", "case": name,
                 "ok": r_ok, "deterministic": bool(torch.equal(d_k, d_k2)),
@@ -275,7 +332,8 @@ def phase_kernels(results):
                 "max_row_outlier_share": max(rows), "rel_tol": BWD_REL,
                 "max_outlier_share": MAX_OUTLIER_SHARE, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, **work}
+                "bound_by": bound_by, "ms_queued": ms_queued,
+                "ms_heaviest_tile_alone": ms_alone, **work}
         emit(line)
         results.setdefault("blend_bwd", {})[name] = line
         ok &= r_ok

@@ -8,16 +8,28 @@ are compiled with nvcc for sm_90a into a shared library with a plain C
 interface at first use (``ops/_cuda_build.py``), and called through ctypes on
 PyTorch's current stream.
 
-What bounds them on the card: fp32 operations. Each pixel x splat pair costs
-~60 operations (an exp, a log1p, a division) against 4·F bytes of slab per
-splat shared by 256 pixels, so the arithmetic intensity is far above the
-H100's fp32 ridge. The design keeps each K = 128 chunk of the tile's slab in
-shared memory, all per-pixel accumulators in registers (one thread per
-pixel), and stops a tile as soon as none of its pixels is transmissive. The
-backward replays the tile twice (Σ w·dL/dw, then per-duplicate gradients),
-stopping at the same point (no later splat has a gradient), derives the
-chain to the 12 geometric slab columns by hand, and reduces over the tile's
-pixels in a fixed order with no atomics.
+What bounds them on the card. Counted over every pixel x splat pair, the
+work (~100 fp32 operations a pair forward, ~300 backward, against 4·F bytes
+of slab per splat shared by 256 pixels) is far above the H100's fp32 ridge,
+so the yardstick is fp32 operations. The work is uneven and sparse, though:
+a tile's K = 128 chunks run in order in one block, and the heaviest tile of
+the bench slab blends about as many chunks as the average SM's share of all
+tiles, so the kernels are held to that tile's chain of steps; and ~11 % of
+the pairs have alpha > 0 (~66 % of the (warp, splat) steps have none).
+
+The design: an exact cull (alpha is certainly below 1/255 when rho2d and
+rho3d both exceed 2 ln(255·o), tested without a division) lets a warp with
+no live pair skip the step, and a lane with alpha = 0 the rest of it. The
+forward splits each chunk into 4 sub-ranges of splats, one group of 256
+threads (a thread per pixel) each, so a tile has 4 times the warps: a first
+step sums each sub-range's log-transmittance, then each blends with its
+incoming T and the sub-ranges are combined in order. Tiles start heaviest
+first (`tile_order`). Chunks are double-buffered in shared memory with
+cp.async. The backward needs no replay for Σ w·dL/dw per pixel: it has a closed form
+in the forward's totals (`s_tot_closed`); its 12 + NA per-splat sums over a
+warp's pixels are one reduce-scatter, summed over the 8 warps in a fixed
+order in shared memory, with no atomics. The chain to the 12 geometric slab
+columns is derived by hand.
 
 Slab layout (`slab_width(S)` f32 rows, padded to a multiple of 8):
   0:3 Tu | 3:6 Tv | 6:9 Tw | 9:11 center | 11 opacity | 12:12+NA attrs,
@@ -79,10 +91,11 @@ def _lib():
     if _LIB is None:
         lib = _cuda_build.load("raster_blend")
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.irgs_blend_fwd.argtypes = [vp, vp, vp, vp, ci, ci, cll, ci, vp]
+        lib.irgs_blend_fwd.argtypes = [vp, vp, vp, vp, vp, ci, ci, cll, ci,
+                                       vp]
         lib.irgs_blend_fwd.restype = ci
-        lib.irgs_blend_bwd.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, cll,
-                                       ci, vp]
+        lib.irgs_blend_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                       cll, ci, vp]
         lib.irgs_blend_bwd.restype = ci
         _LIB = lib
     return _LIB
@@ -110,16 +123,25 @@ def _check_inputs(splat, starts, counts, n_tiles, S):
         raise ValueError("splat, starts and counts must share one device")
 
 
+def tile_order(counts):
+    """The order in which the kernels' blocks take the tiles: by slab count,
+    heaviest first (ties in tile order). A tile's chain of chunks is the
+    longest single task of a launch, so it should not start last."""
+    return torch.argsort(counts, descending=True, stable=True)
+
+
 def blend_fwd_cuda(splat, starts, counts, grid_x: int, n_tiles: int, S: int):
     """Launch the forward kernel -> [n_tiles, 256, C_OUT]."""
     _check_inputs(splat, starts, counts, n_tiles, S)
     out = torch.empty((n_tiles, TILE_PIX, c_out(S)), dtype=torch.float32,
                       device=splat.device)
+    order = tile_order(counts)
     with torch.cuda.device(splat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().irgs_blend_fwd(
             splat.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            out.data_ptr(), n_tiles, grid_x, splat.shape[1], S, stream)
+            order.data_ptr(), out.data_ptr(), n_tiles, grid_x, splat.shape[1],
+            S, stream)
     if err != 0:
         raise RuntimeError(f"blend_fwd launch failed: cuda error {err}")
     LAUNCHES["blend_fwd"] += 1
@@ -135,12 +157,13 @@ def blend_bwd_cuda(splat, starts, counts, fwd_out, cot, grid_x: int,
     _check("fwd_out", fwd_out, torch.float32, shape)
     _check("cot", cot, torch.float32, shape)
     dslab = torch.zeros_like(splat)
+    order = tile_order(counts)
     with torch.cuda.device(splat.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib().irgs_blend_bwd(
             splat.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            fwd_out.data_ptr(), cot.data_ptr(), dslab.data_ptr(), n_tiles,
-            grid_x, splat.shape[1], S, stream)
+            order.data_ptr(), fwd_out.data_ptr(), cot.data_ptr(),
+            dslab.data_ptr(), n_tiles, grid_x, splat.shape[1], S, stream)
     if err != 0:
         raise RuntimeError(f"blend_bwd launch failed: cuda error {err}")
     LAUNCHES["blend_bwd"] += 1
@@ -182,6 +205,22 @@ def blend_tiles(splat, starts, counts, grid_x: int, n_tiles: int, S: int):
 # ---------------------------------------------------------------------------
 # plain PyTorch version (the CPU path and the kernels' oracle)
 # ---------------------------------------------------------------------------
+
+def s_tot_closed(fwd_out, cot, S: int):
+    """Σ_k w_k·dL/dw_k per pixel ([n_tiles, 256]) from the forward's totals
+    and the cotangent, as the backward kernel forms it. dL/dw_k is linear in
+    what the forward summed (attrs, depth, depth², 1, m, m² and the
+    distortion's m_k²·A + M2 − 2·m_k·M1), so the sum over k is
+    Σ_a g_a·acc_a + g_D·D + g_D2·D2 + g_A·A + g_M1·M1 + g_M2·M2
+    + 2·g_dist·(A·M2 − M1²)."""
+    NA = n_attr(S)
+    acc, D, D2, A, M1, M2 = (fwd_out[..., :NA], *fwd_out[..., NA:NA + 5]
+                             .unbind(-1))
+    g_acc, gD, gD2, gA, gM1, gM2, g_dist = (cot[..., :NA],
+                                            *cot[..., NA:NA + 6].unbind(-1))
+    return ((g_acc * acc).sum(-1) + gD * D + gD2 * D2 + gA * A + gM1 * M1
+            + gM2 * M2 + 2.0 * g_dist * (A * M2 - M1 * M1))
+
 
 def _excl_cumsum(x):
     return torch.cumsum(x, dim=-1) - x

@@ -5,11 +5,15 @@ and no JAX:
 
     python -m pytest -o addopts="" --noconftest -m cuda tests/test_torch_kernels.py
 
-The kernel cases carry the `cuda` marker and skip where there is no card;
-the rasterizer on the card is held against the same call on the CPU (which
-takes the plain blend), on the 48-surfel, 32x32, S = 4 scene of
-tests/test_torch_raster.py; the row gather is held bit for bit against
-``table[idx]``.
+The kernel cases carry the `cuda` marker and skip where there is no card.
+The blend kernels are held against the plain version on the 48-surfel,
+32x32 scene of tests/test_torch_raster.py at S = 0, 4 and 8, on a tile that
+blends several chunks and stops mid-slab while the other tiles are empty,
+and on a scene where whole warps have no live pair; the rasterizer on the
+card against the same call on the CPU (which takes the plain blend); the
+row gather bit for bit against ``table[idx]``. The CPU cases check what the
+card cases rely on: the scenes' shapes, the backward's closed-form total
+and the tile order.
 """
 
 import os
@@ -44,19 +48,69 @@ def make_scene(seed=5, n=48, s=S):
     return tuple(torch.tensor(a.astype(np.float32)) for a in arrs)
 
 
+def make_box_scene(seed, n, box, log_scale, opacity_logit, s=S):
+    """n surfels with centres uniform in box ((x0, x1), (y0, y1), (z0, z1)),
+    scales exp(U(log_scale)) and opacities sigmoid(N(opacity_logit, 1))."""
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(lo, hi, n) for lo, hi in box], -1)
+    arrs = (means, np.exp(rng.uniform(*log_scale, (n, 2))),
+            rng.standard_normal((n, 4)),
+            1.0 / (1.0 + np.exp(-(rng.standard_normal((n, 1))
+                                  + opacity_logit))),
+            0.3 * rng.standard_normal((n, 16, 3)),
+            rng.uniform(size=(n, s)))
+    return tuple(torch.tensor(a.astype(np.float32)) for a in arrs)
+
+
+# The blend cases (name -> scene, and whether to keep tile 0 alone):
+#   base       the 48-surfel scene: one chunk per tile, no tile saturates;
+#   cover      3000 opaque surfels over the whole frame: every tile blends
+#              5-6 of its 11-12 chunks and stops mid-slab;
+#   skew       `cover` with every tile but tile 0 emptied: one heavy tile,
+#              its neighbours without work (as the bench slab's heaviest
+#              tile, which is the kernels' critical path);
+#   dead_warps 200 small surfels in a band across the top rows of tiles 0
+#              and 1: half of each tile's warps have no live pair.
+BLEND_SCENES = {
+    "base": (lambda s: make_scene(s=s), False),
+    "cover": (lambda s: make_box_scene(
+        1, 3000, ((-2.2, 2.2), (-2.2, 2.2), (-0.5, 0.5)), (-1.6, -0.9), 0.5,
+        s), False),
+    "skew": (lambda s: make_box_scene(
+        1, 3000, ((-2.2, 2.2), (-2.2, 2.2), (-0.5, 0.5)), (-1.6, -0.9), 0.5,
+        s), True),
+    "dead_warps": (lambda s: make_box_scene(
+        3, 200, ((-1.5, 1.5), (-1.5, -1.2), (-0.3, 0.3)), (-3.0, -2.6), 2.0,
+        s), False),
+}
+BLEND_DUP = 2 ** 14
+
+
 def camera_params(dev):
     cam = Camera(0, np.eye(3), np.array([0.0, 0.0, 4.0]), fovx=0.8, fovy=0.8,
                  width=W, height=H)
     return cam.params(dev)
 
 
-def slab(dev):
-    means, scales, quats, opac, shs, feats = (x.to(dev) for x in make_scene())
+def slab(dev, scene=None, dup=DUP):
+    means, scales, quats, opac, shs, feats = (
+        x.to(dev) for x in (make_scene() if scene is None else scene))
     with torch.no_grad():
         prep = sr.preprocess(means, scales, quats, opac, shs,
                              camera_params(dev), W, H, 2)
-        binning = sr.bin_and_sort(prep, 2, 2, DUP)
-        return sr.build_slab(prep, binning, feats, 2, 4, DUP)
+        binning = sr.bin_and_sort(prep, 2, 2, dup)
+        assert int(binning.overflow) == 0
+        return sr.build_slab(prep, binning, feats, 2, 4, dup)
+
+
+def blend_case(name, s, dev):
+    """(splat, starts, counts) of a BLEND_SCENES case with S = s."""
+    make, tile0_only = BLEND_SCENES[name]
+    splat, starts, counts = slab(dev, make(s), BLEND_DUP)
+    if tile0_only:
+        counts = torch.where(torch.arange(4, device=dev) == 0, counts,
+                             torch.zeros_like(counts))
+    return splat, starts, counts
 
 
 @pytest.fixture
@@ -68,25 +122,118 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_blend_kernels_match_plain(cuda_device):
-    splat, starts, counts = slab(cuda_device)
+@pytest.mark.parametrize("case", ["base-S0", "base-S4", "base-S8", "cover-S4",
+                                  "skew-S4", "dead_warps-S4"])
+def test_blend_kernels_match_plain(cuda_device, case):
+    name, s = case.split("-S")
+    s = int(s)
+    splat, starts, counts = blend_case(name, s, cuda_device)
     rb.reset_launches()
-    out_k = rb.blend_fwd_cuda(splat, starts, counts, 2, 4, S)
-    out_p = rb.blend_tiles_plain(splat, starts, counts, 2, 4, S)
+    out_k = rb.blend_fwd_cuda(splat, starts, counts, 2, 4, s)
+    out_p = rb.blend_tiles_plain(splat, starts, counts, 2, 4, s)
     torch.testing.assert_close(out_k, out_p, **FWD_TOL)
-    assert float(out_k[..., rb.n_attr(S) + 2].max()) > 0.2
+    assert float(out_k[..., rb.n_attr(s) + 2].max()) > 0.2
     cot = torch.randn(out_k.shape, device=cuda_device,
                       generator=torch.Generator(cuda_device).manual_seed(0))
-    cot[..., rb.c_out(S) - 2] = 0.0   # med_ord is an index
-    d_k = rb.blend_bwd_cuda(splat, starts, counts, out_k, cot, 2, 4, S)
-    d_k2 = rb.blend_bwd_cuda(splat, starts, counts, out_k, cot, 2, 4, S)
+    cot[..., rb.c_out(s) - 2] = 0.0   # med_ord is an index
+    d_k = rb.blend_bwd_cuda(splat, starts, counts, out_k, cot, 2, 4, s)
+    d_k2 = rb.blend_bwd_cuda(splat, starts, counts, out_k, cot, 2, 4, s)
     assert torch.equal(d_k, d_k2)   # fixed-order reduction, no atomics
     sp = splat.clone().requires_grad_(True)
     (d_p,) = torch.autograd.grad(
-        rb.blend_tiles_plain(sp, starts, counts, 2, 4, S), sp, cot)
+        rb.blend_tiles_plain(sp, starts, counts, 2, 4, s), sp, cot)
     torch.testing.assert_close(d_k, d_p, rtol=0,
                                atol=GRAD_REL * float(d_p.abs().max()))
     assert rb.LAUNCHES == {"blend_fwd": 1, "blend_bwd": 2}
+
+
+def _live_warps(splat, starts, chunks, tile):
+    """[8] bool: which of the tile's 8 warps (two pixel rows each) have a
+    pixel x splat pair with alpha > 0 in the chunks it blends."""
+    n = int(chunks[tile]) * rb.K
+    cols = starts[tile].long() + torch.arange(n)
+    i = torch.arange(rb.TILE_PIX)
+    px = ((tile % 2) * 16 + i % 16).float()[None, :, None]
+    py = ((tile // 2) * 16 + i // 16).float()[None, :, None]
+    alpha = rb.alpha_depth(splat[:, cols][None], px, py)[0][0]
+    return (alpha > 0).reshape(8, 32, n).any(-1).any(-1)
+
+
+def test_blend_scenes_have_their_shape():
+    """What the card cases rely on, on the CPU: `cover` tiles stop mid-slab
+    after at least 3 chunks, `skew` leaves one such tile with work, and
+    `dead_warps` has tiles with work where whole warps have no live pair."""
+    for name in ("cover", "skew"):
+        splat, starts, counts = blend_case(name, S, "cpu")
+        _, chunks = rb.blend_tiles_plain(splat, starts, counts, 2, 4, S,
+                                         return_chunks=True)
+        busy = chunks > 0
+        stopped = chunks[busy] < counts[busy] // rb.K
+        assert bool(((chunks[busy] >= 3) & stopped).all())
+        assert int(busy.sum()) == (1 if name == "skew" else 4)
+    splat, starts, counts = blend_case("dead_warps", S, "cpu")
+    _, chunks = rb.blend_tiles_plain(splat, starts, counts, 2, 4, S,
+                                     return_chunks=True)
+    tiles = [t for t in range(4) if int(chunks[t]) > 0]
+    assert tiles
+    for t in tiles:
+        live = _live_warps(splat, starts, chunks, t)
+        assert 0 < int(live.sum()) < 8
+
+
+def _s_tot_replay(splat, starts, counts, out, cot, S):
+    """Σ_k w_k·dL/dw_k per pixel, replayed from the geometry over each
+    tile's chunks up to where the forward stopped (the quantity the Pallas
+    backward's first pass forms)."""
+    NA = rb.n_attr(S)
+    _, chunks = rb.blend_tiles_plain(splat, starts, counts, 2, 4, S,
+                                     return_chunks=True)
+    res = torch.zeros(out.shape[:2])
+    i = torch.arange(rb.TILE_PIX)
+    for t in range(out.shape[0]):
+        n = int(chunks[t]) * rb.K
+        if n == 0:
+            continue
+        sl = splat[:, starts[t].long() + torch.arange(n)]
+        px = ((t % 2) * 16 + i % 16).float()[None, :, None]
+        py = ((t // 2) * 16 + i // 16).float()[None, :, None]
+        alpha, depth, m = (x[0] for x in rb.alpha_depth(sl[None], px, py))
+        lg = torch.log1p(-alpha)
+        T_in = torch.exp(torch.cumsum(lg, -1) - lg)
+        w = torch.where(T_in * (1.0 - alpha) >= rb.T_DONE, alpha * T_in,
+                        torch.zeros_like(alpha))
+        g, o = cot[t], out[t]
+        A, M1, M2 = (o[:, NA + j, None] for j in (2, 3, 4))
+        gc = lambda j: g[:, NA + j, None]
+        dLdw = (g[:, :NA] @ sl[12:12 + NA] + gc(0) * depth
+                + gc(1) * depth * depth + gc(2) + gc(3) * m + gc(4) * m * m
+                + gc(5) * (m * m * A + M2 - 2.0 * m * M1))
+        res[t] = (w * dLdw).sum(-1)
+    return res
+
+
+@pytest.mark.parametrize("name", ["base", "cover"])
+def test_s_tot_closed_form_matches_replay(name):
+    """The backward kernel's closed-form Σ w·dL/dw against its replay.
+    Tolerance 1e-5 x max|S|: both are fp32 sums of the same terms in
+    different orders."""
+    splat, starts, counts = blend_case(name, S, "cpu")
+    out = rb.blend_tiles_plain(splat, starts, counts, 2, 4, S)
+    rng = np.random.default_rng(11)
+    cot = torch.tensor(rng.standard_normal(tuple(out.shape)),
+                       dtype=torch.float32)
+    closed = rb.s_tot_closed(out, cot, S)
+    replay = _s_tot_replay(splat, starts, counts, out, cot, S)
+    assert float(replay.abs().max()) > 1.0
+    torch.testing.assert_close(closed, replay, rtol=0,
+                               atol=1e-5 * float(replay.abs().max()))
+
+
+def test_tile_order_heaviest_first():
+    counts = torch.tensor([128, 0, 384, 128, 384, 256], dtype=torch.int32)
+    order = rb.tile_order(counts)
+    assert order.dtype == torch.int64
+    assert order.tolist() == [2, 4, 5, 0, 3, 1]
 
 
 @pytest.mark.cuda
