@@ -17,16 +17,30 @@ Phases (JSON lines; any failure exits non-zero):
   stage2_small  one test-scale stage-2 step on the card and on the CPU;
   stage2        stage2_step at the bench workload (100k-surfel toy sphere,
                 400x400, 256 diffuse samples, 2^18 trace rays); both blend
-                kernels must run on every step;
+                kernels and the gather must run on every step (the gather
+                held at its first real inputs);
   eval_small    one test-scale NVS eval frame on the card and on the CPU;
   eval          the NVS eval frame at the bench scene (workload.EVAL): one
                 untimed frame, which also records the real inputs of the
                 forward blend and of the row gather (held against their
                 plain versions as `kernels` lines), then one timed frame with
-                the gather kernel and one without; the two must be equal bit
-                for bit.
-Then a `kernels` summary line, the card's name and power limit, and the
-last line {"ok": true, "device": {...}}.
+                the gather kernel and one with its plain version patched in;
+                the two must be equal bit for bit;
+  train_cli     python -m irgs_tpu_torch.train, in-process, at the bench
+                workload: a Blender folder of 8 ring views at 400x400
+                rendered from the 100k-surfel sphere, its PLY as start, 100
+                iterations (checkpoints and visualisations every 50), then 5
+                more resumed from chkpnt50; ms/step beside the stage2
+                phase's, launches per step, peak memory;
+  train_cli_oversize
+                the CLI on the shadow scene (4 views, white background) for
+                3 iterations: the oversize merge switched on by itself, the
+                grid counts before and after, the step's peak memory, the
+                kernels held at its inputs, and one merged trace_segments of
+                a small shadow scene on the card against the CPU.
+Then a `kernels` summary line, a `done` line with each phase's wall time,
+the card's name and power limit, and the last line {"ok": true, "device":
+{...}}.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -269,74 +283,85 @@ def check_blend_fwd(results, name, args):
     return c_ok, out_k, out_p, chunks_run, fwd_bytes
 
 
-def phase_kernels(results):
+def check_blend_bwd(results, name, args, out_k, out_p, chunks_run,
+                    fwd_bytes):
+    """The backward blend kernel against autograd through the plain version
+    on `args`, with a random cotangent, its time, the plain version's and
+    its bound. Returns ok."""
     import numpy as np
     import torch
     from irgs_tpu_torch.ops import raster_blend as rb
+    splat, starts, counts, grid_x, n_tiles, S = args
+    rng = np.random.default_rng(7)
+    cot = torch.tensor(rng.standard_normal(tuple(out_k.shape)),
+                       dtype=torch.float32, device=splat.device)
+    cot[..., rb.c_out(S) - 2] = 0.0   # med_ord is an index
+    # the backward kernel replays the plain forward's totals and median
+    # order, so that both sides route the median gradient to one splat
+    d_k = rb.blend_bwd_cuda(splat, starts, counts, out_p, cot, grid_x,
+                            n_tiles, S)
+    torch.cuda.synchronize()
+    d_k2 = rb.blend_bwd_cuda(splat, starts, counts, out_p, cot, grid_x,
+                             n_tiles, S)
+    torch.cuda.synchronize()
+    sp = splat.detach().clone().requires_grad_(True)
+    out_sp = rb.blend_tiles_plain(sp, starts, counts, grid_x, n_tiles, S)
+    (d_p,) = torch.autograd.grad(out_sp, sp, cot, retain_graph=True)
+    torch.cuda.synchronize()
+    rows = []
+    r_ok = bool(torch.equal(d_k, d_k2)) and bool(torch.isfinite(d_k).all())
+    for j in range(12 + rb.n_attr(S)):
+        scale = float(d_p[j].abs().max().clamp_min(1e-8))
+        dd = (d_k[j] - d_p[j]).abs()
+        share = float((dd > BWD_REL * scale).float().mean())
+        rows.append(share)
+        r_ok &= share <= MAX_OUTLIER_SHARE
+    ms = cuda_ms(lambda: rb.blend_bwd_cuda(splat, starts, counts, out_k,
+                                           cot, grid_x, n_tiles, S))
+    ms_queued = cuda_ms_queued(lambda: rb.blend_bwd_cuda(
+        splat, starts, counts, out_k, cot, grid_x, n_tiles, S))
+    alone = _heaviest_alone(counts, chunks_run)
+    ms_alone = cuda_ms_queued(lambda: rb.blend_bwd_cuda(
+        splat, starts, alone, out_k, cot, grid_x, n_tiles, S))
+    # the plain version's backward alone: autograd through its graph
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out_sp, sp, cot,
+                                                   retain_graph=True),
+                       reps=3)
+    del out_sp
+    bound_ms, bound_by, work = _bounds(chunks_run, S, fwd_bytes,
+                                       backward=True)
+    work.update(_tile_work(chunks_run))
+    d = (d_k - d_p).abs()
+    line = {"phase": "kernels", "kernel": "blend_bwd", "case": name,
+            "ok": r_ok, "deterministic": bool(torch.equal(d_k, d_k2)),
+            "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
+            "max_row_outlier_share": max(rows), "rel_tol": BWD_REL,
+            "max_outlier_share": MAX_OUTLIER_SHARE, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ms_queued": ms_queued,
+            "ms_heaviest_tile_alone": ms_alone, **work}
+    emit(line)
+    results.setdefault("blend_bwd", {})[name] = line
+    return r_ok
+
+
+def check_blend(results, name, args):
+    """Both blend kernels against their plain version on `args`."""
+    c_ok, out_k, out_p, chunks_run, fwd_bytes = check_blend_fwd(
+        results, name, args)
+    return c_ok & check_blend_bwd(results, name, args, out_k, out_p,
+                                  chunks_run, fwd_bytes)
+
+
+def phase_kernels(results):
+    import torch
 
     dev = torch.device("cuda")
     cases = [("mid_128px_8k", 8192, 16384, 128, 2 ** 17),
              ("bench_400px_100k", 100_000, 2 ** 17, 400, 2 ** 19)]
     ok = True
     for name, n_s, n_cap, img, dup in cases:
-        splat, starts, counts, grid_x, n_tiles, S = _slab_for(n_s, n_cap, img,
-                                                              dup, dev)
-        args = (splat, starts, counts, grid_x, n_tiles, S)
-        c_ok, out_k, out_p, chunks_run, fwd_bytes = check_blend_fwd(
-            results, name, args)
-        ok &= c_ok
-
-        rng = np.random.default_rng(7)
-        cot = torch.tensor(rng.standard_normal(tuple(out_k.shape)),
-                           dtype=torch.float32, device=dev)
-        cot[..., rb.c_out(S) - 2] = 0.0   # med_ord is an index
-        # the backward kernel replays the plain forward's totals and median
-        # order, so that both sides route the median gradient to one splat
-        d_k = rb.blend_bwd_cuda(splat, starts, counts, out_p, cot, grid_x,
-                                n_tiles, S)
-        torch.cuda.synchronize()
-        d_k2 = rb.blend_bwd_cuda(splat, starts, counts, out_p, cot, grid_x,
-                                 n_tiles, S)
-        torch.cuda.synchronize()
-        sp = splat.clone().requires_grad_(True)
-        out_sp = rb.blend_tiles_plain(sp, starts, counts, grid_x, n_tiles, S)
-        (d_p,) = torch.autograd.grad(out_sp, sp, cot, retain_graph=True)
-        torch.cuda.synchronize()
-        rows = []
-        r_ok = bool(torch.equal(d_k, d_k2)) and bool(torch.isfinite(d_k).all())
-        for j in range(12 + rb.n_attr(S)):
-            scale = float(d_p[j].abs().max().clamp_min(1e-8))
-            dd = (d_k[j] - d_p[j]).abs()
-            share = float((dd > BWD_REL * scale).float().mean())
-            rows.append(share)
-            r_ok &= share <= MAX_OUTLIER_SHARE
-        ms = cuda_ms(lambda: rb.blend_bwd_cuda(splat, starts, counts, out_k,
-                                               cot, grid_x, n_tiles, S))
-        ms_queued = cuda_ms_queued(lambda: rb.blend_bwd_cuda(
-            splat, starts, counts, out_k, cot, grid_x, n_tiles, S))
-        alone = _heaviest_alone(counts, chunks_run)
-        ms_alone = cuda_ms_queued(lambda: rb.blend_bwd_cuda(
-            splat, starts, alone, out_k, cot, grid_x, n_tiles, S))
-        # the plain version's backward alone: autograd through its graph
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(out_sp, sp, cot,
-                                                       retain_graph=True),
-                           reps=3)
-        del out_sp
-        bound_ms, bound_by, work = _bounds(chunks_run, S, fwd_bytes,
-                                           backward=True)
-        work.update(_tile_work(chunks_run))
-        d = (d_k - d_p).abs()
-        line = {"phase": "kernels", "kernel": "blend_bwd", "case": name,
-                "ok": r_ok, "deterministic": bool(torch.equal(d_k, d_k2)),
-                "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
-                "max_row_outlier_share": max(rows), "rel_tol": BWD_REL,
-                "max_outlier_share": MAX_OUTLIER_SHARE, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "ms_queued": ms_queued,
-                "ms_heaviest_tile_alone": ms_alone, **work}
-        emit(line)
-        results.setdefault("blend_bwd", {})[name] = line
-        ok &= r_ok
+        ok &= check_blend(results, name, _slab_for(n_s, n_cap, img, dup, dev))
     if not ok:
         fail("kernels", "a kernel disagrees with its plain version")
 
@@ -433,10 +458,56 @@ def phase_stage2_small():
         fail("stage2_small", "the step on the card disagrees with the CPU path")
 
 
+class FirstCalls:
+    """Patch functions of modules to keep the arguments of their first call
+    (tensors as given; `clone` names the argument positions to copy, for
+    inputs the caller overwrites or frees), and undo it on exit."""
+
+    def __init__(self, targets, clone=()):
+        self.targets, self.clone, self.args = targets, set(clone), {}
+        self.orig = {}
+
+    def __enter__(self):
+        for name, (mod, attr) in self.targets.items():
+            fn = self.orig[name] = getattr(mod, attr)
+
+            def rec(*a, _name=name, _fn=fn, **kw):
+                if _name not in self.args:
+                    self.args[_name] = tuple(
+                        x.clone() if i in self.clone and hasattr(x, "clone")
+                        else x for i, x in enumerate(a))
+                return _fn(*a, **kw)
+            setattr(mod, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.orig[name])
+
+
+def check_recorded(results, rec, name):
+    """The kernels against their plain versions on the inputs a main path
+    gave them (FirstCalls of rb.blend_tiles and gt.gather_rows_kernel)."""
+    ok = True
+    if "blend" in rec.args:
+        ok &= check_blend(results, name, tuple(
+            x.detach() if hasattr(x, "detach") else x
+            for x in rec.args["blend"]))
+    if "gather" in rec.args:
+        table, idx = rec.args["gather"]
+        ok &= check_gather(results, f"{name}_first_pass_{idx.shape[0]}x"
+                           f"{table.shape[1]}", table, idx)
+    if not ok or len(rec.args) != len(rec.targets):
+        fail("kernels", f"a kernel differs from its plain version on the "
+             f"inputs of {name} (recorded: {sorted(rec.args)})")
+
+
 def phase_stage2(results, n_warm=1, n_timed=5):
     """stage2_step at the bench workload, on the card."""
     import torch
     from irgs_tpu_torch import workload
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import grid_tracer as gt
     from irgs_tpu_torch.ops import raster_blend as rb
     from irgs_tpu_torch.train import stage2 as s2
 
@@ -459,11 +530,18 @@ def phase_stage2(results, n_warm=1, n_timed=5):
                                   gt_img, None, draws, st=st)
         return m
 
-    for i in range(n_warm):
+    # the warm step records the gather's first real inputs, held against
+    # the plain version before the timed steps measure peak memory
+    with FirstCalls({"gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec:
+        step(0)
+    check_recorded(results, rec, "stage2")
+    del rec
+    for i in range(1, n_warm):
         step(i)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rb.reset_launches()                      # count the main path only
+    gr.reset_launches()
     times, metrics = [], []
     for i in range(n_warm, n_warm + n_timed):
         a = time.perf_counter()
@@ -471,7 +549,7 @@ def phase_stage2(results, n_warm=1, n_timed=5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - a) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = dict(rb.LAUNCHES)
+    launches = {**rb.LAUNCHES, **gr.LAUNCHES}
     last = metrics[-1]
     results.setdefault("launches", {})["stage2"] = launches
     line = {"phase": "stage2", "steps_timed": n_timed,
@@ -497,6 +575,7 @@ def phase_stage2(results, n_warm=1, n_timed=5):
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
+    results["stage2"] = line
     if not line["ok"]:
         fail("stage2", f"checks failed: {checks}")
 
@@ -515,7 +594,7 @@ EVAL_MAX_OUTLIER_SHARE = 0.01
 # chunk of 4096 pixels x 32 = 2^17 rays, so the chunked trace path runs), a
 # grid-16 eval tracer with adaptive, select_topk and the gather kernel
 EVAL_SMALL = dict(n_surface=2000, n_capacity=2048, img=64, diffuse=32,
-                  light=0, pallas_gather=8,
+                  light=0,
                   tracer=dict(grid_res=16, pair_capacity=2 ** 15,
                               max_cells=8, max_hits=24, select_tiles=4,
                               retrace_select_tiles=8, hit_budget=8,
@@ -523,6 +602,9 @@ EVAL_SMALL = dict(n_surface=2000, n_capacity=2048, img=64, diffuse=32,
                               retrace_max_crossings=16, retrace_max_cells=12,
                               retrace_max_hits=48),
                   dup_capacity=2 ** 16)
+# the merged trace on the card against the CPU is held to eval_small's
+# bounds: the same outlier share, and its bound on max |Δ|
+MERGED_TRACE_MAX_ABS = 1.0 / EVAL_SMALL["diffuse"]
 
 
 def phase_eval_small():
@@ -651,9 +733,11 @@ def phase_eval(results):
         return out, stats
 
     out_k, st_k = frame(ecfg)
-    plain_cfg = dataclasses.replace(
-        ecfg, tracer=dataclasses.replace(ecfg.tracer, pallas_gather=0))
-    out_p, st_p = frame(plain_cfg)
+    gt.gather_rows_kernel = gr.gather_rows_plain     # the "off" frame
+    try:
+        out_p, st_p = frame(ecfg)
+    finally:
+        gt.gather_rows_kernel = kernel
     results.setdefault("launches", {})["eval"] = st_k["launches"]
 
     equal = {k: bool(torch.equal(out_k[k], out_p[k])) for k in out_k}
@@ -696,6 +780,395 @@ def phase_eval(results):
         fail("eval", f"checks failed: {checks}")
 
 
+def write_blender_dataset(root, params, aux, cams, spp, white):
+    """A Blender-layout folder of `cams`: ground truth rendered from the
+    scene by render_ir_eval at `spp` diffuse samples, stored as RGBA PNG
+    (straight colour, alpha from the render) through utils/png.py."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.config import Config
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.render.eval import EvalConfig, render_ir_eval
+    from irgs_tpu_torch.utils import png
+
+    dev = params.xyz.device
+    w, h = cams[0].width, cams[0].height
+    ecfg = EvalConfig(img_w=w, img_h=h, diffuse_sample_num=spp,
+                      light_sample_num=0, white_background=white,
+                      tracer=gt.TracerConfig.from_pipe(Config().pipe, eval=True))
+    grid = gt.build_grid_from_gaussians(params, aux, ecfg.tracer)
+    os.makedirs(os.path.join(root, "train"))
+    frames = []
+    for i, cam in enumerate(cams):
+        out = render_ir_eval(params, aux, grid, cam.params(dev), ecfg)
+        a = out["rend_alpha"]
+        bg = 1.0 if white else 0.0
+        rgb = torch.where(a > 0, (out["render"] - bg * (1 - a))
+                          / torch.clamp(a, min=1e-6), torch.zeros_like(a))
+        rgba = torch.cat([rgb, a], -1).clamp(0, 1).cpu().numpy()
+        png.write_png(os.path.join(root, "train", f"r_{i}.png"),
+                      (rgba * 255 + 0.5).astype(np.uint8))
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = cam.R, cam.cam_pos
+        c2w[:3, 1:3] *= -1                  # COLMAP -> Blender axes
+        frames.append({"file_path": f"./train/r_{i}",
+                       "transform_matrix": c2w.tolist()})
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": cams[0].fovx, "frames": frames}, f)
+
+
+class StepMeter:
+    """Wraps stage2_step (the CLI looks it up on its module at each step):
+    each step's wall time, synchronised on both sides, its peak memory, and
+    the kernel launches inside it; the run's peak memory is kept across
+    the per-step resets."""
+
+    def __init__(self):
+        from irgs_tpu_torch.train import stage2 as s2
+        self.mod, self.orig, self.steps, self.run_peak = s2, s2.stage2_step, [], 0
+
+    def _launches(self):
+        from irgs_tpu_torch.ops import gather_rows as gr
+        from irgs_tpu_torch.ops import raster_blend as rb
+        return {**rb.LAUNCHES, **gr.LAUNCHES}
+
+    def __call__(self, *a, **kw):
+        import torch
+        torch.cuda.synchronize()
+        self.run_peak = max(self.run_peak, torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        before, t = self._launches(), time.perf_counter()
+        out = self.orig(*a, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        self.run_peak = max(self.run_peak, peak)
+        self.steps.append({"ms": ms, "peak": peak, "launches": {
+            k: v - before[k] for k, v in self._launches().items()}})
+        return out
+
+    def __enter__(self):
+        self.mod.stage2_step = self
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.mod.stage2_step = self.orig
+        self.run_peak = max(self.run_peak, torch.cuda.max_memory_allocated())
+
+
+class Timed:
+    """Patch functions of modules to record the synchronised wall time of
+    each call (seconds, by name), and undo it on exit."""
+
+    def __init__(self, targets):
+        self.targets, self.seconds, self.orig = targets, {}, {}
+
+    def __enter__(self):
+        import torch
+        for name, (mod, attr) in self.targets.items():
+            fn = self.orig[name] = getattr(mod, attr)
+
+            def timed(*a, _name=name, _fn=fn, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds.setdefault(_name, []).append(
+                    time.perf_counter() - t)
+                return out
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.orig[name])
+
+
+def run_cli(argv):
+    """python -m irgs_tpu_torch.train, in-process, from the main path's
+    launch counts at 0; -> (launches, seconds)."""
+    import torch
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.train.__main__ import main as train_main
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rb.reset_launches()
+    gr.reset_launches()
+    t = time.perf_counter()
+    train_main(argv)
+    torch.cuda.synchronize()
+    return {**rb.LAUNCHES, **gr.LAUNCHES}, time.perf_counter() - t
+
+
+def read_log(run):
+    with open(os.path.join(run, "train_log.jsonl")) as f:
+        return {m["iter"]: m for m in map(json.loads, f)}
+
+
+# the CLI at the BENCH budgets (workload.BENCH: 2^18 trace rays at 256
+# diffuse samples, dup capacity 2^19, capacity 2^17)
+CLI_BENCH = ["--dup_capacity", "524288", "--trace_num_rays", "262144",
+             "--diffuse_sample_num", "256", "--max_gaussians", "131072"]
+
+
+def phase_train_cli(results, tmp):
+    """python -m irgs_tpu_torch.train at full width: the BENCH sphere
+    (100k surfels) as start.ply, 8 ring views at 400x400 as a Blender
+    folder, 100 iterations with checkpoints and visualisations every 50;
+    then a resume from chkpnt50 for 5 iterations."""
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.render import eval as reval
+    from irgs_tpu_torch.scene import gaussians as G
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.train import stage2 as s2
+    from irgs_tpu_torch.utils import png
+
+    dev = torch.device("cuda")
+    b = workload.BENCH
+    t0 = time.perf_counter()
+    params, aux = toy.make_sphere_scene(n_surface=b["n_surface"],
+                                        n_capacity=b["n_capacity"],
+                                        env_resolution=128, device=dev)
+    scene, run = os.path.join(tmp, "sphere"), os.path.join(tmp, "run")
+    ply = os.path.join(tmp, "start.ply")
+    G.save_ply(ply, params, aux)
+    cams = toy.make_ring_cameras(8, width=b["img"], height_px=b["img"])
+    write_blender_dataset(scene, params, aux, cams, spp=32, white=False)
+    del params, aux
+    data_s = time.perf_counter() - t0
+
+    n_it = 100
+    extras = {"vis_frame": (reval, "render_ir_eval"),
+              "checkpoint": (s2, "save_stage2_checkpoint"),
+              "ply": (G, "save_ply")}
+    with StepMeter() as meter, Timed(extras) as timed:
+        launches, cli_s = run_cli(
+            ["-s", scene, "-m", run, "--start_ply", ply, "--iterations",
+             str(n_it), "--checkpoint_interval", "50", "--vis_interval", "50",
+             *CLI_BENCH])
+    log = read_log(run)
+    window = meter.steps[50:100]                 # iterations 51..100
+    per_step = {k: [st["launches"][k] for st in meter.steps]
+                for k in launches}
+    files = sorted(os.path.relpath(os.path.join(d, f), run)
+                   for d, _, fs in os.walk(run) for f in fs)
+    vis_shapes = {f: list(png.read_png(os.path.join(run, f)).shape)
+                  for f in files if f.endswith(".png")}
+    stage2 = results.get("stage2", {})
+
+    # resume from chkpnt50 into a second model dir for 5 iterations
+    run2 = os.path.join(tmp, "resumed")
+    _, resume_s = run_cli(["-s", scene, "-m", run2, "--start_checkpoint",
+                           os.path.join(run, "chkpnt50.ckpt"), "--iterations",
+                           "55", "--vis_interval", "0", *CLI_BENCH])
+    ck55 = os.path.join(run2, "chkpnt55.ckpt")
+    ck = torch.load(ck55, weights_only=True) if os.path.exists(ck55) else None
+    results.setdefault("launches", {})["train_cli"] = launches
+    line = {
+        "phase": "train_cli", "data_s": data_s, "cli_s": cli_s,
+        "resume_s": resume_s,
+        # the CLI's own clock: logged elapsed between iterations 50 and
+        # 100 (rounded to 0.1 s; includes the visualisation frame and the
+        # checkpoint of iteration 50)
+        "ms_per_step_log_50_100": (log[100]["elapsed"] - log[50]["elapsed"])
+        / 50 * 1e3,
+        "ms_per_step_median_51_100": statistics.median(st["ms"]
+                                                       for st in window),
+        "ms_per_step_mean_51_100": statistics.fmean(st["ms"] for st in window),
+        "stage2_phase_ms_per_step": stage2.get("ms_per_step"),
+        "stage2_phase_max_memory_allocated": stage2.get(
+            "max_memory_allocated"),
+        "step_max_memory_allocated": max(st["peak"] for st in meter.steps),
+        # the steps whose loss is checked (1, 50, 100) also hold a copy of
+        # the state from before them, for the reproducer
+        "step_max_memory_allocated_unchecked": max(
+            st["peak"] for i, st in enumerate(meter.steps, 1)
+            if i % 50 and i != 1),
+        "extra_s": timed.seconds,
+        "run_max_memory_allocated": meter.run_peak,
+        "launches": launches,
+        "launches_per_step": {k: sorted(set(v)) for k, v in per_step.items()},
+        "ray_psnr_final": log[n_it]["ray_psnr"], "loss_final": log[n_it]["loss"],
+        "ray_psnr_first": log[1]["ray_psnr"],
+        "raster_overflow": max(m["raster_overflow"] for m in log.values()),
+        "grid_oversize": log[n_it]["grid_oversize"],
+        "trace_more_frac": log[n_it].get("trace_more_frac"),
+        "files": files, "png_shapes": vis_shapes,
+    }
+    checks = {
+        "logged_1_50_100": sorted(log) == [1, 50, 100],
+        "loss_finite": all(math.isfinite(m["loss"]) for m in log.values()),
+        "raster_overflow_zero": line["raster_overflow"] == 0.0,
+        "blend_once_per_step": all(set(per_step[k]) == {1}
+                                   for k in ("blend_fwd", "blend_bwd")),
+        "gather_every_step": min(per_step["gather_rows"]) > 0,
+        "vis_pngs_decode": len(vis_shapes) == 6 and all(
+            len(v) == 3 and v[2] == 3 for v in vis_shapes.values()),
+        "ply_and_sidecars": all(f"point_cloud/iteration_100/point_cloud{x}"
+                                in files for x in (".ply", "_env.npy",
+                                                   "1.exr", "1.map")),
+        "checkpoints": {"chkpnt50.ckpt", "chkpnt100.ckpt"} <= set(files),
+        "resumed_chkpnt55": ck is not None and ck["step"] == 55 and all(
+            bool(torch.isfinite(v).all()) for v in ck["params"].values()),
+    }
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("train_cli", f"checks failed: {checks}")
+
+
+def _shadow_trace_case(dev):
+    """The oversize test's small shadow scene (tests/test_torch_oversize.py:
+    200 ground + 300 sphere surfels, grid 16, oversize cap 64) as tracer
+    inputs, grid and rays on `dev`, built on the CPU and moved."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.utils import math3d
+
+    params, aux = toy.make_shadow_scene(n_ground=200, n_sphere=300,
+                                        n_capacity=512, env_resolution=16,
+                                        device="cpu")
+    cfg = gt.TracerConfig(grid_res=16, pair_capacity=2 ** 16, max_cells=8,
+                          max_hits=24, hit_budget=16, max_crossings=12,
+                          select_tiles=8, tile=32, tiled_direct=True,
+                          n_segments=4, retrace_frac=0.5, oversize_cap=64)
+    with torch.no_grad():
+        s = params.get_scaling()
+        R = math3d.quat_to_rotmat(params.rotation)
+        inputs = gt.TraceInputs(
+            means3d=params.xyz,
+            opacity=torch.where(aux.alive, params.get_opacity()[:, 0], 0.0),
+            ru=R[:, :, 0] / s[:, 0:1], rv=R[:, :, 1] / s[:, 1:2],
+            normals=params.world_normals(
+                cam_pos=torch.tensor([3.0, 0.8, 0.0])),
+            shs=params.get_features(),
+            features=torch.cat([params.get_base_color(),
+                                params.get_roughness()], -1))
+        radius = gt.bounding_radius(inputs.opacity, s, cfg.alpha_min)
+    rng = np.random.default_rng(1)
+    ang = rng.uniform(0, 2 * np.pi, 256)
+    ro = np.stack([3 * np.cos(ang), 0.8 + 0.5 * rng.uniform(size=256),
+                   3 * np.sin(ang)], -1)
+    target = params.xyz.numpy()[rng.integers(0, 500, 256)]
+    rd = target - ro + 0.05 * rng.standard_normal((256, 3))
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    inputs = gt.TraceInputs(*[x.to(dev) for x in inputs])
+    grid = gt.build_grid(inputs.means3d, radius.to(dev), aux.alive.to(dev),
+                         grid_res=cfg.grid_res, pair_capacity=cfg.pair_capacity,
+                         span_cap=cfg.span_cap, normals=inputs.normals,
+                         oversize_cap=cfg.oversize_cap)
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    return inputs, grid, cfg, f32(ro), f32(rd)
+
+
+def phase_train_cli_oversize(results, tmp):
+    """The CLI on the shadow scene (make_shadow_scene at its default size,
+    4 ring views at 400x400, white background) for 3 iterations: the merge
+    switched on by itself, its grid counts and the step's peak memory; then
+    one merged trace_segments of the test's small shadow scene on the card
+    against the CPU."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.config import Config
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.scene import gaussians as G
+    from irgs_tpu_torch.scene import toy
+
+    dev = torch.device("cuda")
+    img = workload.BENCH["img"]
+    t0 = time.perf_counter()
+    params, aux = toy.make_shadow_scene(device=dev)
+    scene, run = os.path.join(tmp, "shadow"), os.path.join(tmp, "shadow_run")
+    ply = os.path.join(tmp, "shadow.ply")
+    G.save_ply(ply, params, aux)
+    write_blender_dataset(scene, params, aux,
+                          toy.make_ring_cameras(4, width=img, height_px=img),
+                          spp=32, white=True)
+    n_cap = params.n_capacity
+    # the oversize count the CLI finds before it switches the merge on
+    lp, la = G.load_ply(ply, n_cap, device=dev)
+    n_ov_before = int(gt.build_grid_from_gaussians(
+        lp, la, gt.TracerConfig.from_pipe(Config().pipe)).oversize)
+    del params, aux, lp, la
+    data_s = time.perf_counter() - t0
+
+    with StepMeter() as meter, FirstCalls(
+            {"blend": (rb, "blend_tiles"),
+             "gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec:
+        launches, cli_s = run_cli(
+            ["-s", scene, "-m", run, "--start_ply", ply, "-w",
+             "--iterations", "3", "--checkpoint_interval", "0",
+             "--vis_interval", "0", *CLI_BENCH, "--max_gaussians",
+             str(n_cap)])
+    results.setdefault("launches", {})["train_cli_oversize"] = launches
+    log = read_log(run)
+    with open(os.path.join(run, "cfg.json")) as f:
+        cap = json.load(f)["pipe"]["tracer_oversize_cap"]
+    check_recorded(results, rec, "shadow_400px_12k")
+    del rec
+
+    # one merged trace_segments at the test's scale, card against CPU
+    outs, n_ids = {}, {}
+    for d in ("cpu", "cuda"):
+        inputs, grid, cfg, ro, rd = _shadow_trace_case(torch.device(d))
+        with torch.no_grad():
+            outs[d] = gt.trace_segments(ro, rd, grid, inputs, cfg=cfg,
+                                        sh_deg=3)
+        n_ids[d] = grid.oversize_ids.cpu()
+    fields = {}
+    tr_ok = bool(torch.equal(n_ids["cpu"], n_ids["cuda"]))
+    for name in gt.TraceOut._fields:
+        want = getattr(outs["cpu"], name).numpy()
+        got = getattr(outs["cuda"], name).cpu().numpy()
+        d = np.abs(got - want)
+        share = float((d > EVAL_ATOL + EVAL_RTOL * np.abs(want)).mean())
+        fields[name] = {"max_abs_err": float(d.max()), "outlier_share": share}
+        tr_ok &= (bool(np.isfinite(got).all()) and share <= EVAL_MAX_OUTLIER_SHARE
+                  and float(d.max()) <= MERGED_TRACE_MAX_ABS)
+    line = {
+        "phase": "train_cli_oversize", "data_s": data_s, "cli_s": cli_s,
+        "grid_oversize_before_cap": n_ov_before,
+        "tracer_oversize_cap": cap,
+        "grid_oversize_logged": log[1]["grid_oversize"],
+        "step_ms": [st["ms"] for st in meter.steps],
+        "step_max_memory_allocated": [st["peak"] for st in meter.steps],
+        "run_max_memory_allocated": meter.run_peak,
+        "launches": launches, "loss": log[1]["loss"],
+        "ray_psnr": log[1]["ray_psnr"],
+        "trace_more_frac": log[1].get("trace_more_frac"),
+        "merged_trace_card_vs_cpu": {
+            "oversize_ids": int((n_ids["cpu"] >= 0).sum()),
+            "rtol": EVAL_RTOL, "atol": EVAL_ATOL,
+            "max_outlier_share": EVAL_MAX_OUTLIER_SHARE,
+            "max_abs_bound": MERGED_TRACE_MAX_ABS, "fields": fields},
+    }
+    checks = {
+        "merge_auto_enabled": cap == min(128, ((n_ov_before + 31) // 32) * 32)
+        and n_ov_before > 0,
+        "fewer_truncated": log[1]["grid_oversize"] < n_ov_before,
+        "loss_finite": math.isfinite(log[1]["loss"]),
+        "three_steps": len(meter.steps) == 3,
+        "blend_every_step": all(st["launches"]["blend_fwd"] == 1
+                                and st["launches"]["blend_bwd"] == 1
+                                for st in meter.steps),
+        "merged_trace_matches_cpu": tr_ok,
+    }
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("train_cli_oversize", f"checks failed: {checks}")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -703,17 +1176,23 @@ KERNELS = {
     "blend_fwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:141",
-        cases={"stage2": "bench_400px_100k", "eval": "eval_400px_100k"}),
+        cases={"stage2": "bench_400px_100k", "eval": "eval_400px_100k",
+               "train_cli": "bench_400px_100k",
+               "train_cli_oversize": "shadow_400px_12k"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
-        cases={"stage2": "bench_400px_100k"}),
+        cases={"stage2": "bench_400px_100k", "train_cli": "bench_400px_100k",
+               "train_cli_oversize": "shadow_400px_12k"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
                   "tools/_prof_collect_parts.py:121; "
                   "tools/_prof_collect_parts.py:144"),
-        cases={"eval": "eval_first_pass"}),
+        # the CLI trains at the stage2 phase's shapes
+        cases={"eval": "eval_first_pass", "stage2": "stage2_first_pass",
+               "train_cli": "stage2_first_pass",
+               "train_cli_oversize": "shadow_400px_12k_first_pass"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -747,7 +1226,8 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small", "eval")
+PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small", "eval",
+          "train_cli", "train_cli_oversize")
 
 
 def nvidia_smi_line():
@@ -777,21 +1257,27 @@ def main():
         sys.exit(3)
     import irgs_tpu_torch  # noqa: F401  (precision flags)
 
-    results = {}
+    import tempfile
+    results, wall = {}, {}
     t0 = time.perf_counter()
-    if "build" in phases:
-        phase_build()
-    if "kernels" in phases:
-        phase_kernels(results)
-        phase_kernels_gather(results)
-    if "stage2_small" in phases:
-        phase_stage2_small()
-    if "stage2" in phases:
-        phase_stage2(results)
-    if "eval_small" in phases:
-        phase_eval_small()
-    if "eval" in phases:
-        phase_eval(results)
+    with tempfile.TemporaryDirectory(prefix="irgs_chip_smoke_") as tmp:
+        runs = {
+            "build": phase_build,
+            "kernels": lambda: (phase_kernels(results),
+                                phase_kernels_gather(results)),
+            "stage2_small": phase_stage2_small,
+            "stage2": lambda: phase_stage2(results),
+            "eval_small": phase_eval_small,
+            "eval": lambda: phase_eval(results),
+            "train_cli": lambda: phase_train_cli(results, tmp),
+            "train_cli_oversize": lambda: phase_train_cli_oversize(results,
+                                                                   tmp),
+        }
+        for name in PHASES:
+            if name in phases:
+                a = time.perf_counter()
+                runs[name]()
+                wall[name] = round(time.perf_counter() - a, 1)
     summary = kernels_line(results)
     print(json.dumps(summary), flush=True)
     if set(phases) == set(PHASES):
@@ -800,7 +1286,8 @@ def main():
                 for p, c in k["by_path"].items() if not c["launches"]]
         if idle:
             fail("done", f"kernels not launched on their main path: {idle}")
-    emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1)})
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t0, 1),
+          "phase_wall_s": wall})
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

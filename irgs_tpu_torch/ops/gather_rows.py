@@ -3,11 +3,12 @@
 
 Replaces the Pallas TPU kernel ``_gather_kernel`` (``gather_rows``), a row
 gather with a rolling window of in-flight row DMAs, which the grid tracer's
-tiled select uses to fetch rows of the pair-ordered candidate table when
-``TracerConfig.pallas_gather`` > 0. The kernel (``csrc/gather_rows.cu``)
-copies rows of 32-bit words, so it serves f32 and int32 tables alike. It is
-bound by bytes; the card hides the row reads' latency with resident warps,
-so it has no counterpart to the TPU kernel's DMA window (see the source).
+tiled select uses to fetch rows of the pair-ordered candidate table (in the
+JAX package when ``TracerConfig.pallas_gather`` > 0; in the port for every
+table on the card). The kernel (``csrc/gather_rows.cu``) copies rows of
+32-bit words, so it serves f32 and int32 tables alike. It is bound by
+bytes; the card hides the row reads' latency with resident warps, so it has
+no counterpart to the TPU kernel's DMA window (see the source).
 
 ``gather_rows`` takes the plain version for tensors on the CPU only; for a
 CUDA tensor it launches the kernel or raises. It is not differentiable (the
@@ -83,11 +84,9 @@ def gather_rows_cuda(table, idx):
 
 
 @torch.no_grad()
-def gather_rows(table, idx, *, block_rows: int = 256, inflight: int = 8):
+def gather_rows(table, idx):
     """table [T, W], idx [M] int64 (caller-clamped to [0, T)) -> [M, W],
-    equal to ``table[idx]`` bit for bit. `block_rows` and `inflight` are the
-    TPU kernel's output block and DMA window; they are kept for its
-    signature and change nothing here. CPU tensors take the plain version,
+    equal to ``table[idx]`` bit for bit. CPU tensors take the plain version,
     CUDA tensors the kernel."""
     if table.device.type == "cpu":
         return gather_rows_plain(table, idx)

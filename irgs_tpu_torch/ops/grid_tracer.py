@@ -14,10 +14,14 @@ only ``blend_hits`` and the carried T are differentiated.
 
 Ported: the training and eval configurations of `TracerConfig.from_pipe`
 (tiled select, ``tiled_direct`` collection, unrolled re-trace rounds, and
-the eval switches: the re-trace capacity ladder `adaptive`, `select_topk`
-and `pallas_gather`, the row-gather kernel of ops/gather_rows.py). Not
-ported (raise NotImplementedError): the per-candidate select, `table_bf16`,
-`retrace_while` and the oversize merge (`oversize_cap` > 0).
+the eval switches: the re-trace capacity ladder `adaptive` and
+`select_topk`), and the exact oversize merge (`oversize_cap` > 0: the
+widest Gaussians leave the grid and are depth-merged into every hit list).
+On the card the select fetches its candidate rows with the row-gather
+kernel of ops/gather_rows.py; `pallas_gather`, the JAX package's switch for
+its Pallas gather, is kept as a config field and changes nothing here. Not
+ported (raise NotImplementedError): the per-candidate select, `table_bf16`
+and `retrace_while`.
 """
 
 from __future__ import annotations
@@ -93,7 +97,6 @@ class TracerConfig:
             "tiled_direct == False": not self.tiled_direct,
             "table_bf16": self.table_bf16,
             "retrace_while": self.retrace_while,
-            "oversize_cap > 0": self.oversize_cap > 0,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
@@ -175,7 +178,10 @@ class Grid(NamedTuple):
     cell_size: torch.Tensor     # [3]
     overflow: torch.Tensor      # scalar: pairs dropped by capacity
     oversize: torch.Tensor      # scalar: gaussians truncated to span_cap
-    oversize_ids: torch.Tensor  # [0]: the oversize merge is not ported
+    oversize_ids: torch.Tensor  # [oversize_cap] int64 ids of the Gaussians
+                                # kept OUT of the grid and depth-merged per
+                                # ray (merge_oversize); -1 padding. Shape
+                                # [0] when oversize_cap == 0
     coarse_occ: torch.Tensor    # [Gc^3] 0/1 occupancy of 4^3 supercells
 
 
@@ -244,24 +250,47 @@ def build_grid(means3d, radius, alive, *, grid_res: int, pair_capacity: int,
     """Uniform grid over per-Gaussian bounding spheres (≙ build_grid,
     :374-538). With `normals`, cells are culled to those the surfel's disk
     plane passes through. The two-key (cell, gaussian) sort is one sort on
-    cell·2^32 + gaussian."""
-    if oversize_cap > 0:
-        raise NotImplementedError("oversize_cap > 0 (oversize merge) not ported")
+    cell·2^32 + gaussian.
+
+    With `oversize_cap` > 0 a first pass takes the (up to) `oversize_cap`
+    widest Gaussians that span more than `span_cap` cells out of the grid
+    into `oversize_ids` (ties by the lower id, as lax.top_k), and the bounds
+    are computed again without them (:405-423). Gaussians still oversize
+    after that are truncated to a centered window and counted in
+    `oversize`."""
     g = grid_res
     n = means3d.shape[0]
     dev = means3d.device
 
-    rr = torch.where(alive, radius, torch.zeros_like(radius))
-    am = alive[:, None]
-    bmn = torch.where(am, means3d - rr[:, None], torch.full_like(means3d, math.inf)).amin(0)
-    bmx = torch.where(am, means3d + rr[:, None], torch.full_like(means3d, -math.inf)).amax(0)
-    bb_min = torch.where(torch.isinf(bmn), torch.full_like(bmn, -1.0), bmn) - 1e-3
-    bb_max = torch.where(torch.isinf(bmx), torch.full_like(bmx, 1.0), bmx) + 1e-3
-    cell = (bb_max - bb_min) / g
-    inv_cell = 1.0 / cell
-    lo = _floor_cell((means3d - rr[:, None] - bb_min) * inv_cell, g)
-    hi = _floor_cell((means3d + rr[:, None] - bb_min) * inv_cell, g)
-    oversize_mask = (alive & (rr > 0)) & torch.any(hi - lo + 1 > span_cap, dim=-1)
+    def bounds(alive_m):
+        rr = torch.where(alive_m, radius, torch.zeros_like(radius))
+        am = alive_m[:, None]
+        bmn = torch.where(am, means3d - rr[:, None],
+                          torch.full_like(means3d, math.inf)).amin(0)
+        bmx = torch.where(am, means3d + rr[:, None],
+                          torch.full_like(means3d, -math.inf)).amax(0)
+        bmn = torch.where(torch.isinf(bmn), torch.full_like(bmn, -1.0), bmn) - 1e-3
+        bmx = torch.where(torch.isinf(bmx), torch.full_like(bmx, 1.0), bmx) + 1e-3
+        cl = (bmx - bmn) / g
+        ic = 1.0 / cl
+        lo_ = _floor_cell((means3d - rr[:, None] - bmn) * ic, g)
+        hi_ = _floor_cell((means3d + rr[:, None] - bmn) * ic, g)
+        ov = (alive_m & (rr > 0)) & torch.any(hi_ - lo_ + 1 > span_cap, dim=-1)
+        return rr, bmn, cl, ic, lo_, hi_, ov
+
+    if oversize_cap > 0:
+        r_a, *_, ov_a = bounds(alive)
+        score = torch.where(ov_a, r_a, torch.full_like(r_a, -1.0))
+        top_i = _top_index(score, min(oversize_cap, n))
+        taken = score[top_i] > 0.0
+        ov_ids = torch.where(taken, top_i, torch.full_like(top_i, -1))
+        handled = torch.zeros(n, dtype=torch.bool, device=dev)
+        handled[top_i[taken]] = True
+        alive = alive & ~handled
+    else:
+        ov_ids = torch.zeros(0, dtype=torch.long, device=dev)
+
+    rr, bb_min, cell, inv_cell, lo, hi, oversize_mask = bounds(alive)
     n_oversize = oversize_mask.sum()
     span = torch.clamp(hi - lo + 1, max=span_cap)
     cc = _floor_cell((means3d - bb_min) * inv_cell, g)
@@ -346,8 +375,7 @@ def build_grid(means3d, radius, alive, *, grid_res: int, pair_capacity: int,
                 cell_meta=pack_cell_meta(start, per_cell),
                 bb_min=bb_min, inv_cell=inv_cell, cell_size=cell,
                 overflow=torch.clamp(total - pair_capacity, min=0),
-                oversize=n_oversize,
-                oversize_ids=torch.zeros(0, dtype=torch.long, device=dev),
+                oversize=n_oversize, oversize_ids=ov_ids,
                 coarse_occ=occ.reshape(-1).long())
 
 
@@ -618,8 +646,8 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     dedup by hit-cell == pair-cell, keep the `hit_budget` nearest: by the
     (depth, pair position) key, or with `select_topk` by (depth, lane), the
     stable top-k order of the reference — one int64 key, depth bits high.
-    With `pallas_gather` > 0 the table rows come through the row-gather
-    kernel (ops/gather_rows.py), else through plain indexing."""
+    The table rows come through ops/gather_rows.py: the row-gather kernel
+    for a table on the card, plain indexing for one on the CPU."""
     TILE, ST = cfg.tile, cfg.select_tiles
     S1 = ST * TILE
     R, C = cells.starts.shape
@@ -659,11 +687,7 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
                           zero(row_idx))
 
     # ONE row gather: [R·ST] tile rows of 11·TILE words
-    if cfg.pallas_gather:
-        rows = gather_rows_kernel(pair_tab, row_idx.reshape(-1),
-                                  inflight=cfg.pallas_gather)
-    else:
-        rows = pair_tab[row_idx.reshape(-1)]
+    rows = gather_rows_kernel(pair_tab, row_idx.reshape(-1))
     blocks = rows.view(R, ST, _TAB_COMPS, TILE)
     cols = [blocks[:, :, i, :].reshape(R, S1) for i in range(10)]
     pair_cid = blocks[:, :, 10, :].reshape(R, S1).view(torch.int32)
@@ -781,11 +805,56 @@ def blend_hits(ray_o, ray_d, inputs: TraceInputs, gs_s, valid_s,
         trans=trans)
 
 
-def merge_oversize(gs, valid, grid: Grid):
-    """The oversize merge; only its no-op (empty grid list) is ported."""
-    if grid.oversize_ids.shape[0] != 0:
-        raise NotImplementedError("merge_oversize with oversize gaussians")
-    return gs, valid
+def _f32_order(x):
+    """int64 keys that order like the float32 values `x` (negatives too)."""
+    b = _f32_bits(x).long()
+    return torch.where(b < 0, -(b & 0x7FFFFFFF) - 1, b)
+
+
+@torch.no_grad()
+def merge_oversize(gs, valid, more, t_last, ro, rd, geom, grid: Grid,
+                   cfg: TracerConfig, back_culling: bool, t_lo=None):
+    """Depth-merge the Gaussians kept out of the grid (Grid.oversize_ids)
+    into a selected hit list before the blend (≙ merge_oversize,
+    :1504-1554) -> ([R, kb + K] ids, valid), by the two-key (depth, id)
+    order as one stable int64 sort. A round accepts an oversize hit in the
+    window (t_lo, bound(t_hi)], where t_hi is the round's grid watermark
+    `t_last` while `more` grid matter may follow and INF once the traversal
+    is exhausted, and bound() is the next round's acceptance restart
+    t·(1 + 1e-5) + 1e-6: the windows of successive rounds partition the ray,
+    so each oversize hit is blended once, in depth order. Identity when the
+    grid holds no oversize list."""
+    K = grid.oversize_ids.shape[0]
+    if K == 0:
+        return gs, valid
+    ro, rd = ro.detach(), rd.detach()
+    ov = grid.oversize_ids
+    ov_c = torch.clamp(ov, min=0)
+    rows = geom[ov_c]                                         # [K, 13]
+    alpha, _, d = _hit_geom(
+        rows[None, :, 0:3], rows[None, :, 3], rows[None, :, 4:7],
+        rows[None, :, 7:10], rows[None, :, 10:13], ro[:, None], rd[:, None])
+    v = (ov >= 0)[None] & (alpha >= cfg.alpha_min) & (d > 1e-6)
+    if back_culling:
+        v = v & (torch.sum(rows[None, :, 10:13] * rd[:, None], -1) < 0)
+    t_hi = torch.where(more, t_last, torch.full_like(t_last, INF))
+    if t_lo is not None:
+        v = v & (d > t_lo[:, None])
+    v = v & (d <= t_hi[:, None] * (1.0 + 1e-5) + 1e-6)
+    # the grid hits' depths again from their geometry, as the reference
+    rows_e = geom[gs]                                         # [R, kb, 13]
+    _, _, d_e = _hit_geom(
+        rows_e[..., 0:3], rows_e[..., 3], rows_e[..., 4:7],
+        rows_e[..., 7:10], rows_e[..., 10:13], ro[:, None], rd[:, None])
+    R = gs.shape[0]
+    gs_all = torch.cat([gs, ov_c[None].expand(R, K)], dim=-1)
+    v_all = torch.cat([valid, v], dim=-1)
+    inf = torch.full_like(d, INF)
+    d_all = torch.cat([torch.where(valid, d_e, torch.full_like(d_e, INF)),
+                       torch.where(v, d, inf)], dim=-1)
+    order = torch.sort(_f32_order(d_all) * (1 << 32) + gs_all, dim=-1,
+                       stable=True).indices
+    return (torch.gather(gs_all, 1, order), torch.gather(v_all, 1, order))
 
 
 def _detached_geom(inputs: TraceInputs):
@@ -795,14 +864,21 @@ def _detached_geom(inputs: TraceInputs):
 def trace(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *, cfg: TracerConfig,
           sh_deg: int, back_culling: bool = False, cells=None,
           hits=None) -> TraceOut:
-    """Differentiable trace of [R, 3] rays; hit selection detached."""
+    """Differentiable trace of [R, 3] rays; hit selection detached. The
+    oversize Gaussians (if the grid has any) are merged into the hits."""
+    geom = None
     if hits is None:
         ro, rd = ray_o.detach(), ray_d.detach()
         if cells is None:
             cells = collect_cells(ro, rd, grid, cfg)
-        hits = select_hits(ro, rd, grid, cells, _detached_geom(inputs), cfg,
-                           back_culling)
-    gs, valid = merge_oversize(hits.gs, hits.valid, grid)
+        geom = _detached_geom(inputs)
+        hits = select_hits(ro, rd, grid, cells, geom, cfg, back_culling)
+    gs, valid = hits.gs, hits.valid
+    if grid.oversize_ids.shape[0] > 0:
+        if geom is None:
+            geom = _detached_geom(inputs)
+        gs, valid = merge_oversize(gs, valid, hits.more, hits.t_last, ray_o,
+                                   ray_d, geom, grid, cfg, back_culling)
     return blend_hits(ray_o, ray_d, inputs, gs, valid, cfg, sh_deg)
 
 
@@ -847,10 +923,11 @@ def _sel_chunk(cfg: TracerConfig) -> int:
     return max(2 ** 12, (2 ** 18 * 48) // max(width, 48))
 
 
-def _blend_chunk(cfg: TracerConfig) -> int:
-    """Rays per re-trace blend (:1694-1697): bounds the [rays, kb] gathers
-    of the blend."""
-    return max(2 ** 12, (2 ** 22) // max(min(cfg.hit_budget, cfg.max_hits), 1))
+def _blend_chunk(cfg: TracerConfig, n_oversize: int = 0) -> int:
+    """Rays per re-trace blend (:1694-1697): bounds the [rays, kb + K]
+    gathers of the blend (K merged oversize Gaussians)."""
+    kb = min(cfg.hit_budget, cfg.max_hits) + n_oversize
+    return max(2 ** 12, (2 ** 22) // max(kb, 1))
 
 
 def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
@@ -877,10 +954,18 @@ def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
                                  pair_tab=pair_tab))
     h2 = SelectedHits(*[torch.cat(xs) for xs in zip(*parts)])
     valid2 = h2.valid & picked[:, None]
-    gs2, valid2 = merge_oversize(h2.gs, valid2, grid)
-    # blend in bounded ray groups as well: the blend gathers [rays, kb]
+    gs2 = h2.gs
+    n_ov = grid.oversize_ids.shape[0]
+    if n_ov > 0:
+        # this round's oversize window: (t_accept, bound(new watermark)];
+        # rays not picked get an empty one
+        gs2, valid2 = merge_oversize(
+            gs2, valid2, h2.more, torch.maximum(h2.t_last, hits.t_last[idx]),
+            ro[idx], rd[idx], geom, grid, cfg, back_culling,
+            t_lo=torch.where(picked, t_accept, torch.full_like(t_accept, INF)))
+    # blend in bounded ray groups as well: the blend gathers [rays, kb + K]
     # rows of every per-Gaussian table
-    bc = _blend_chunk(cfg)
+    bc = _blend_chunk(cfg, n_ov)
     b_args = (ray_o[idx], ray_d[idx], gs2, valid2, out.trans[idx])
     segs = []
     for a in range(0, capacity, bc):
@@ -950,7 +1035,8 @@ def trace_segments(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *,
     pair_tab = _pair_tab_from_geom(grid, geom, cfg.tile)
     hits = select_hits(ro, rd, grid, cells, geom, cfg, back_culling,
                        pair_tab=pair_tab)
-    gs1, valid1 = merge_oversize(hits.gs, hits.valid, grid)
+    gs1, valid1 = merge_oversize(hits.gs, hits.valid, hits.more, hits.t_last,
+                                 ray_o, ray_d, geom, grid, cfg, back_culling)
     out = blend_hits(ray_o, ray_d, inputs, gs1, valid1, cfg, sh_deg)
     out, _ = retrace_rounds(out, hits, ray_o, ray_d, grid, inputs, cfg, sh_deg,
                             back_culling, pair_tab=pair_tab)

@@ -133,7 +133,6 @@ def main():
                "device_busy_share_unprofiled": dev_us / 1e3 / frame_ms,
                "gather_kernel_ms": gather_us / 1e3,
                "gather_kernel_launches": gather_n,
-               "pallas_gather": ecfg.tracer.pallas_gather,
                "card": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

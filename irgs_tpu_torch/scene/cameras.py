@@ -1,8 +1,8 @@
 """Cameras (≙ irgs_tpu/scene/cameras.py:22-134).
 
-`Camera` holds host-side numpy matrices; `Camera.params(device)` gives the
-small per-view tensors (`CameraParams`) the rasterizer and the G-buffer
-code consume.
+`Camera` holds host-side numpy matrices and, for a dataset view, its image
+and mask; `Camera.params(device)` gives the small per-view tensors
+(`CameraParams`) the rasterizer and the G-buffer code consume.
 """
 
 from __future__ import annotations
@@ -52,24 +52,50 @@ class CameraParams(NamedTuple):
 
 
 class Camera:
-    """One view with a pinhole of the given field of view."""
+    """One view: a pinhole of the given field of view (or intrinsics `K`).
+    With an `image` ([H, W, 3], clipped to [0, 1] as float32) the width and
+    height are the image's; without one they must be given."""
 
     def __init__(self, uid: int, R: np.ndarray, T: np.ndarray,
-                 fovx: float, fovy: float, width: int, height: int,
-                 znear: float = 0.01, zfar: float = 100.0):
+                 fovx: float, fovy: float, image: np.ndarray | None = None,
+                 image_name: str = "", mask: np.ndarray | None = None,
+                 znear: float = 0.01, zfar: float = 100.0,
+                 width: int | None = None, height: int | None = None,
+                 K: np.ndarray | None = None, image_path: str = ""):
         self.uid = uid
         self.R = R  # camera-to-world rotation
         self.T = T  # world-to-camera translation
         self.fovx, self.fovy = float(fovx), float(fovy)
-        self.width, self.height = int(width), int(height)
+        self.image_name = image_name
+        self.image_path = image_path
+        self.znear, self.zfar = znear, zfar
+        if image is not None:
+            self.image = np.clip(np.asarray(image, np.float32), 0.0, 1.0)
+            self.height, self.width = self.image.shape[:2]
+        else:
+            self.image = None
+            self.height, self.width = int(height), int(width)
+        self.mask = (None if mask is None else np.asarray(mask).astype(bool)
+                     .reshape(self.height, self.width))
+        self.K = None if K is None else np.asarray(K)
         self.w2c = math3d.world_to_view(R, T)
-        self.proj = math3d.projection_matrix(znear, zfar, self.fovx, self.fovy)
+        if K is None:
+            self.proj = math3d.projection_matrix(znear, zfar, self.fovx,
+                                                 self.fovy)
+        else:
+            self.proj = math3d.projection_matrix_from_K(
+                znear, zfar, self.height, self.width, K)
         self.full_proj = (self.proj @ self.w2c).astype(np.float32)
-        self.cam_pos = np.linalg.inv(self.w2c)[:3, 3].astype(np.float32)
-        self.fx = math3d.fov2focal(self.fovx, self.width)
-        self.fy = math3d.fov2focal(self.fovy, self.height)
-        self.cx = self.width / 2.0
-        self.cy = self.height / 2.0
+        self.c2w = np.linalg.inv(self.w2c)
+        self.cam_pos = self.c2w[:3, 3].astype(np.float32)
+        if K is None:
+            self.fx = math3d.fov2focal(self.fovx, self.width)
+            self.fy = math3d.fov2focal(self.fovy, self.height)
+            self.cx = self.width / 2.0
+            self.cy = self.height / 2.0
+        else:
+            self.fx, self.fy = float(K[0, 0]), float(K[1, 1])
+            self.cx, self.cy = float(K[0, 2]), float(K[1, 2])
 
     def params(self, device=None) -> CameraParams:
         """The camera as tensors on `device` (default cuda)."""

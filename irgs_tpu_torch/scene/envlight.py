@@ -27,6 +27,22 @@ def activate(env_raw, activation: str):
     raise NotImplementedError(activation)
 
 
+def init_env(resolution: int, init_value: float, activation: str = "exp",
+             device=None):
+    """Constant raw [resolution/2, resolution, 3] grid whose activation is
+    `init_value` (≙ irgs_tpu init_env, envlight.py:36-46)."""
+    h, w = resolution // 2, resolution
+    if activation == "exp":
+        raw = math.log(init_value)
+    elif activation == "sigmoid":
+        raw = math.log(init_value / (1 - init_value))
+    elif activation == "softplus":
+        raw = math.log(math.expm1(max(init_value, 1e-6)))
+    else:
+        raw = init_value
+    return torch.full((h, w, 3), raw, dtype=torch.float32, device=device)
+
+
 def dirs_to_uv(dirs):
     """[..., 3] unit dirs -> equirect (u, v) in [0, 1]²."""
     u = torch.atan2(dirs[..., 0], -dirs[..., 2]) / (2.0 * math.pi) + 0.5

@@ -69,3 +69,30 @@ class GaussianOptimizer:
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """Adam's moments and step count per trained group, keyed by group
+        name: {name: {"exp_avg", "exp_avg_sq", "step"}}; a group that has
+        not stepped yet has no entry."""
+        out = {}
+        for g in self.adam.param_groups:
+            st = self.adam.state.get(g["params"][0])
+            if st:
+                out[g["name"]] = {k: v.detach().clone() for k, v in st.items()}
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore what state_dict() returned onto this optimizer's groups.
+        The step counts stay on the CPU, where torch's Adam keeps them."""
+        names = {g["name"] for g in self.adam.param_groups}
+        unknown = set(state) - names
+        if unknown:
+            raise KeyError(f"optimizer state for groups this optimizer does "
+                           f"not train: {sorted(unknown)}")
+        for g in self.adam.param_groups:
+            p = g["params"][0]
+            self.adam.state.pop(p, None)
+            if g["name"] in state:
+                self.adam.state[p] = {
+                    k: v.detach().clone().to("cpu" if k == "step" else p.device)
+                    for k, v in state[g["name"]].items()}

@@ -14,6 +14,9 @@ torch.Generator, or handed in by a caller that wants the JAX draws).
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 from typing import NamedTuple
 
 import torch
@@ -254,3 +257,75 @@ def init_state(params: GaussianParams, aux: GaussianAux, opt_cfg,
         t.requires_grad_(True)
     return TrainState(params, aux, GaussianOptimizer(params, opt_cfg,
                                                      spatial_lr_scale))
+
+
+def state_tensors(state: TrainState) -> dict:
+    """A copy of the full state (params, alive mask, Adam moments, step) as
+    the nested dict of tensors a checkpoint holds. The copy is taken now:
+    the step updates the state in place."""
+    return {"params": {k: v.detach().clone()
+                       for k, v in state.params.tensors().items()},
+            "alive": state.aux.alive.clone(),
+            "active_sh_degree": state.aux.active_sh_degree,
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step}
+
+
+def save_stage2_checkpoint(path: str, state: TrainState, iteration: int):
+    """Mid-run capture of the full stage-2 state (≙ irgs_tpu
+    save_stage2_checkpoint, stage2.py:341-350), with the same manifest
+    keys."""
+    from ..utils.checkpoint import save_checkpoint
+    save_checkpoint(path, state_tensors(state), iteration, extra={
+        "kind": "stage2",
+        "n_capacity": int(state.params.n_capacity),
+        "sh_degree": int(state.params.max_sh_degree),
+        "env_shape": [int(s) for s in state.params.env.shape]})
+
+
+def latest_checkpoint(path: str) -> str | None:
+    """`path` itself, or for a directory its chkpnt*.ckpt of the highest
+    iteration (None if it has none)."""
+    if not os.path.isdir(path):
+        return path
+    ckpts = sorted(glob.glob(os.path.join(path, "chkpnt*.ckpt")),
+                   key=lambda q: int("".join(filter(str.isdigit,
+                                                    os.path.basename(q)))))
+    return ckpts[-1] if ckpts else None
+
+
+def load_stage2_checkpoint(path: str, opt_cfg, device=None,
+                           spatial_lr_scale: float = 1.0):
+    """Restore a full stage-2 TrainState for in-place resume on `device`
+    (≙ irgs_tpu load_stage2_checkpoint, stage2.py:353-382). `path` is a
+    chkpnt*.ckpt file or a stage-2 model dir (latest taken). Returns
+    (state, iteration)."""
+    from .. import resolve_device
+    from ..scene.gaussians import PARAM_FIELDS, empty_params
+    from ..utils.checkpoint import load_checkpoint
+
+    device = resolve_device(device)
+    ckpt = latest_checkpoint(path)
+    if ckpt is None:
+        raise FileNotFoundError(f"no chkpnt*.ckpt under {path}")
+    with open(ckpt + ".json") as f:
+        manifest = json.load(f)
+    if manifest.get("kind") != "stage2":
+        raise ValueError(f"{ckpt} is not a stage-2 checkpoint "
+                         f"(kind={manifest.get('kind')!r})")
+    tensors, _ = load_checkpoint(ckpt, device)
+    params, aux = empty_params(int(manifest["n_capacity"]),
+                               int(manifest["sh_degree"]),
+                               tuple(manifest["env_shape"]), device)
+    for f in PARAM_FIELDS:
+        dst, src = getattr(params, f), tensors["params"][f]
+        if dst.shape != src.shape:
+            raise ValueError(f"{ckpt}: {f} has shape {tuple(src.shape)}, the "
+                             f"manifest gives {tuple(dst.shape)}")
+        dst.copy_(src)
+    aux.alive.copy_(tensors["alive"])
+    aux.active_sh_degree = int(tensors["active_sh_degree"])
+    state = init_state(params, aux, opt_cfg, spatial_lr_scale)
+    state.optimizer.load_state_dict(tensors["optimizer"])
+    state.step = int(tensors["step"])
+    return state, int(manifest["iteration"])

@@ -155,5 +155,28 @@ def projection_matrix(znear: float, zfar: float, fovx: float,
     return P
 
 
+def projection_matrix_from_K(znear: float, zfar: float, H: int, W: int,
+                             K: np.ndarray) -> np.ndarray:
+    """Perspective projection from intrinsics K (≙ irgs_tpu
+    projection_matrix_from_K, the reference's getProjectionMatrixCorrect)."""
+    top = K[1, 2] / K[1, 1] * znear
+    bottom = -(H - K[1, 2]) / K[1, 1] * znear
+    right = K[0, 2] / K[0, 0] * znear
+    left = -(W - K[0, 2]) / K[0, 0] * znear
+    P = np.zeros((4, 4), dtype=np.float32)
+    P[0, 0] = 2.0 * znear / (right - left)
+    P[1, 1] = 2.0 * znear / (top - bottom)
+    P[0, 2] = (right + left) / (right - left)
+    P[1, 2] = (top + bottom) / (top - bottom)
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return P
+
+
 def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2 * math.atan(pixels / (2 * focal))

@@ -10,9 +10,9 @@ training tracer of `TracerConfig.from_pipe`.
 `EVAL` is the NVS eval frame of the JAX package's `tools/bench_frame.py` at
 `render.py`'s sample counts: the same scene, ring camera 0 at 400x400,
 `EvalConfig` defaults (dup capacity 2^21, 2^20 point samples per chunk),
-256 diffuse and 0 light samples, the eval tracer of
-`TracerConfig.from_pipe(..., eval=True)` and the row-gather kernel
-(`pallas_gather` 8).
+256 diffuse and 0 light samples, and the eval tracer of
+`TracerConfig.from_pipe(..., eval=True)` (on the card its tiled select
+fetches candidate rows with the row-gather kernel).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import dataclasses
 BENCH = dict(n_surface=100_000, n_capacity=2 ** 17, img=400, spp=256,
              rays=2 ** 18, dup=2 ** 19)
 EVAL = dict(n_surface=100_000, n_capacity=2 ** 17, img=400, diffuse=256,
-            light=0, pallas_gather=8)
+            light=0)
 
 
 def stage2_setup(n_surface: int, n_capacity: int, img: int, spp: int,
@@ -53,7 +53,7 @@ def stage2_setup(n_surface: int, n_capacity: int, img: int, spp: int,
 
 
 def eval_setup(n_surface: int, n_capacity: int, img: int, diffuse: int,
-               light: int, pallas_gather: int, device=None,
+               light: int, device=None,
                tracer: dict | None = None, **eval_fields):
     """-> (params, aux, Grid, CameraParams of ring camera 0, EvalConfig) on
     `device` (default cuda). `tracer` overrides TracerConfig fields of the
@@ -72,7 +72,7 @@ def eval_setup(n_surface: int, n_capacity: int, img: int, diffuse: int,
     cam = toy.make_ring_cameras(1, width=img, height_px=img)[0].params(device)
     tcfg = dataclasses.replace(gt.TracerConfig.from_pipe(Config().pipe,
                                                          eval=True),
-                               pallas_gather=pallas_gather, **(tracer or {}))
+                               **(tracer or {}))
     ecfg = EvalConfig(img_w=img, img_h=img, active_sh_degree=3,
                       diffuse_sample_num=diffuse, light_sample_num=light,
                       tracer=tcfg, **eval_fields)

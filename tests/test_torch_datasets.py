@@ -1,0 +1,164 @@
+"""The port's dataset readers (irgs_tpu_torch.scene.datasets) against the JAX
+package's, on folders written here: a 4-view 32x32 Blender scene (RGBA PNG
+frames through PIL, points3d.ply), a Synthetic4Relight scene (EXR train and
+PNG test frames) and a TensoIR one."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from irgs_tpu.scene import datasets as jds
+from irgs_tpu.utils import exr as jexr
+from irgs_tpu.utils import ply as jply
+from irgs_tpu_torch.scene import datasets as tds
+
+RES, N_VIEWS = 32, 4
+
+
+def _c2w(i, rng):
+    """A camera-to-world matrix in the Blender convention (y up, z back),
+    looking roughly at the origin from a ring."""
+    ang = 2 * np.pi * i / N_VIEWS + 0.3 * rng.standard_normal()
+    pos = np.array([3 * np.cos(ang), 0.8 + 0.2 * rng.standard_normal(),
+                    3 * np.sin(ang)])
+    back = pos / np.linalg.norm(pos)
+    right = np.cross([0.0, 1.0, 0.0], back)
+    right /= np.linalg.norm(right)
+    up = np.cross(back, right)
+    m = np.eye(4)
+    m[:3, :3] = np.stack([right, up, back], -1)
+    m[:3, 3] = pos
+    return m
+
+
+def _write_frames(root, split, frames, ext, rng):
+    os.makedirs(os.path.join(root, split), exist_ok=True)
+    yy, xx = np.mgrid[:RES, :RES]
+    alpha = np.clip(1.5 - np.hypot(xx - 15.5, yy - 15.5) / 8, 0, 1)
+    for fr in frames:
+        path = os.path.join(root, fr["file_path"] + ext)
+        rgb = rng.uniform(size=(RES, RES, 3))
+        if ext.endswith(".exr"):
+            jexr.write_exr(path, (4 * rgb).astype(np.float32))
+        else:
+            rgba = np.concatenate([rgb, alpha[..., None]], -1)
+            Image.fromarray((rgba * 255).round().astype(np.uint8)).save(path)
+
+
+def _write_scene(root, train_ext, test_ext, seed=0, points=True):
+    rng = np.random.default_rng(seed)
+    for split, n, ext in (("train", N_VIEWS, train_ext), ("test", 2, test_ext)):
+        frames = [{"file_path": f"./{split}/r_{i}",
+                   "transform_matrix": _c2w(i, rng).tolist()} for i in range(n)]
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.69, "frames": frames}, f)
+        _write_frames(root, split, frames, ext, rng)
+    if points:
+        v = np.zeros(50, [("x", "f4"), ("y", "f4"), ("z", "f4"),
+                          ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+        for k in ("x", "y", "z"):
+            v[k] = rng.standard_normal(50)
+        for k in ("red", "green", "blue"):
+            v[k] = rng.integers(0, 256, 50)
+        jply.write_ply(os.path.join(root, "points3d.ply"), v)
+    return root
+
+
+@pytest.fixture(scope="module")
+def scenes(tmp_path_factory):
+    base = tmp_path_factory.mktemp("data")
+
+    def mk(*parts):
+        path = base.joinpath(*parts)
+        path.mkdir(parents=True)
+        return str(path)
+
+    return {
+        "blender": _write_scene(mk("nerf_synthetic", "lego"), ".png", ".png"),
+        "s4r": _write_scene(mk("Synthetic4Relight", "hotdog"), "_rgb.exr",
+                            "_rgba.png", seed=1),
+        "tensoir": _write_scene(mk("TensoIR", "armadillo"), ".png", ".png",
+                                seed=2, points=False),
+    }
+
+
+def _assert_scene_equal(j, t):
+    assert t.light_rotate == j.light_rotate
+    assert t.radius == j.radius
+    np.testing.assert_array_equal(t.translate, j.translate)
+    for name in ("points", "colors"):
+        a, b = getattr(j, name), getattr(t, name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(b, a)
+    assert len(t.train_cameras) == len(j.train_cameras)
+    assert len(t.test_cameras) == len(j.test_cameras)
+    for jc, tc in zip(j.train_cameras + j.test_cameras,
+                      t.train_cameras + t.test_cameras):
+        for name in ("R", "T", "image", "full_proj", "w2c", "cam_pos"):
+            a, b = getattr(jc, name), getattr(tc, name)
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(b, a, err_msg=name)
+        if jc.mask is None:
+            assert tc.mask is None
+        else:
+            np.testing.assert_array_equal(tc.mask, jc.mask)
+        assert (tc.fovx, tc.fovy, tc.width, tc.height, tc.image_name,
+                tc.image_path) == (jc.fovx, jc.fovy, jc.width, jc.height,
+                                   jc.image_name, jc.image_path)
+        jp, tp = jc.params(), tc.params("cpu")
+        for name in jp._fields:
+            np.testing.assert_allclose(np.asarray(getattr(tp, name)),
+                                       np.asarray(getattr(jp, name)),
+                                       atol=1e-6, rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["blender", "s4r", "tensoir"])
+@pytest.mark.parametrize("white", [False, True])
+def test_load_scene_matches_jax(scenes, kind, white):
+    j = jds.load_scene(scenes[kind], white, eval_split=True)
+    t = tds.load_scene(scenes[kind], white, eval_split=True)
+    _assert_scene_equal(j, t)
+    assert t.light_rotate == (kind != "blender")
+    cam = t.train_cameras[0]
+    assert cam.image.shape == (RES, RES, 3)
+    assert (cam.mask is None) == (kind == "s4r")
+    np.testing.assert_array_equal(tds.LIGHT_ROTATE_TRANSFORM,
+                                  jds.LIGHT_ROTATE_TRANSFORM)
+
+
+def test_downscale_r2_matches_cv2_inter_area(scenes):
+    """-r 2: the port's box average against the JAX package's cv2
+    INTER_AREA, images and intrinsics within 1e-6, masks equal."""
+    j = jds.load_scene(scenes["blender"], False, eval_split=True, resolution=2)
+    t = tds.load_scene(scenes["blender"], False, eval_split=True, resolution=2)
+    for jc, tc in zip(j.train_cameras + j.test_cameras,
+                      t.train_cameras + t.test_cameras):
+        assert tc.image.shape == jc.image.shape == (RES // 2, RES // 2, 3)
+        np.testing.assert_allclose(tc.image, jc.image, atol=1e-6, rtol=0)
+        np.testing.assert_array_equal(tc.mask, jc.mask)
+        jp, tp = jc.params(), tc.params("cpu")
+        for name in jp._fields:
+            np.testing.assert_allclose(np.asarray(getattr(tp, name)),
+                                       np.asarray(getattr(jp, name)),
+                                       atol=1e-6, rtol=0, err_msg=name)
+
+
+def test_unported_scenes_and_sizes_raise(scenes, tmp_path):
+    with pytest.raises(NotImplementedError, match="integer"):
+        tds.load_scene(scenes["blender"], False, resolution=24)
+    colmap = tmp_path / "garden"
+    (colmap / "sparse").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="COLMAP"):
+        tds.load_scene(str(colmap))
+    orb = tmp_path / "StanfordORB" / "cactus"
+    orb.mkdir(parents=True)
+    (orb / "transforms_train.json").write_text("{}")
+    with pytest.raises(NotImplementedError, match="Stanford-ORB"):
+        tds.load_scene(str(orb))
+    with pytest.raises(ValueError, match="recognize"):
+        tds.load_scene(str(tmp_path))

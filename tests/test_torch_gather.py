@@ -148,7 +148,8 @@ def test_pair_table_rows_hold_the_reference_table(scene):
 
 
 def test_gather_switch_keeps_values(scene):
-    """pallas_gather on and off give the same selection in the port."""
+    """pallas_gather is the JAX package's switch only: the port's select
+    gives the same hits whatever its value."""
     _, _, tp, ta, ro, rd = scene
     cfg = tgt.TracerConfig(grid_res=16, pair_capacity=2 ** 15, max_cells=8,
                            select_tiles=8, tile=16, hit_budget=8,

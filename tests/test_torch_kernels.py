@@ -350,7 +350,7 @@ def test_eval_entry_points_default_to_cuda():
     from irgs_tpu_torch import workload
     from irgs_tpu_torch.render.eval import render_ir_eval
     tiny = dict(n_surface=64, n_capacity=128, img=16, diffuse=4, light=0,
-                pallas_gather=8, tracer=dict(grid_res=8, pair_capacity=2 ** 12),
+                tracer=dict(grid_res=8, pair_capacity=2 ** 12),
                 dup_capacity=2 ** 12)
     if torch.cuda.is_available():
         params, aux, grid, cam, ecfg = workload.eval_setup(**tiny)
