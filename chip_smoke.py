@@ -20,6 +20,10 @@ Phases (JSON lines; any failure exits non-zero):
                 kernels and the gather must run on every step (the gather
                 held at its first real inputs);
   eval_small    one test-scale NVS eval frame on the card and on the CPU;
+  mis_small     the MIS branch at test scale, card against CPU: one eval
+                frame at 32 diffuse + 32 light samples, one stage-2 step with
+                8 light samples from the same draws, and the light sampler
+                (2^22 draws bit for bit, a chi-square test against the pdf);
   eval          the NVS eval frame at the bench scene (workload.EVAL): one
                 untimed frame, which also records the real inputs of the
                 forward blend and of the row gather (held against their
@@ -37,7 +41,16 @@ Phases (JSON lines; any failure exits non-zero):
                 3 iterations: the oversize merge switched on by itself, the
                 grid counts before and after, the step's peak memory, the
                 kernels held at its inputs, and one merged trace_segments of
-                a small shadow scene on the card against the CPU.
+                a small shadow scene on the card against the CPU;
+  eval_cli      the three eval CLIs in-process on the run train_cli leaves:
+                python -m irgs_tpu_torch.render (one view, 256 + 256
+                samples), .eval.material (--compute_scale, then the eval
+                pass) and .eval.relighting (one view, 512 + 256 samples, a
+                sun-and-sky EXR with relit GT rendered by the port at 64 + 64
+                samples and the toy blob env without); per CLI its seconds
+                per view and of setup, rays and Mrays/s, peak memory,
+                launches per view and result JSON, the kernels held at the
+                relighting path's inputs. Needs train_cli.
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -420,40 +433,54 @@ def phase_kernels_gather(results):
         fail("kernels", "gather_rows differs from table[idx]")
 
 
-def phase_stage2_small():
-    """One stage-2 step at the CPU tests' scale on the card and with the
-    plain CPU path, from the same draws: the whole step, kernels included,
-    against the port's plain version."""
+# the test-scale stage-2 step: tests/test_torch_stage2.py's scene and tracer
+STAGE2_SMALL_TRACER = dict(grid_res=12, pair_capacity=2 ** 14, max_cells=8,
+                           max_hits=24, hit_budget=16, max_crossings=10,
+                           select_tiles=4, tile=32, tiled_direct=True,
+                           n_segments=4, retrace_frac=0.25)
+STEP_LOSS_REL_TOL, STEP_PARAM_TOL = 1e-4, 1e-5
+
+
+def stage2_card_vs_cpu(light=0):
+    """One stage-2 step at the CPU tests' scale (512 surfels, 64x64, 8
+    diffuse and `light` light samples on 128 pixels) on the card and with
+    the plain CPU path, from the same draws -> its JSON fields and ok."""
     import torch
     from irgs_tpu_torch import workload
     from irgs_tpu_torch.train import stage2 as s2
 
-    tracer = dict(grid_res=12, pair_capacity=2 ** 14, max_cells=8,
-                  max_hits=24, hit_budget=16, max_crossings=10,
-                  select_tiles=4, tile=32, tiled_direct=True, n_segments=4,
-                  retrace_frac=0.25)
     res = {}
     gen = torch.Generator().manual_seed(0)
     for dev in ("cpu", "cuda"):
         state, grid, cams, st = workload.stage2_setup(
-            512, 1024, 64, 8, 8 * 128, 2 ** 14, dev, tracer)
+            512, 1024, 64, 8, (8 + light) * 128, 2 ** 14, dev,
+            STAGE2_SMALL_TRACER, light=light)
         if dev == "cpu":
             draws = s2.draw_stage2(gen, st, "cpu")
         gt_img = torch.full((64, 64, 3), 0.4, device=dev)
         state.step = 1001
         state, m = s2.stage2_step(state, grid, cams[0].params(dev), gt_img,
-                                  None, s2.Stage2Draws(*(d.to(dev) for d in draws)),
-                                  st=st)
+                                  None, draws.to(dev), st=st)
         res[dev] = (m, {k: v.detach().cpu() for k, v in
                         state.params.tensors().items()})
     loss_rel = abs(float(res["cuda"][0]["loss"]) - float(res["cpu"][0]["loss"])) \
         / abs(float(res["cpu"][0]["loss"]))
     p_err = max(float((res["cuda"][1][k] - res["cpu"][1][k]).abs().max())
                 for k in res["cpu"][1])
-    ok = loss_rel <= 1e-4 and p_err <= 1e-5
-    emit({"phase": "stage2_small", "ok": ok, "loss_cuda": float(res["cuda"][0]["loss"]),
-          "loss_cpu": float(res["cpu"][0]["loss"]), "loss_rel_err": loss_rel,
-          "loss_rel_tol": 1e-4, "param_max_abs_err": p_err, "param_tol": 1e-5})
+    ok = loss_rel <= STEP_LOSS_REL_TOL and p_err <= STEP_PARAM_TOL
+    return {"light_sample_num": light,
+            "loss_cuda": float(res["cuda"][0]["loss"]),
+            "loss_cpu": float(res["cpu"][0]["loss"]), "loss_rel_err": loss_rel,
+            "loss_rel_tol": STEP_LOSS_REL_TOL, "param_max_abs_err": p_err,
+            "param_tol": STEP_PARAM_TOL}, ok
+
+
+def phase_stage2_small():
+    """One stage-2 step at the CPU tests' scale on the card and with the
+    plain CPU path, from the same draws: the whole step, kernels included,
+    against the port's plain version."""
+    line, ok = stage2_card_vs_cpu()
+    emit({"phase": "stage2_small", "ok": ok, **line})
     if not ok:
         fail("stage2_small", "the step on the card disagrees with the CPU path")
 
@@ -607,9 +634,11 @@ EVAL_SMALL = dict(n_surface=2000, n_capacity=2048, img=64, diffuse=32,
 MERGED_TRACE_MAX_ABS = 1.0 / EVAL_SMALL["diffuse"]
 
 
-def phase_eval_small():
-    """One test-scale eval frame on the card and on the CPU (plain versions
-    of every kernel), from the same scene."""
+def eval_card_vs_cpu(setup, flat_first_row=False):
+    """One test-scale eval frame (workload.eval_setup(**setup)) on the card
+    and on the CPU (plain versions of every kernel), from the same scene
+    -> its JSON fields and ok. `flat_first_row` sets the env's first row to
+    its second (see phase_mis_small)."""
     import numpy as np
     import torch
     from irgs_tpu_torch import workload
@@ -619,8 +648,10 @@ def phase_eval_small():
 
     outs, stats = {}, {}
     for dev in ("cpu", "cuda"):
-        params, aux, grid, cam, ecfg = workload.eval_setup(**EVAL_SMALL,
-                                                           device=dev)
+        params, aux, grid, cam, ecfg = workload.eval_setup(**setup, device=dev)
+        if flat_first_row:
+            with torch.no_grad():
+                params.env[0] = params.env[1]
         rb.reset_launches()
         gr.reset_launches()
         stats[dev] = {}
@@ -628,7 +659,7 @@ def phase_eval_small():
                              stats_out=stats[dev])
         outs[dev] = {k: v.cpu().numpy() for k, v in out.items()}
         stats[dev]["launches"] = {**rb.LAUNCHES, **gr.LAUNCHES}
-    spp = EVAL_SMALL["diffuse"]
+    spp = setup["diffuse"] + setup["light"]
     aovs, ok = {}, True
     for k, want in outs["cpu"].items():
         got = outs["cuda"][k]
@@ -641,12 +672,67 @@ def phase_eval_small():
     ok &= lc["blend_fwd"] == 1 and lc["gather_rows"] > 0
     ok &= stats["cpu"]["launches"]["gather_rows"] == 0
     ok &= stats["cuda"]["raster_overflow"] == 0
-    emit({"phase": "eval_small", "ok": bool(ok), "rtol": EVAL_RTOL,
-          "atol": EVAL_ATOL, "max_outlier_share": EVAL_MAX_OUTLIER_SHARE,
-          "max_abs_bound": 1.0 / spp, "stats": stats, "aovs": aovs})
+    return {"rtol": EVAL_RTOL, "atol": EVAL_ATOL,
+            "max_outlier_share": EVAL_MAX_OUTLIER_SHARE,
+            "max_abs_bound": 1.0 / spp, "stats": stats, "aovs": aovs}, bool(ok)
+
+
+def phase_eval_small():
+    """One test-scale eval frame on the card and on the CPU (plain versions
+    of every kernel), from the same scene."""
+    line, ok = eval_card_vs_cpu(EVAL_SMALL)
+    emit({"phase": "eval_small", "ok": ok, **line})
     if not ok:
         fail("eval_small", "the eval frame on the card disagrees with the "
              "CPU path")
+
+
+# the light sampler on the card: 2^14 pixels x 256 draws from the pdf of a
+# 64 x 128 blob env, against the CPU's bit for bit, and a chi-square test of
+# the texel counts against the pdf (|z| bound)
+SAMPLER_PIXELS, SAMPLER_S, CHI2_Z_MAX = 2 ** 14, 256, 4.0
+
+
+def phase_mis_small():
+    """The MIS branch at test scale, on the card against the CPU: one eval
+    frame at 32 diffuse + 32 light samples (eval_small's scene), one stage-2
+    step with 8 light samples from the same draws, and the light sampler
+    (2^22 draws bit for bit, and a chi-square test against the pdf).
+
+    The frame's env has its first row set to its second: at eval the light
+    samples sit on texel centres, and at a first-row centre the bilinear
+    lookup (the reference's: row y0 + 1 after clamping y0 = -1 to 0) jumps
+    from row 0 to row 1 when v·H - 0.5 rounds an ulp below 0, which the
+    card's and the CPU's acos do for different samples (3.3 % of the
+    light_direct elements apart on the 8x16 env otherwise)."""
+    import torch
+    from irgs_tpu_torch.scene import envlight
+    from irgs_tpu_torch.scene.toy import make_blob_env
+    from irgs_tpu_torch.utils.rng import chi_square_z
+
+    frame, frame_ok = eval_card_vs_cpu(dict(EVAL_SMALL, light=32),
+                                       flat_first_row=True)
+    step, step_ok = stage2_card_vs_cpu(light=8)
+    pdf = envlight.build_pdf(torch.tensor(make_blob_env(64, 128)))
+    ids = torch.arange(SAMPLER_PIXELS)
+    cpu = envlight.draw_light(pdf, ids, SAMPLER_S, seed=1, training=True)
+    pdf_c, ids_c = pdf.cuda(), ids.cuda()
+    card = envlight.draw_light(pdf_c, ids_c, SAMPLER_S, seed=1, training=True)
+    same = bool(torch.equal(card.idx.cpu(), cpu.idx)
+                and torch.equal(card.jitter.cpu(), cpu.jitter))
+    z, dof = chi_square_z(card.idx, pdf)
+    ms = cuda_ms(lambda: envlight.draw_light(pdf_c, ids_c, SAMPLER_S, seed=1,
+                                             training=True), reps=5)
+    sampler = {"draws": SAMPLER_PIXELS * SAMPLER_S, "texels": pdf.numel(),
+               "card_equals_cpu": same, "chi2_z": z, "chi2_dof": dof,
+               "chi2_z_max": CHI2_Z_MAX, "ms_on_card": ms}
+    ok = frame_ok and step_ok and same and abs(z) < CHI2_Z_MAX
+    emit({"phase": "mis_small", "ok": ok, "frame_ok": frame_ok,
+          "step_ok": step_ok, "sampler": sampler, "step": step,
+          "frame": frame})
+    if not ok:
+        fail("mis_small", "the MIS frame, step or sampler on the card "
+             "disagrees with the CPU path or the pdf")
 
 
 def check_eval_inputs(results, blend_args, seen, first_pass_tiles):
@@ -1169,6 +1255,233 @@ def phase_train_cli_oversize(results, tmp):
         fail("train_cli_oversize", f"checks failed: {checks}")
 
 
+def sun_sky(h, w):
+    """A linear-radiance lat-long envmap: a sky gradient over a dim ground
+    and a small sun (peak 200) at u = 0.35, v = 0.25."""
+    import numpy as np
+    v, u = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w,
+                       indexing="ij")
+    sky = np.where(v[..., None] < 0.5,
+                   0.3 + 0.9 * (0.5 - v)[..., None] * np.array([0.5, 0.7, 1.0]),
+                   np.array([0.12, 0.1, 0.08]))
+    sun = 200.0 * np.exp(-((u - 0.35) ** 2 + (v - 0.25) ** 2) / (2 * 0.01 ** 2))
+    return (sky + sun[..., None] * np.array([1.0, 0.95, 0.85])).astype(np.float32)
+
+
+class PerView:
+    """Patch a CLI's per-view function (looked up on its module at each
+    call): each call's synchronised seconds and kernel launches, and what
+    `info(output)` reports of it; undo on exit."""
+
+    def __init__(self, mod, attr, info=None, stats_kw=False):
+        self.mod, self.attr, self.info, self.stats_kw = mod, attr, info, stats_kw
+        self.orig, self.calls = getattr(mod, attr), []
+
+    def __call__(self, *a, **kw):
+        import torch
+        from irgs_tpu_torch.ops import gather_rows as gr
+        from irgs_tpu_torch.ops import raster_blend as rb
+        stats = {}
+        if self.stats_kw:
+            kw["stats_out"] = stats
+        torch.cuda.synchronize()
+        before, t = {**rb.LAUNCHES, **gr.LAUNCHES}, time.perf_counter()
+        out = self.orig(*a, **kw)
+        torch.cuda.synchronize()
+        after = {**rb.LAUNCHES, **gr.LAUNCHES}
+        if self.info is not None:
+            stats.update(self.info(out))
+        self.calls.append({"seconds": time.perf_counter() - t, **stats,
+                           "launches": {k: v - before[k]
+                                        for k, v in after.items()}})
+        return out
+
+    def __enter__(self):
+        setattr(self.mod, self.attr, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.orig)
+
+
+def run_eval_cli(main, argv):
+    """One eval CLI's main(argv) in-process, from launch counts at 0 ->
+    (seconds, peak device memory, launches)."""
+    import torch
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import raster_blend as rb
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rb.reset_launches()
+    gr.reset_launches()
+    t = time.perf_counter()
+    main(argv)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t, torch.cuda.max_memory_allocated(),
+            {**rb.LAUNCHES, **gr.LAUNCHES})
+
+
+def _finite_metrics(res):
+    """Every number of a results JSON is finite (a null lpips is allowed)."""
+    vals = [v for r in ([res] + [x for x in res.values() if isinstance(x, dict)])
+            for k, v in r.items() if not isinstance(v, (dict, list))]
+    return all(v is None or math.isfinite(v) for v in vals)
+
+
+def phase_eval_cli(results, tmp):
+    """The three eval CLIs, in-process, on the run that train_cli leaves
+    (the 100k-surfel sphere at 400x400, iteration 100): first the dataset
+    gets GT albedo/roughness maps of view r_0 (the model's own G-buffer), two
+    256x512 EXR envmaps (a sun and sky, the toy blob env) and relit GT of
+    r_0 under the first, rendered by the port at 64 + 64 samples; then
+    render (one view, 256 + 256 samples), eval.material (--compute_scale,
+    then the eval pass) and eval.relighting (one view, both envmaps, its
+    default 512 + 256 samples)."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.config import load_config
+    from irgs_tpu_torch.eval import material, relighting
+    from irgs_tpu_torch.eval.common import load_trained
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.render import __main__ as render_cli
+    from irgs_tpu_torch.render import eval as reval
+    from irgs_tpu_torch.render import ir, relight
+    from irgs_tpu_torch.scene import cubemap as cm
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.scene.datasets import load_scene
+    from irgs_tpu_torch.utils import exr, png
+    from irgs_tpu_torch.utils.math3d import rgb_to_srgb
+
+    run, scene = os.path.join(tmp, "run"), os.path.join(tmp, "sphere")
+    if not os.path.isdir(os.path.join(run, "point_cloud")):
+        fail("eval_cli", "needs the run that the train_cli phase leaves")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    cfg = load_config(run)
+    params, aux, it = load_trained(run, -1, cfg, dev)
+    cam = load_scene(scene, cfg.model.white_background, True).test_cameras[0]
+    w, h = cam.width, cam.height
+    u8 = lambda x: (x.clamp(0, 1).cpu().numpy() * 255 + 0.5).astype(np.uint8)
+    base, rough, _ = material.material_maps(params, aux, cam.params(dev), w, h,
+                                            cfg.model.sh_degree)
+    for sub, img in (("albedo", rgb_to_srgb(base)),
+                     ("roughness", rough.expand(-1, -1, 3))):
+        os.makedirs(os.path.join(scene, sub), exist_ok=True)
+        png.write_png(os.path.join(scene, sub, f"{cam.image_name}.png"), u8(img))
+    envs = [os.path.join(tmp, "sunsky.exr"), os.path.join(tmp, "blob.exr")]
+    exr.write_exr(envs[0], sun_sky(256, 512))
+    exr.write_exr(envs[1], np.exp(toy.make_blob_env(256, 512)))
+    # relit GT of the first envmap; this untimed pass also records the
+    # kernels' first inputs on the relighting path
+    tracer = gt.TracerConfig.from_pipe(cfg.pipe, eval=True)
+    grid = gt.build_grid_from_gaussians(params, aux, tracer)
+    env0 = relight.build_relight_env(
+        torch.tensor(exr.read_exr_rgb(envs[0]), device=dev))
+    gt_cfg = ir.ShadeConfig(diffuse_sample_num=64, light_sample_num=64,
+                            light_t_min=cfg.pipe.light_t_min, training=False)
+    with FirstCalls({"blend": (rb, "blend_tiles"),
+                     "gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec:
+        imgs, alpha, _ = relighting.relight_view(
+            params, aux, grid, cam.params(dev), [env0], tracer, gt_cfg,
+            cm.compute_fg_lut(device=dev), torch.ones(3, device=dev), w, h,
+            cfg.model.sh_degree)
+    os.makedirs(os.path.join(scene, "sunsky"), exist_ok=True)
+    png.write_png(os.path.join(scene, "sunsky", f"{cam.image_name}.png"),
+                  u8(torch.cat([imgs[0], alpha], -1)))
+    check_recorded(results, rec, "relight_400px_100k")
+    del rec, params, aux, grid, env0, imgs, base, rough
+    torch.cuda.empty_cache()
+    data_s = time.perf_counter() - t0
+
+    line = {"phase": "eval_cli", "data_s": data_s, "iteration": it}
+    launches_all = {}
+
+    def record(name, seconds, peak, launches, views, extra):
+        view_s = sum(v["seconds"] for v in views)
+        per_view = {k: sorted({v["launches"][k] for v in views})
+                    for k in launches}
+        for k, v in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + v
+        entry = {"phase": "eval_cli", "cli": name, "seconds": seconds,
+                 "views": len(views), "s_per_view": [v["seconds"] for v in views],
+                 "setup_s": seconds - view_s, "max_memory_allocated": peak,
+                 "launches": launches, "launches_per_view": per_view, **extra}
+        emit(entry)
+        line[name] = entry
+        return entry
+
+    # 1. render, the MIS branch: 256 + 256 samples on view r_0
+    with PerView(reval, "render_ir_eval", stats_kw=True) as pv:
+        sec, peak, lc = run_eval_cli(render_cli.main, [
+            "-m", run, "--max_images", "1", "--light_sample_num", "256"])
+    with open(os.path.join(run, "test", "nvs_results.json")) as f:
+        nvs = json.load(f)
+    v = pv.calls
+    record("render", sec, peak, lc, v, {
+        "samples": [cfg.pipe.diffuse_sample_num, 256],
+        "fg_pixels": v[0]["shaded_pixels"], "shaded_rays": v[0]["shaded_rays"],
+        "traced_rays": v[0]["traced_rays"],
+        "mrays_per_s": v[0]["shaded_rays"] / v[0]["seconds"] / 1e6,
+        "trace_more_frac": v[0].get("trace_more_frac"),
+        "raster_overflow": v[0]["raster_overflow"], "result": nvs})
+
+    # 2. material: the albedo scale over the train views, then the eval pass
+    mat = {}
+    for name, extra in (("material_scale", ["--compute_scale"]),
+                        ("material_eval", [])):
+        with PerView(material, "material_maps") as pv:
+            sec, peak, lc = run_eval_cli(material.main, ["-m", run, *extra])
+        fname = "albedo_scale.json" if extra else "material_results.json"
+        with open(os.path.join(run, fname)) as f:
+            mat[name] = json.load(f)
+        record(name, sec, peak, lc, pv.calls, {"result": mat[name]})
+
+    # 3. relighting at its defaults (512 + 256), one view, both envmaps
+    n_env, s_d, s_l = len(envs), 512, 256
+    info = lambda out: dict(out[2])
+    with PerView(relighting, "relight_view", info=info) as pv, \
+            Timed({"fg_lut": (cm, "compute_fg_lut"),
+                   "relight_env": (relight, "build_relight_env")}) as timed:
+        sec, peak, lc = run_eval_cli(relighting.main, [
+            "-m", run, "--envmaps", *envs, "--max_images", "1"])
+    with open(os.path.join(run, "relighting_results.json")) as f:
+        rel = json.load(f)
+    v = pv.calls[0]
+    shaded = v["fg_pixels"] * (s_d + n_env * s_l)
+    record("relighting", sec, peak, lc, pv.calls, {
+        "samples": [s_d, s_l], "envmaps": n_env,
+        "setup_parts_s": timed.seconds, "fg_pixels": v["fg_pixels"],
+        "pixel_chunk": v["pixel_chunk"], "chunks": v["chunks"],
+        "shaded_rays": shaded,
+        "traced_rays": v["chunks"] * v["pixel_chunk"] * (s_d + n_env * s_l),
+        "mrays_per_s": shaded / v["seconds"] / 1e6, "result": rel})
+    results.setdefault("launches", {})["eval_cli"] = launches_all
+
+    scale = mat["material_scale"]["2"]
+    per_view = [line[k] for k in ("render", "material_scale", "material_eval",
+                                  "relighting")]
+    checks = {
+        "metrics_finite": all(_finite_metrics(r) for r in
+                              (nvs, mat["material_eval"], rel)),
+        "albedo_scale_within_2pct": all(abs(x - 1.0) <= 0.02 for x in scale),
+        "psnr_albedo_35db": (mat["material_eval"]["psnr_albedo"] or 0) >= 35.0,
+        "psnr_pbr_first_env": rel.get("sunsky", {}).get("psnr_pbr") is not None,
+        "psnr_trainlight_second_env":
+            rel.get("blob", {}).get("psnr_trainlight") is not None,
+        "blend_fwd_once_per_view": all(e["launches_per_view"]["blend_fwd"] == [1]
+                                       for e in per_view),
+        "gather_every_traced_view": all(
+            min(line[k]["launches_per_view"]["gather_rows"]) > 0
+            for k in ("render", "relighting")),
+        "raster_overflow_zero": line["render"]["raster_overflow"] == 0,
+    }
+    emit({"phase": "eval_cli", "ok": all(checks.values()), "checks": checks,
+          "data_s": data_s, "launches": launches_all})
+    if not all(checks.values()):
+        fail("eval_cli", f"checks failed: {checks}")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -1178,7 +1491,8 @@ KERNELS = {
         replaces="irgs_tpu/ops/raster_pallas.py:141",
         cases={"stage2": "bench_400px_100k", "eval": "eval_400px_100k",
                "train_cli": "bench_400px_100k",
-               "train_cli_oversize": "shadow_400px_12k"}),
+               "train_cli_oversize": "shadow_400px_12k",
+               "eval_cli": "relight_400px_100k"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -1192,7 +1506,8 @@ KERNELS = {
         # the CLI trains at the stage2 phase's shapes
         cases={"eval": "eval_first_pass", "stage2": "stage2_first_pass",
                "train_cli": "stage2_first_pass",
-               "train_cli_oversize": "shadow_400px_12k_first_pass"}),
+               "train_cli_oversize": "shadow_400px_12k_first_pass",
+               "eval_cli": "relight_400px_100k_first_pass"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -1226,8 +1541,8 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small", "eval",
-          "train_cli", "train_cli_oversize")
+PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small",
+          "mis_small", "eval", "train_cli", "train_cli_oversize", "eval_cli")
 
 
 def nvidia_smi_line():
@@ -1268,10 +1583,12 @@ def main():
             "stage2_small": phase_stage2_small,
             "stage2": lambda: phase_stage2(results),
             "eval_small": phase_eval_small,
+            "mis_small": phase_mis_small,
             "eval": lambda: phase_eval(results),
             "train_cli": lambda: phase_train_cli(results, tmp),
             "train_cli_oversize": lambda: phase_train_cli_oversize(results,
                                                                    tmp),
+            "eval_cli": lambda: phase_eval_cli(results, tmp),
         }
         for name in PHASES:
             if name in phases:

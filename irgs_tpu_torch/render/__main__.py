@@ -1,0 +1,133 @@
+"""NVS rendering and metrics CLI, ≙ render.py.
+
+    python -m irgs_tpu_torch.render -m <model_dir> [--max_images N]
+    python -m irgs_tpu_torch.render -m <model_dir> --device cpu   (plain path)
+
+Loads the latest (or `--iteration`) stage-2 PLY of a training run and its
+cfg.json (every config option can be overridden, e.g. `--light_sample_num
+256`), renders the test split (`--no-skip_train` adds the train split) with
+`render_ir_eval`, writes each view's render and six AOVs as PNGs under
+`<split>/ours_<it>/` and `<split>/nvs_results.json` (PSNR, SSIM, LPIPS and
+the reference's `*_avg` aliases). LPIPS is null without VGG weights.
+`--device` defaults to cuda and raises without a card; `--n_devices` > 1 (the
+sample-sharded eval) is not ported (ROADMAP.md A9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+AOV_PNGS = ("base_color", "roughness", "diffuse", "specular", "visibility",
+            "light_indirect")
+
+
+def _parser(cfg) -> argparse.ArgumentParser:
+    from ..config import add_config_args
+    parser = argparse.ArgumentParser(prog="python -m irgs_tpu_torch.render",
+                                     description=__doc__.splitlines()[0])
+    parser.add_argument("--iteration", type=int, default=-1)
+    parser.add_argument("--skip_train", action=argparse.BooleanOptionalAction,
+                        default=True)
+    parser.add_argument("--skip_test", action="store_true", default=False)
+    parser.add_argument("--max_images", type=int, default=-1)
+    parser.add_argument("--n_devices", type=int, default=1,
+                        help="sample-sharded eval over N devices (only 1 is "
+                             "ported)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device (cuda, or cpu for the plain "
+                             "PyTorch path)")
+    add_config_args(parser, cfg)
+    return parser
+
+
+def main(argv=None):
+    import numpy as np
+    import torch
+
+    from .. import resolve_device
+    from ..config import Config, apply_args, load_config
+    from ..eval import metrics as M
+    from ..eval.common import load_trained, write_png8
+    from ..ops import grid_tracer as gt
+    from ..render import eval as reval
+    from ..scene.datasets import LIGHT_ROTATE_TRANSFORM, load_scene
+
+    parser = _parser(Config())
+    args = parser.parse_args(argv)
+    if not args.model_path:
+        parser.error("-m/--model_path is required")
+    dev = resolve_device(args.device)
+    if args.n_devices > 1:
+        raise NotImplementedError("--n_devices > 1: the sample-sharded eval "
+                                  "is not ported yet (ROADMAP.md A9)")
+    cfg = apply_args(load_config(args.model_path), args)
+    params, aux, it = load_trained(args.model_path, args.iteration, cfg, dev)
+
+    info = load_scene(cfg.model.source_path, cfg.model.white_background,
+                      eval_split=True, resolution=cfg.model.resolution)
+    splits = []
+    if not args.skip_test:
+        splits.append(("test", info.test_cameras or info.train_cameras))
+    if not args.skip_train:
+        splits.append(("train", info.train_cameras))
+    cams = splits[0][1] if splits else info.train_cameras
+    if args.max_images > 0:
+        splits = [(n, cs[:args.max_images]) for n, cs in splits]
+        cams = cams[:args.max_images]
+    transform = (torch.tensor(LIGHT_ROTATE_TRANSFORM, device=dev)
+                 if info.light_rotate else None)
+
+    h, w = cams[0].height, cams[0].width
+    ecfg = reval.EvalConfig(
+        img_w=w, img_h=h, active_sh_degree=cfg.model.sh_degree,
+        diffuse_sample_num=cfg.pipe.diffuse_sample_num,
+        light_sample_num=cfg.pipe.light_sample_num,
+        wo_indirect=cfg.pipe.wo_indirect,
+        white_background=cfg.model.white_background,
+        env_activation=cfg.model.envmap_activation,
+        tracer=gt.TracerConfig.from_pipe(cfg.pipe, eval=True))
+    grid = gt.build_grid_from_gaussians(params, aux, ecfg.tracer)
+
+    vgg = M.load_vgg16_weights()
+    for split_name, split_cams in splits:
+        out_dir = os.path.join(args.model_path, split_name, f"ours_{it}")
+        os.makedirs(out_dir, exist_ok=True)
+        psnrs, ssims, lpipss = [], [], []
+        for i, cam in enumerate(split_cams):
+            out = reval.render_ir_eval(params, aux, grid, cam.params(dev), ecfg,
+                                       env_transform=transform)
+            render = torch.clamp(out["render"], 0, 1)
+            gt_img = torch.tensor(cam.image, device=dev)
+            psnrs.append(float(M.psnr(render, gt_img)))
+            ssims.append(float(M.ssim(render, gt_img)))
+            lpipss.append(M.lpips_fn(render, gt_img, vgg))
+            write_png8(os.path.join(out_dir, f"{cam.image_name}_render.png"),
+                       render)
+            for k in AOV_PNGS:
+                write_png8(os.path.join(out_dir, f"{cam.image_name}_{k}.png"),
+                           out[k])
+            print(f"[{split_name} {i+1}/{len(split_cams)}] {cam.image_name} "
+                  f"psnr={psnrs[-1]:.2f}", flush=True)
+
+        results = {
+            "psnr": float(np.mean(psnrs)),
+            "ssim": float(np.mean(ssims)),
+            "lpips": None if lpipss[0] is None else float(np.mean(lpipss)),
+            # the reference's *_avg aliases, which collect scripts read
+            "psnr_avg": float(np.mean(psnrs)),
+            "ssim_avg": float(np.mean(ssims)),
+            "lpips_avg": None if lpipss[0] is None else float(np.mean(lpipss)),
+            "per_image_psnr": psnrs,
+        }
+        with open(os.path.join(args.model_path, split_name,
+                               "nvs_results.json"), "w") as f:
+            json.dump(results, f, indent=2)
+        print(split_name,
+              json.dumps({k: results[k] for k in ("psnr", "ssim", "lpips")}),
+              flush=True)
+
+
+if __name__ == "__main__":
+    main()

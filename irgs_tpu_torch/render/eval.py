@@ -61,8 +61,11 @@ def _gbuffer(params, aux, cam: CameraParams, cfg: EvalConfig):
     return raster, maps
 
 
-def _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg: EvalConfig):
-    """One pixel chunk through the MC rendering equation."""
+def _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg: EvalConfig,
+                light_draws=None):
+    """One pixel chunk through the MC rendering equation; its light samples
+    are keyed by the pixel ids, or come from the `light_draws` hook."""
+    pid = px_c["pid"][:, 0]
     shade_cfg = ir.ShadeConfig(
         diffuse_sample_num=cfg.diffuse_sample_num,
         light_sample_num=cfg.light_sample_num, light_t_min=cfg.light_t_min,
@@ -71,13 +74,15 @@ def _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg: EvalConfig):
     return ir.rendering_equation(
         px_c["base"], px_c["rough"], px_c["normal"], px_c["points"],
         px_c["wo"], env_raw, pdf, trace_fn, shade_cfg,
-        env_transform=env_transform, pixel_ids=px_c["pid"][:, 0])
+        env_transform=env_transform, pixel_ids=pid,
+        light_draws=None if light_draws is None else light_draws(pid))
 
 
 @torch.no_grad()
 def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
                    env_override=None, env_transform=None, key=None, mesh=None,
-                   compact_fg: bool = True, stats_out: dict | None = None):
+                   compact_fg: bool = True, stats_out: dict | None = None,
+                   light_draws=None):
     """Render one eval view with all AOVs: a dict of [H, W, C] images.
 
     `compact_fg`: shade only the foreground pixels (render alpha > 0, the
@@ -86,8 +91,11 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
     pixel is shaded. Both split the pixels into the same chunks as the JAX
     package, so that each chunk's re-trace rounds see the same rays.
 
-    `key` is unused: eval draws are deterministic. `mesh` (the sample-sharded
-    multi-device eval) is not ported. `stats_out`, when given, receives the
+    `key` is unused: eval draws are deterministic (the light samples are
+    keyed by pixel id with seed 0). `light_draws`, a callable from a chunk's
+    pixel ids [n] to its `envlight.LightDraws`, replaces the sampler's draws
+    (a test feeds JAX's). `mesh` (the sample-sharded multi-device eval) is
+    not ported. `stats_out`, when given, receives the
     frame's `raster_overflow`, `shaded_pixels` (foreground pixels, or all),
     `shaded_rays` (their incident rays), `traced_rays` (those plus the last
     chunk's padding, which retraces pixel 0) and the tracer's
@@ -124,7 +132,8 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
 
     def shade(px_c):
         tstats.clear()
-        re_c = _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg)
+        re_c = _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg,
+                           light_draws)
         chunk_stats.append(dict(tstats))
         return re_c
 

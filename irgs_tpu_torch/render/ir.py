@@ -65,22 +65,63 @@ class ShadeConfig:
     env_activation: str = "exp"
 
 
+def mis_directions(diffuse_dirs, diffuse_areas, env_pdf, cfg: ShadeConfig,
+                   draws: envlight.LightDraws, env_transform=None):
+    """The multiple-importance sample set: the s_d hemisphere samples and the
+    s_l light samples of `draws`, each weighted by the balance heuristic
+    over both strategies' pdfs (≙ irgs_tpu rendering_equation, ir.py:105-124,
+    and rendering_equation_relight, relight.py:120-141). Returns
+    (incident_dirs [B, s_d+s_l, 3], incident_areas [B, s_d+s_l, 1],
+    light_dirs [B, s_l, 3])."""
+    s_d, s_l = cfg.diffuse_sample_num, cfg.light_sample_num
+    p_diffuse = s_d / (s_d + s_l)
+    p_light = s_l / (s_d + s_l)
+    diffuse_pdfs = 1.0 / diffuse_areas
+    light_dirs, light_pdfs = envlight.sample_light_dirs(
+        env_pdf, draws, transform=env_transform)
+    light_pdfs_diffuse = envlight.light_pdf(env_pdf, diffuse_dirs,
+                                            transform=env_transform)
+    diffuse_pdfs = diffuse_pdfs * p_diffuse + light_pdfs_diffuse * p_light
+    light_pdfs = (1.0 / (2.0 * math.pi)) * p_diffuse + light_pdfs * p_light
+    incident_dirs = torch.cat([diffuse_dirs, light_dirs], dim=1)
+    incident_areas = 1.0 / maximum(torch.cat([diffuse_pdfs, light_pdfs], 1),
+                                   1e-6)
+    return incident_dirs, incident_areas, light_dirs
+
+
+def light_draws_for(env_pdf, cfg: ShadeConfig, batch: int, pixel_ids=None,
+                    light_draws=None, light_seed=0):
+    """`light_draws` if given, else the sampler's draws for the batch: keyed
+    by `pixel_ids` where given, by the batch slot otherwise."""
+    if light_draws is not None:
+        return light_draws
+    return envlight.draw_light(
+        env_pdf, batch if pixel_ids is None else pixel_ids,
+        cfg.light_sample_num, seed=light_seed, training=cfg.training)
+
+
 def rendering_equation(base_color, roughness, normals, position, viewdirs,
                        env_raw, env_pdf, trace_fn: Callable, cfg: ShadeConfig,
-                       theta_u=None, env_transform=None, pixel_ids=None):
-    """MC estimate of the rendering equation at [B] surface points, the
-    diffuse-sampling branch (≙ rendering_equation, :78-104, :140-178).
-    `theta_u` [B, 1]: the sampler's uniforms (training). `env_transform`
-    [3, 3] rotates the environment lookups; `pixel_ids` keys the MIS
-    branch's light draws, which is not ported, so it is unused here."""
+                       theta_u=None, env_transform=None, pixel_ids=None,
+                       light_draws: envlight.LightDraws | None = None,
+                       light_seed=0):
+    """MC estimate of the rendering equation at [B] surface points
+    (≙ rendering_equation, :78-178): s_d hemisphere samples, and with
+    `light_sample_num` > 0 the MIS mixture with s_l light samples.
+    `theta_u` [B, 1]: the hemisphere sampler's uniforms (training).
+    `env_transform` [3, 3] rotates the environment lookups. The light
+    samples are `light_draws` when given (a test feeds JAX's), else drawn
+    with `light_seed` and keyed by `pixel_ids` (or by the batch slot)."""
     s_d, s_l = cfg.diffuse_sample_num, cfg.light_sample_num
     if s_d <= 0:
         raise NotImplementedError("diffuse_sample_num must be > 0")
-    if s_l > 0:
-        raise NotImplementedError("light_sample_num > 0 (the MIS branch) "
-                                  "needs envlight sampling, not ported yet")
     incident_dirs, incident_areas = fibonacci_sphere_sampling(
         normals, s_d, u=theta_u if cfg.training else None)
+    if s_l > 0:
+        draws = light_draws_for(env_pdf, cfg, base_color.shape[0], pixel_ids,
+                                light_draws, light_seed)
+        incident_dirs, incident_areas, _ = mis_directions(
+            incident_dirs, incident_areas, env_pdf, cfg, draws, env_transform)
 
     global_incident = envlight.query_env(env_raw, incident_dirs,
                                          activation=cfg.env_activation,

@@ -4,7 +4,8 @@ Synthetic4Relight folders, the path sniffing of `load_scene` and the
 the trainer moves them to the device.
 
 Images are read by the port's own codecs: EXR through utils/exr.py, PNG
-through utils/png.py, decoded to the arrays PIL gives the JAX package.
+through utils/png.py, decoded to the arrays PIL gives the JAX package, and
+Radiance .hdr through utils/hdr.py, as cv2 gives it.
 COLMAP and Stanford-ORB scenes, other image formats and downscales that are
 not an integer box average raise NotImplementedError (ROADMAP.md A6).
 """
@@ -43,18 +44,22 @@ def _nerfpp_norm(cams: list[Camera]):
 
 
 def _load_image_any(path: str):
-    """RGB(A) image -> float [H, W, C]: EXR as stored, PNG in [0, 1] (the
-    JAX package's np.asarray(PIL.Image.open(path), float32) / 255)."""
+    """RGB(A) image -> float [H, W, C]: EXR and HDR as stored (HDR as RGB,
+    as the JAX package flips cv2's BGR), PNG in [0, 1] (the JAX package's
+    np.asarray(PIL.Image.open(path), float32) / 255)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         from ..utils import exr
         return exr.read_exr_rgb(path)
+    if ext == ".hdr":
+        from ..utils import hdr
+        return hdr.read_hdr(path)
     if ext == ".png":
         from ..utils import png
         return np.asarray(png.read_png_as_pil(path), np.float32) / 255.0
     raise NotImplementedError(
-        f"{path}: only PNG and EXR frames are read (ROADMAP.md A6: JPEG "
-        "frames of COLMAP scenes, .hdr frames)")
+        f"{path}: only PNG, EXR and HDR images are read (ROADMAP.md A6: "
+        "JPEG frames of COLMAP scenes)")
 
 
 def _blender_frame_to_camera(frame, path, fovx, white_background, extension,

@@ -8,7 +8,9 @@ rendering equation through the grid tracer, compute calculate_loss2 and take
 one Adam step. Geometry stays frozen at lr_scale = 0.
 
 Every random draw comes in `Stage2Draws` (made by `draw_stage2` from a
-torch.Generator, or handed in by a caller that wants the JAX draws).
+torch.Generator, or handed in by a caller that wants the JAX draws). With
+`light_sample_num` > 0 the shading is the MIS mixture, its light samples
+drawn from the detached env's pdf.
 """
 
 from __future__ import annotations
@@ -104,18 +106,36 @@ def from_configs(cfg, img_w: int, img_h: int,
 
 
 class Stage2Draws(NamedTuple):
-    """The uniforms one step consumes (≙ the two halves of the reference's
-    jax.random.split(key), stage2.py:158)."""
+    """The draws one step consumes (≙ the reference's jax.random.split(key),
+    stage2.py:158, and the light draws of its k_shade half)."""
     pixel_u: torch.Tensor  # [H*W] pixel-selection scores (ir.py:377)
     theta_u: torch.Tensor  # [P, 1] sampler rotations (sampling.py:37)
+    # light_sample_num > 0: the key of the light draws ([] int64), or the
+    # draws themselves (envlight.LightDraws [P, S_l], e.g. JAX's), which
+    # take precedence
+    light_seed: torch.Tensor | None = None
+    light: envlight.LightDraws | None = None
+
+    def to(self, device) -> "Stage2Draws":
+        move = lambda x: None if x is None else x.to(device)
+        light = None if self.light is None else envlight.LightDraws(
+            *(move(x) for x in self.light))
+        return Stage2Draws(self.pixel_u.to(device), self.theta_u.to(device),
+                           move(self.light_seed), light)
 
 
 def draw_stage2(generator: torch.Generator, st: Stage2Static,
                 device) -> Stage2Draws:
-    """Draw one step's uniforms from `generator` (which lives on `device`)."""
-    kw = dict(generator=generator, device=device, dtype=torch.float32)
-    return Stage2Draws(pixel_u=torch.rand(st.img_w * st.img_h, **kw),
-                       theta_u=torch.rand(st.num_shaded_pixels, 1, **kw))
+    """Draw one step's uniforms from `generator` (which lives on `device`);
+    with light samples, also the key of the step's light draws (drawn
+    last, so that the uniforms do not depend on the light sample count)."""
+    kw = dict(generator=generator, device=device)
+    pixel_u = torch.rand(st.img_w * st.img_h, dtype=torch.float32, **kw)
+    theta_u = torch.rand(st.num_shaded_pixels, 1, dtype=torch.float32, **kw)
+    light_seed = None
+    if st.light_sample_num > 0:
+        light_seed = torch.randint(0, 2 ** 31, (), dtype=torch.int64, **kw)
+    return Stage2Draws(pixel_u, theta_u, light_seed)
 
 
 def stage2_forward_loss(params: GaussianParams, aux: GaussianAux,
@@ -168,9 +188,12 @@ def stage2_forward_loss(params: GaussianParams, aux: GaussianAux,
 
     trace_fn = ir.make_trace_fn(params, aux, grid, st.tracer, cam.cam_pos,
                                 st.active_sh_degree, stats_out=trace_stats)
-    re = ir.rendering_equation(px_base, px_rough, px_normal, px_points, px_wo,
-                               params.env, pdf, trace_fn, shade_cfg,
-                               theta_u=draws.theta_u)
+    # the light draws are keyed by the ray's slot (no pixel ids), as the
+    # reference's train_ray branch draws them (stage2.py:185-187)
+    re = ir.rendering_equation(
+        px_base, px_rough, px_normal, px_points, px_wo, params.env, pdf,
+        trace_fn, shade_cfg, theta_u=draws.theta_u, light_draws=draws.light,
+        light_seed=0 if draws.light_seed is None else draws.light_seed)
     full = rgb_to_srgb(re["diffuse"] + re["specular"])
     ray_rgb = full * px_alpha + bg[None] * (1 - px_alpha)
     gt_flat = flat(gt_image)[idx]

@@ -128,6 +128,13 @@ def rgb_to_srgb(img, clip_out: bool = True):
     return out
 
 
+def srgb_to_rgb(img):
+    """sRGB -> linear (≙ irgs_tpu srgb_to_rgb)."""
+    return torch.where(
+        img <= 0.04045, img / 12.92,
+        torch.pow((maximum(img, 0.04045) + 0.055) / 1.055, 2.4))
+
+
 # ---------------------------------------------------------------------------
 # Camera matrices (host-side numpy; built once per camera)
 # ---------------------------------------------------------------------------

@@ -26,9 +26,11 @@ EVAL = dict(n_surface=100_000, n_capacity=2 ** 17, img=400, diffuse=256,
 
 
 def stage2_setup(n_surface: int, n_capacity: int, img: int, spp: int,
-                 rays: int, dup: int, device, tracer: dict | None = None):
-    """-> (TrainState, Grid, ring cameras, Stage2Static) on `device`.
-    `tracer` overrides the TracerConfig fields (default: from_pipe)."""
+                 rays: int, dup: int, device, tracer: dict | None = None,
+                 light: int = 0):
+    """-> (TrainState, Grid, ring cameras, Stage2Static) on `device`, with
+    `spp` diffuse and `light` light samples per shaded pixel. `tracer`
+    overrides the TracerConfig fields (default: from_pipe)."""
     from .config import Config
     from .ops import grid_tracer as gt
     from .scene import toy
@@ -42,6 +44,7 @@ def stage2_setup(n_surface: int, n_capacity: int, img: int, spp: int,
                                  height_px=img)
     cfg = Config()
     cfg.pipe.diffuse_sample_num = spp
+    cfg.pipe.light_sample_num = light
     cfg.opt.trace_num_rays = rays
     st = dataclasses.replace(s2.from_configs(cfg, img_w=img, img_h=img),
                              dup_capacity=dup)

@@ -288,6 +288,21 @@ def test_gather_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+def test_light_sampler_card_equals_cpu(cuda_device):
+    """The light sampler's hash uniforms and integer CDF draw the same texels
+    and jitter on the card as on the CPU, from the same pdf."""
+    from irgs_tpu_torch.scene import envlight
+    from irgs_tpu_torch.scene.toy import make_blob_env
+    pdf = envlight.build_pdf(torch.tensor(make_blob_env(64, 128)))
+    ids = torch.arange(0, 3 * 4096, 3)
+    cpu = envlight.draw_light(pdf, ids, 256, seed=3, training=True)
+    card = envlight.draw_light(pdf.to(cuda_device), ids.to(cuda_device), 256,
+                               seed=3, training=True)
+    assert torch.equal(card.idx.cpu(), cpu.idx)
+    assert torch.equal(card.jitter.cpu(), cpu.jitter)
+
+
+@pytest.mark.cuda
 def test_gather_kernel_rejects_bad_inputs(cuda_device):
     tab = torch.zeros((8, 4), device=cuda_device)
     with pytest.raises(ValueError, match="int64"):
@@ -311,14 +326,15 @@ def test_gather_rows_cpu_takes_plain():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without pulling in JAX or the JAX
-    package (whose __init__ imports JAX and sets its global config)."""
+    package (whose __init__ imports JAX and sets its global config), nor
+    cv2, PIL or imageio, which the card's machine lacks."""
     code = (
         "import pkgutil, importlib, sys, irgs_tpu_torch\n"
         "for m in pkgutil.walk_packages(irgs_tpu_torch.__path__, "
         "'irgs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'irgs_tpu' or m.startswith('irgs_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'irgs_tpu', 'cv2', 'PIL', 'imageio')]\n"
         "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -342,6 +358,23 @@ def test_entry_points_default_to_cuda():
     params, aux = toy.make_sphere_scene(64, n_capacity=128, env_resolution=8,
                                         device="cpu")
     assert params.xyz.device.type == "cpu" and aux.alive.device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["render", "eval.material", "eval.relighting"])
+def test_eval_clis_default_to_cuda(cli):
+    """The three eval CLIs take --device cuda unless given --device cpu: with
+    no card they raise before they read anything."""
+    import importlib
+    mod = importlib.import_module(
+        "irgs_tpu_torch.render.__main__" if cli == "render"
+        else f"irgs_tpu_torch.{cli}")
+    argv = ["-m", "no_such_run"]
+    if cli == "eval.relighting":
+        argv += ["--envmaps", "no_such_env.hdr"]
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI would run")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(argv)
 
 
 def test_eval_entry_points_default_to_cuda():
