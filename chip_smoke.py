@@ -10,15 +10,18 @@ Phases (JSON lines; any failure exits non-zero):
   build         compile the CUDA kernels from irgs_tpu_torch/csrc for sm_90a,
                 one nvcc per source, all started together;
   kernels       hold each kernel against its plain PyTorch version on the
-                card: the blend at two slabs (with how its work spreads over
-                the tiles, and the heaviest tile's time alone), the row
-                gather (bit for bit) at the JAX package's test shapes and the
-                TPU probe kernels';
-  stage2_small  one test-scale stage-2 step on the card and on the CPU;
+                card: the blend at two stage-2 slabs and at stage 1's widths
+                11 and 18 (with how its work spreads over the tiles, and the
+                heaviest tile's time alone), the row gather (bit for bit) at
+                the JAX package's test shapes and the TPU probe kernels';
+  stage2_small  one test-scale stage-2 step on the card and on the CPU, and
+                two backward passes on the card bit for bit;
   stage2        stage2_step at the bench workload (100k-surfel toy sphere,
                 400x400, 256 diffuse samples, 2^18 trace rays); both blend
                 kernels and the gather must run on every step (the gather
-                held at its first real inputs);
+                held at its first real inputs, the segment-sum scatter-add
+                at its largest); then as many steps with index_add_ in its
+                place;
   eval_small    one test-scale NVS eval frame on the card and on the CPU;
   mis_small     the MIS branch at test scale, card against CPU: one eval
                 frame at 32 diffuse + 32 light samples, one stage-2 step with
@@ -50,7 +53,24 @@ Phases (JSON lines; any failure exits non-zero):
                 samples and the toy blob env without); per CLI its seconds
                 per view and of setup, rays and Mrays/s, peak memory,
                 launches per view and result JSON, the kernels held at the
-                relighting path's inputs. Needs train_cli.
+                relighting path's inputs. Needs train_cli;
+  stage1_small  stage 1 at test scale (2000 surfels, 64x64, 16² cubemaps),
+                card against CPU: the loss and gradients of one step of each
+                phase (initial, volume, surfel, and volume and surfel with
+                the indirect path on a TSDF fused on the CPU), two backward
+                passes on the card bit for bit, densify_and_prune from the
+                same state and draws;
+  stage1        stage1_full_step at STAGE1_BENCH (the JAX package's
+                tools/bench_stage1.py: 100k points, 400x400, 128² cubemaps,
+                dup 2^21): per phase 1 warm-up and 10 timed steps, the 128³
+                TSDF of 8 views, a warm densify_and_prune, peak memory,
+                overflow, launches and the blend's width per phase;
+  train_stage1_cli
+                python -m irgs_tpu_torch.train_refgaussian in-process on
+                train_cli's folder with a 60-iteration schedule through
+                every phase, densify, resets, normal propagation and TSDF
+                refreshes; then python -m irgs_tpu_torch.train for 3
+                iterations from its checkpoint (--start_checkpoint_refgs).
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -106,6 +126,23 @@ def emit(obj):
 def fail(phase, msg):
     emit({"phase": phase, "ok": False, "error": msg})
     sys.exit(1)
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count since the last reset."""
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.ops import segment_sum as ss
+    return {**rb.LAUNCHES, **gr.LAUNCHES, **ss.LAUNCHES}
+
+
+def reset_launch_counts():
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.ops import segment_sum as ss
+    rb.reset_launches()
+    gr.reset_launches()
+    ss.reset_launches()
 
 
 def cuda_ms(fn, reps=20, warmup=1):
@@ -206,6 +243,44 @@ def _slab_for(n_surface, n_capacity, img, dup_capacity, dev, cam_index=0):
     if int(binning.overflow) != 0:
         raise RuntimeError(f"dup overflow {int(binning.overflow)}")
     return splat, starts, counts, grid_x, n_tiles, feats.shape[-1]
+
+
+def _stage1_slabs(dev, widths=(11, 18)):
+    """The blend's inputs at STAGE1_BENCH, camera 0: the bench's geometry
+    (init_ref_from_pcd of its 100k-point cloud) with features of each width
+    in `widths` drawn from a seed -> {S: args}."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.ops import surfel_raster as sr
+    from irgs_tpu_torch.scene import ref_gaussians as rgs
+    from irgs_tpu_torch.scene import toy
+
+    b = workload.STAGE1_BENCH
+    rs = np.random.RandomState(0)
+    pts = rs.uniform(-1.2, 1.2, (b["n_points"], 3)).astype(np.float32)
+    colors = rs.uniform(0.2, 0.8, (b["n_points"], 3)).astype(np.float32)
+    params, aux = rgs.init_ref_from_pcd(pts, colors, b["n_capacity"], 3,
+                                        env_res=16, device=dev)
+    img = b["img"]
+    cam = toy.make_ring_cameras(b["n_cams"], width=img,
+                                height_px=img)[0].params(dev)
+    grid_x = (img + 15) // 16
+    g = torch.Generator(dev).manual_seed(1)
+    out = {}
+    with torch.no_grad():
+        prep = sr.preprocess(params.xyz, params.get_scaling(), params.rotation,
+                             params.get_opacity()[:, 0], params.get_features(),
+                             cam, img, img, 3, alive=aux.alive)
+        binning = sr.bin_and_sort(prep, grid_x, grid_x, b["dup"])
+        if int(binning.overflow) != 0:
+            raise RuntimeError(f"dup overflow {int(binning.overflow)}")
+        for S in widths:
+            feats = torch.rand((params.n_capacity, S), device=dev, generator=g)
+            out[S] = (*sr.build_slab(prep, binning, feats, grid_x,
+                                     grid_x * grid_x, b["dup"]),
+                      grid_x, grid_x * grid_x, S)
+    return out
 
 
 def _bounds(chunks_run, S, fwd_out_bytes, backward):
@@ -375,6 +450,9 @@ def phase_kernels(results):
     ok = True
     for name, n_s, n_cap, img, dup in cases:
         ok &= check_blend(results, name, _slab_for(n_s, n_cap, img, dup, dev))
+    # stage 1's widths: render_volume's 11 features, 18 with indirect
+    for S, args in _stage1_slabs(dev).items():
+        ok &= check_blend(results, f"stage1_400px_100k_S{S}", args)
     if not ok:
         fail("kernels", "a kernel disagrees with its plain version")
 
@@ -475,14 +553,56 @@ def stage2_card_vs_cpu(light=0):
             "param_tol": STEP_PARAM_TOL}, ok
 
 
+def grads_twice(make_loss, tensors):
+    """Run make_loss().backward() twice from the same state -> whether
+    every gradient in `tensors` (a dict of leaves) came out the same bits
+    both times, and the fields that did not."""
+    import torch
+    runs = []
+    for _ in range(2):
+        for t in tensors.values():
+            t.grad = None
+        make_loss().backward()
+        torch.cuda.synchronize()
+        runs.append({k: None if t.grad is None else t.grad.clone()
+                     for k, t in tensors.items()})
+    differ = [k for k in tensors
+              if (runs[0][k] is None) != (runs[1][k] is None)
+              or (runs[0][k] is not None
+                  and not torch.equal(runs[0][k], runs[1][k]))]
+    return not differ, differ
+
+
+def stage2_grads_deterministic():
+    """Two backward passes of the test-scale stage-2 step on the card from
+    the same inputs -> (bitwise equal, fields that differ)."""
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.train import stage2 as s2
+    dev = torch.device("cuda")
+    state, grid, cams, st = workload.stage2_setup(
+        512, 1024, 64, 8, 8 * 128, 2 ** 14, dev, STAGE2_SMALL_TRACER)
+    draws = s2.draw_stage2(torch.Generator().manual_seed(0), st, "cpu").to(dev)
+    gt_img = torch.full((64, 64, 3), 0.4, device=dev)
+    cam = cams[0].params(dev)
+    return grads_twice(lambda: s2.stage2_forward_loss(
+        state.params, state.aux, grid, cam, gt_img, None, draws, 1001,
+        st)[0], state.params.tensors())
+
+
 def phase_stage2_small():
     """One stage-2 step at the CPU tests' scale on the card and with the
     plain CPU path, from the same draws: the whole step, kernels included,
-    against the port's plain version."""
+    against the port's plain version; and two backward passes on the card,
+    bit for bit."""
     line, ok = stage2_card_vs_cpu()
-    emit({"phase": "stage2_small", "ok": ok, **line})
+    det, differ = stage2_grads_deterministic()
+    emit({"phase": "stage2_small", "ok": ok and det, **line,
+          "grads_bitwise_deterministic": det, "grads_differ": differ})
     if not ok:
         fail("stage2_small", "the step on the card disagrees with the CPU path")
+    if not det:
+        fail("stage2_small", f"two backward passes differ in {differ}")
 
 
 class FirstCalls:
@@ -529,13 +649,96 @@ def check_recorded(results, rec, name):
              f"inputs of {name} (recorded: {sorted(rec.args)})")
 
 
+class LargestScatter:
+    """Patch ops/segment_sum.scatter_add_rows (the deterministic scatter-add
+    of a gathered tensor's gradient) to keep the arguments of its largest
+    call, and undo it on exit."""
+
+    def __enter__(self):
+        from irgs_tpu_torch.ops import segment_sum as ss
+        self.mod, self.orig, self.args = ss, ss.scatter_add_rows, None
+
+        def rec(grad, idx, n_rows):
+            if self.args is None or grad.numel() > self.args[0].numel():
+                self.args = (grad.detach().clone(), idx.clone(), n_rows)
+            return self.orig(grad, idx, n_rows)
+        ss.scatter_add_rows = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.scatter_add_rows = self.orig
+
+
+class IndexAddScatter:
+    """Patch ops/segment_sum.scatter_add_rows to index_add_, the atomic
+    scatter-add it replaces (to time a step both ways), and undo it."""
+
+    def __enter__(self):
+        from irgs_tpu_torch.ops import segment_sum as ss
+        self.mod, self.orig = ss, ss.scatter_add_rows
+        ss.scatter_add_rows = index_add_rows
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.scatter_add_rows = self.orig
+
+
+def index_add_rows(grad, idx, n_rows):
+    import torch
+    out = torch.zeros((n_rows, grad.shape[1]), dtype=grad.dtype,
+                      device=grad.device)
+    return out.index_add_(0, idx, grad)
+
+
+SCATTER_REL = 1e-4   # x max|out|: fp32 sums of another order than index_add_'s
+
+
+def check_scatter(results, rec, name):
+    """The deterministic scatter-add (the sort and the segment-sum kernel)
+    on the largest gradient a main path gave it: twice bit for bit, bit for
+    bit with its plain version (the same sums in the same order), and
+    within SCATTER_REL of index_add_, with its time, the plain version's,
+    index_add_'s and its bound (the gradient, the indices and the output
+    each moved once)."""
+    import torch
+    from irgs_tpu_torch.ops import segment_sum as ss
+    if rec.args is None:
+        fail("kernels", f"no scatter-add of gathered rows ran on {name}")
+    grad, idx, n = rec.args
+    out = ss.scatter_add_rows(grad, idx, n)
+    out2 = ss.scatter_add_rows(grad, idx, n)
+    plain = ss.scatter_sorted(grad, idx, n, ss.segment_sum_plain)
+    ref = index_add_rows(grad, idx, n)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max().clamp_min(1e-30))
+    err_ia = float((out - ref).abs().max())
+    same = bool(torch.equal(out, out2)) and bool(torch.equal(out, plain))
+    ok = same and err_ia <= SCATTER_REL * scale
+    nbytes = 4 * grad.numel() + 8 * idx.numel() + 4 * n * grad.shape[1]
+    line = {"phase": "kernels", "kernel": "segment_sum", "case": name,
+            "ok": ok, "deterministic": bool(torch.equal(out, out2)),
+            "bitwise_equal_plain": bool(torch.equal(out, plain)),
+            "max_abs_err": float((out - plain).abs().max()),
+            "max_abs_err_index_add": err_ia, "rel_tol_index_add": SCATTER_REL,
+            "rows": int(idx.numel()), "width": int(grad.shape[1]),
+            "out_rows": int(n), "distinct_rows": int(torch.unique(idx).numel()),
+            "ms": cuda_ms(lambda: ss.scatter_add_rows(grad, idx, n)),
+            "plain_ms": cuda_ms(lambda: ss.scatter_sorted(
+                grad, idx, n, ss.segment_sum_plain), reps=3),
+            "library_ms": cuda_ms(lambda: index_add_rows(grad, idx, n)),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes}
+    emit(line)
+    results.setdefault("segment_sum", {})[name] = line
+    if not ok:
+        fail("kernels", f"segment_sum disagrees on {name}")
+
+
 def phase_stage2(results, n_warm=1, n_timed=5):
     """stage2_step at the bench workload, on the card."""
     import torch
     from irgs_tpu_torch import workload
-    from irgs_tpu_torch.ops import gather_rows as gr
     from irgs_tpu_torch.ops import grid_tracer as gt
-    from irgs_tpu_torch.ops import raster_blend as rb
     from irgs_tpu_torch.train import stage2 as s2
 
     dev = torch.device("cuda")
@@ -557,18 +760,20 @@ def phase_stage2(results, n_warm=1, n_timed=5):
                                   gt_img, None, draws, st=st)
         return m
 
-    # the warm step records the gather's first real inputs, held against
-    # the plain version before the timed steps measure peak memory
-    with FirstCalls({"gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec:
+    # the warm step records the gather's first real inputs and the largest
+    # scatter-add of gathered rows' gradients, held against their plain
+    # versions before the timed steps measure peak memory
+    with FirstCalls({"gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec, \
+            LargestScatter() as scat:
         step(0)
     check_recorded(results, rec, "stage2")
-    del rec
+    check_scatter(results, scat, "stage2_largest")
+    del rec, scat
     for i in range(1, n_warm):
         step(i)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rb.reset_launches()                      # count the main path only
-    gr.reset_launches()
+    reset_launch_counts()                    # count the main path only
     times, metrics = [], []
     for i in range(n_warm, n_warm + n_timed):
         a = time.perf_counter()
@@ -576,7 +781,17 @@ def phase_stage2(results, n_warm=1, n_timed=5):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - a) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = {**rb.LAUNCHES, **gr.LAUNCHES}
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the same steps with the gathers' gradients summed by index_add_ (the
+    # atomic scatter-add the deterministic one replaces), in the same call
+    with IndexAddScatter():
+        times_ia = []
+        for i in range(n_warm + n_timed, n_warm + 2 * n_timed):
+            a = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            times_ia.append((time.perf_counter() - a) * 1e3)
     last = metrics[-1]
     results.setdefault("launches", {})["stage2"] = launches
     line = {"phase": "stage2", "steps_timed": n_timed,
@@ -588,7 +803,9 @@ def phase_stage2(results, n_warm=1, n_timed=5):
             "grid_oversize": last["grid_oversize"],
             "trace_trunc_frac": last.get("trace_trunc_frac"),
             "trace_more_frac": last.get("trace_more_frac"),
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "max_memory_allocated": peak,
+            "ms_per_step_index_add": statistics.median(times_ia),
+            "ms_steps_index_add": times_ia,
             "launches": launches,
             "launches_per_step": {k: v / n_timed for k, v in launches.items()}}
     checks = {
@@ -915,9 +1132,7 @@ class StepMeter:
         self.mod, self.orig, self.steps, self.run_peak = s2, s2.stage2_step, [], 0
 
     def _launches(self):
-        from irgs_tpu_torch.ops import gather_rows as gr
-        from irgs_tpu_torch.ops import raster_blend as rb
-        return {**rb.LAUNCHES, **gr.LAUNCHES}
+        return launch_counts()
 
     def __call__(self, *a, **kw):
         import torch
@@ -976,17 +1191,14 @@ def run_cli(argv):
     """python -m irgs_tpu_torch.train, in-process, from the main path's
     launch counts at 0; -> (launches, seconds)."""
     import torch
-    from irgs_tpu_torch.ops import gather_rows as gr
-    from irgs_tpu_torch.ops import raster_blend as rb
     from irgs_tpu_torch.train.__main__ import main as train_main
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rb.reset_launches()
-    gr.reset_launches()
+    reset_launch_counts()
     t = time.perf_counter()
     train_main(argv)
     torch.cuda.synchronize()
-    return {**rb.LAUNCHES, **gr.LAUNCHES}, time.perf_counter() - t
+    return launch_counts(), time.perf_counter() - t
 
 
 def read_log(run):
@@ -1482,6 +1694,496 @@ def phase_eval_cli(results, tmp):
         fail("eval_cli", f"checks failed: {checks}")
 
 
+# ---------------------------------------------------------------------------
+# stage 1
+
+# the stage-1 phases of one step: (renderer, with the indirect TSDF path);
+# the blend's feature width S of each
+STAGE1_PHASES = (("initial", False), ("volume", False), ("surfel", False),
+                 ("volume", True), ("surfel", True))
+STAGE1_S = {"initial": 0, "volume": 11, "surfel": 8, "volume_indirect": 18,
+            "surfel_indirect": 8}
+# card against CPU at test scale: the loss within rtol 1e-4, each gradient
+# within 1e-4·max|g| (the CPU tests' bound against JAX) except a share of
+# MAX_OUTLIER_SHARE of its elements, each within BWD_REL·max|g| (the blend
+# kernels' own bounds against their plain version, through which the card
+# and the CPU differ); with the indirect path the TSDF march's marginal
+# crossings (its CPU test allows 0.5 % of the rays to flip) may move a few
+# elements further, so there a share of S1_OUTLIER_SHARE may lie outside
+S1_LOSS_RTOL, S1_GRAD_REL, S1_OUTLIER_SHARE = 1e-4, 1e-4, 0.005
+S1_PARAM_TOL = 1e-6  # densify on the card against the CPU: the split's 3x3
+
+
+def _phase_name(phase, indirect):
+    return phase + ("_indirect" if indirect else "")
+
+
+def _stage1_static(phase, indirect, **kw):
+    from irgs_tpu_torch.train import stage1_full as s1
+    return s1.Stage1FullStatic(phase=phase, use_indirect=indirect, **kw)
+
+
+def stage1_small_state(dev):
+    """STAGE1_SMALL on `dev`: the state, cameras, target, FG table and the
+    static kwargs."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.config import stage1_config
+    from irgs_tpu_torch.scene import cubemap as cm
+    from irgs_tpu_torch.scene import gaussians as G
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.scene.ref_gaussians import RefGaussianParams
+    from irgs_tpu_torch.train import stage1_full as s1
+    w = workload.STAGE1_SMALL
+    fields, alive = workload.stage1_small_fields(w["n_surface"],
+                                                 w["n_capacity"], w["env_res"])
+    params, aux = G.params_from_numpy(fields, alive, dev,
+                                      cls=RefGaussianParams)
+    state = s1.init_state(params, aux, stage1_config().opt,
+                          w["cameras_extent"])
+    cams = toy.make_ring_cameras(w["n_cams"], width=w["img"],
+                                 height_px=w["img"])
+    yy, xx = np.mgrid[:w["img"], :w["img"]] / w["img"]
+    gt = torch.tensor(np.stack([0.3 + 0.2 * np.sin(6 * xx), 0.4 + 0.1 * yy,
+                                0.5 - 0.2 * xx * yy], -1).astype(np.float32),
+                      device=dev)
+    lut = cm.compute_fg_lut(res=32, samples=64, device=dev)
+    static = dict(img_w=w["img"], img_h=w["img"], active_sh_degree=3,
+                  white_background=False, dup_capacity=w["dup"])
+    return state, cams, gt, lut, static
+
+
+def _grad_tensors(state, m2d):
+    return {**state.params.tensors(), "means2d": m2d}
+
+
+def stage1_small_grads(dev, phase, indirect, vol):
+    """Loss and gradients of the test-scale stage-1 step (iteration 10)."""
+    import torch
+    from irgs_tpu_torch.train import stage1_full as s1
+    state, cams, gt, lut, static = stage1_small_state(dev)
+    st = _stage1_static(phase, indirect, **static)
+    m2d = torch.zeros((state.params.n_capacity, 2), device=dev,
+                      requires_grad=True)
+    cam = cams[0].params(dev)
+    vol = None if vol is None else type(vol)(*(x.to(dev) for x in vol))
+
+    def make_loss():
+        return s1.stage1_forward_loss(state.params, state.aux, cam, gt, None,
+                                      lut, vol, 10, st, means2d_offset=m2d)[0]
+    loss = make_loss()
+    loss.backward()
+    grads = {k: None if t.grad is None else t.grad.detach().cpu()
+             for k, t in _grad_tensors(state, m2d).items()}
+    det = None
+    if dev == "cuda":
+        det = grads_twice(make_loss, _grad_tensors(state, m2d))
+    return float(loss.detach()), grads, det
+
+
+def stage1_densify_card_vs_cpu():
+    """densify_and_prune on the card and on the CPU from the same state,
+    statistics, Adam moments and split draws -> (fields, ok)."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.train import densify as D
+    rng = np.random.default_rng(5)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        state = stage1_small_state(dev)[0]
+        n = state.params.n_capacity
+        r = np.random.default_rng(5)
+        moments = {g["name"]: {
+            "exp_avg": torch.tensor(r.standard_normal(
+                tuple(g["params"][0].shape)).astype(np.float32)),
+            "exp_avg_sq": torch.tensor(r.uniform(0, 1, tuple(
+                g["params"][0].shape)).astype(np.float32)),
+            "step": torch.tensor(3.0)}
+            for g in state.optimizer.adam.param_groups}
+        state.optimizer.load_state_dict(moments)
+        aux = state.aux
+        aux.xyz_gradient_accum.copy_(torch.tensor(
+            r.uniform(0, 2e-3, n).astype(np.float32)))
+        aux.denom.copy_(torch.tensor(r.integers(1, 5, n).astype(np.float32)))
+        aux.max_radii2d.copy_(torch.tensor(r.uniform(0, 40, n).astype(
+            np.float32)))
+        draws = (torch.tensor(rng.standard_normal((2, 512, 3)).astype(
+            np.float32)) if dev == "cpu" else res["cpu"][3]).to(dev)
+        new_aux, stats = D.densify_and_prune(
+            state.params, aux, state.optimizer, grad_threshold=2e-4,
+            min_opacity=0.05, extent=3.0, max_screen_size=20, max_new=512,
+            split_normals=draws)
+        res[dev] = (new_aux.alive.cpu(), {k: v.detach().cpu() for k, v in
+                                          state.params.tensors().items()},
+                    state.optimizer.state_dict(), draws.cpu(), stats)
+    alive_eq = bool(torch.equal(res["cpu"][0], res["cuda"][0]))
+    p_err = max(float((res["cuda"][1][k] - res["cpu"][1][k]).abs().max())
+                for k in res["cpu"][1])
+    m_eq = all(torch.equal(res["cuda"][2][g][k].cpu().float(),
+                           res["cpu"][2][g][k].cpu().float())
+               for g in res["cpu"][2] for k in res["cpu"][2][g])
+    stats = res["cuda"][4]
+    ok = (alive_eq and p_err <= S1_PARAM_TOL and m_eq
+          and stats == res["cpu"][4] and stats["n_cloned"] + stats["n_split"]
+          > 0)
+    return {"alive_equal": alive_eq, "param_max_abs_err": p_err,
+            "param_tol": S1_PARAM_TOL, "moments_equal": m_eq,
+            "stats": stats}, ok
+
+
+def phase_stage1_small():
+    """Stage 1 at test scale (STAGE1_SMALL), card against CPU: the loss and
+    gradients of one step of each phase (the indirect ones on a TSDF fused
+    on the CPU), two backward passes on the card bit for bit, and a
+    densify_and_prune from the same state and draws."""
+    import numpy as np
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.train import stage1_full as s1
+    state, cams, _, _, static = stage1_small_state("cpu")
+    w = workload.STAGE1_SMALL
+    vol = s1.reconstruct_tsdf(state.params, state.aux, cams, img_w=w["img"],
+                              img_h=w["img"], active_sh_degree=3, mesh_res=32,
+                              cameras_extent=w["cameras_extent"],
+                              dup_capacity=w["dup"])
+    phases, ok = {}, True
+    for phase, ind in STAGE1_PHASES:
+        name = _phase_name(phase, ind)
+        v = vol if ind else None
+        l_cpu, g_cpu, _ = stage1_small_grads("cpu", phase, ind, v)
+        l_card, g_card, (det, differ) = stage1_small_grads("cuda", phase,
+                                                           ind, v)
+        worst, shares = 0.0, {}
+        for k, gc in g_cpu.items():
+            gk = g_card[k]
+            if gc is None or gk is None:
+                if (gc is None) != (gk is None):
+                    shares[k] = 1.0
+                continue
+            scale = float(gc.abs().max().clamp_min(1e-12))
+            d = (gk - gc).abs()
+            worst = max(worst, float(d.max()) / scale)
+            shares[k] = float((d > S1_GRAD_REL * scale).float().mean())
+        allowed = S1_OUTLIER_SHARE if ind else MAX_OUTLIER_SHARE
+        loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+        p_ok = (loss_rel <= S1_LOSS_RTOL and det
+                and max(shares.values()) <= allowed
+                and (ind or worst <= BWD_REL)
+                and bool(np.isfinite(l_card)))
+        phases[name] = {"loss_cuda": l_card, "loss_cpu": l_cpu,
+                        "loss_rel_err": loss_rel,
+                        "grad_max_rel_err": worst,
+                        "grad_max_outlier_share": max(shares.values()),
+                        "allowed_outlier_share": allowed,
+                        "outlier_bound_rel": None if ind else BWD_REL,
+                        "grads_bitwise_deterministic": det,
+                        "grads_differ": differ, "ok": p_ok}
+        ok &= p_ok
+    dens, d_ok = stage1_densify_card_vs_cpu()
+    line = {"phase": "stage1_small", "ok": ok and d_ok,
+            "loss_rtol": S1_LOSS_RTOL, "grad_rel": S1_GRAD_REL,
+            "phases": phases, "densify": dens}
+    emit(line)
+    if not line["ok"]:
+        fail("stage1_small", "stage 1 on the card disagrees with the CPU "
+             "path, or two backward passes differ")
+
+
+class BlendWidths:
+    """Patch raster_blend.blend_tiles to record the feature width S of
+    each call, and undo it on exit."""
+
+    def __enter__(self):
+        from irgs_tpu_torch.ops import raster_blend as rb
+        self.mod, self.orig, self.widths = rb, rb.blend_tiles, []
+
+        def rec(*a):
+            self.widths.append(a[5])
+            return self.orig(*a)
+        rb.blend_tiles = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.blend_tiles = self.orig
+
+
+def phase_stage1(results, n_warm=1, n_timed=10):
+    """stage1_full_step at STAGE1_BENCH, per phase: 1 warm-up and 10 timed
+    steps, the TSDF (128³, fused from the 8 views) for the indirect phases,
+    a warm densify_and_prune, peak memory, overflow, launches and S."""
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.train import densify as D
+    from irgs_tpu_torch.train import stage1_full as s1
+
+    dev = torch.device("cuda")
+    b = workload.STAGE1_BENCH
+    t0 = time.perf_counter()
+    state, cams, gt, lut, static = workload.stage1_setup(**b, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cam_params = [c.params(dev) for c in cams]
+    vol, tsdf_s, per, ok = None, None, {}, True
+    for phase, ind in STAGE1_PHASES:
+        name = _phase_name(phase, ind)
+        if ind and vol is None:
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            vol = s1.reconstruct_tsdf(
+                state.params, state.aux, cams, img_w=b["img"], img_h=b["img"],
+                active_sh_degree=3, mesh_res=128,
+                cameras_extent=b["cameras_extent"], dup_capacity=b["dup"])
+            torch.cuda.synchronize()
+            tsdf_s = time.perf_counter() - a
+        st = _stage1_static(phase, ind, **static)
+
+        def step(i):
+            nonlocal state
+            state, m = s1.stage1_full_step(state, cam_params[i % len(cams)],
+                                           gt, None, lut, vol, st=st)
+            return m
+        with LargestScatter() as scat:
+            for i in range(n_warm):
+                step(i)
+        if name == "volume":
+            check_scatter(results, scat, "stage1_largest")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times, metrics = [], []
+        with BlendWidths() as bw:
+            for i in range(n_warm, n_warm + n_timed):
+                a = time.perf_counter()
+                m = step(i)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - a) * 1e3)
+                metrics.append({k: float(v) for k, v in m.items()})
+        launches = launch_counts()
+        if name in ("volume", "volume_indirect"):
+            results.setdefault("launches", {})[
+                "stage1" if name == "volume" else "stage1_indirect"] = launches
+        per[name] = {
+            "ms_per_step": statistics.median(times), "ms_steps": times,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "loss": metrics[-1]["loss"],
+            "raster_overflow": max(m["raster_overflow"] for m in metrics),
+            "blend_S": sorted(set(bw.widths)),
+            "launches_per_step": {k: v / n_timed for k, v in
+                                  launches.items()}}
+        ok &= (per[name]["raster_overflow"] == 0.0
+               and all(math.isfinite(m["loss"]) for m in metrics)
+               and per[name]["blend_S"] == [STAGE1_S[name]]
+               and launches["blend_fwd"] == launches["blend_bwd"] == n_timed
+               and launches["segment_sum"] > 0)
+    parts = stage1_parts(state, cam_params[0], vol, static)
+    opt = state.optimizer
+    dens = []
+    gen = torch.Generator(dev).manual_seed(0)
+    for _ in range(2):                       # the first warms up
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        n_before = state.aux.n_alive
+        state.aux, stats = D.densify_and_prune(
+            state.params, state.aux, opt, grad_threshold=2e-4,
+            min_opacity=0.05, extent=b["cameras_extent"], max_screen_size=20,
+            generator=gen)
+        torch.cuda.synchronize()
+        dens.append({"ms": (time.perf_counter() - a) * 1e3,
+                     "n_alive_before": n_before, **stats})
+    line = {"phase": "stage1", "ok": ok, "setup_s": setup_s,
+            "steps_timed": n_timed, "tsdf_res": 128, "tsdf_views": len(cams),
+            "tsdf_s": tsdf_s, "phases": per, "parts_ms": parts,
+            "densify_warm": dens[-1],
+            "densify_first": dens[0],
+            "max_memory_allocated": max(p["max_memory_allocated"]
+                                        for p in per.values())}
+    emit(line)
+    results["stage1"] = line
+    if not ok:
+        fail("stage1", "a stage-1 phase overflowed, lost its loss or did not "
+             "run its kernels once a step at its width")
+
+
+def stage1_parts(state, cam, vol, static):
+    """Where a stage-1 step's time goes, part by part, at STAGE1_BENCH
+    (synchronised, median of 5): the cubemap prefilter forward and backward
+    (EnvMips.build of one 128² cubemap), the TSDF march of every
+    Gaussian's reflected ray (the volume phase's visibility), and the
+    rasterizer forward and backward at S = 0 (the initial phase)."""
+    import torch
+    from irgs_tpu_torch.render import ref_gaussian as rg
+    from irgs_tpu_torch.ops import tsdf as tsdf_ops
+    from irgs_tpu_torch.scene.ref_gaussians import EnvMips
+    p = state.params
+
+    def envmips():
+        mips = EnvMips.build(p.env2)
+        (sum(m.sum() for m in mips.specular) + mips.diffuse.sum()).backward()
+
+    def march():
+        _, _, refl = rg._per_gaussian_view(p, cam)
+        tsdf_ops.ray_march_visibility(vol, p.xyz.detach(), refl.detach())
+
+    def raster():
+        out = rg.render_initial(p, state.aux, cam, torch.zeros(3,
+                                device=cam.w2c.device),
+                                img_w=static["img_w"], img_h=static["img_h"],
+                                active_sh_degree=3,
+                                dup_capacity=static["dup_capacity"])
+        out["render"].sum().backward()
+
+    res = {}
+    for name, fn in (("envmips_fwd_bwd", envmips), ("march_100k", march),
+                     ("raster_s0_fwd_bwd", raster)):
+        ts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - a) * 1e3)
+        res[name] = statistics.median(ts[1:])
+    state.optimizer.zero_grad()
+    return res
+
+
+class Stage1StepMeter:
+    """Wraps stage1_full_step (the stage-1 CLI looks it up on its module
+    at each step): each step's phase, synchronised wall time and kernel
+    launches."""
+
+    def __enter__(self):
+        from irgs_tpu_torch.train import stage1_full as s1
+        self.mod, self.orig, self.steps = s1, s1.stage1_full_step, []
+        s1.stage1_full_step = self
+        return self
+
+    def __call__(self, *a, st, **kw):
+        import torch
+        torch.cuda.synchronize()
+        before, t = launch_counts(), time.perf_counter()
+        out = self.orig(*a, st=st, **kw)
+        torch.cuda.synchronize()
+        self.steps.append({
+            "phase": _phase_name(st.phase, st.use_indirect),
+            "ms": (time.perf_counter() - t) * 1e3,
+            "launches": {k: v - before[k] for k, v in launch_counts().items()}})
+        return out
+
+    def __exit__(self, *exc):
+        self.mod.stage1_full_step = self.orig
+
+
+# the stage-1 CLI's compressed schedule: 60 iterations through every phase
+# (initial to 10, volume to 30, surfel after), a densification at 10,
+# opacity resets at 25 and 50, normal propagation at 20, 40 and 60, the
+# material reset at 31, indirect steps from 42 on TSDFs refreshed at 41,
+# 50 and 60 (128³, as STAGE1_BENCH's)
+STAGE1_CLI = ["--iterations", "60", "--init_until_iter", "10",
+              "--volume_render_until_iter", "30", "--indirect_from_iter", "40",
+              "--densify_from_iter", "5", "--densification_interval", "10",
+              "--opacity_reset_interval", "25", "--normal_prop_interval", "20",
+              "--mesh_interval", "10", "--mesh_res", "128",
+              "--dup_capacity", str(2 ** 21), "--max_gaussians", str(2 ** 17)]
+
+
+def phase_train_stage1_cli(results, tmp):
+    """python -m irgs_tpu_torch.train_refgaussian in-process on train_cli's
+    folder (8 ring views at 400x400; the Blender reader's 100k random
+    points) with STAGE1_CLI, then python -m irgs_tpu_torch.train for 3
+    iterations from its last checkpoint (--start_checkpoint_refgs)."""
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.train import densify as D
+    from irgs_tpu_torch.train import stage1_full as s1
+    from irgs_tpu_torch.train_refgaussian.__main__ import main as s1_main
+
+    dev = torch.device("cuda")
+    b = workload.BENCH
+    scene = os.path.join(tmp, "sphere")
+    if not os.path.isdir(scene):            # train_cli made it when it ran
+        params, aux = toy.make_sphere_scene(n_surface=b["n_surface"],
+                                            n_capacity=b["n_capacity"],
+                                            env_resolution=128, device=dev)
+        write_blender_dataset(scene, params, aux, toy.make_ring_cameras(
+            8, width=b["img"], height_px=b["img"]), spp=32, white=False)
+        del params, aux
+    run = os.path.join(tmp, "stage1_run")
+    timed = {"tsdf_refresh": (s1, "reconstruct_tsdf"),
+             "densify": (D, "densify_and_prune"),
+             "checkpoint": (s1, "save_stage1_checkpoint")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    with Stage1StepMeter() as meter, Timed(timed) as tm:
+        s1_main(["-s", scene, "-m", run, *STAGE1_CLI])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    results.setdefault("launches", {})["train_stage1_cli"] = launches
+    with open(os.path.join(run, "train_log.jsonl")) as f:
+        log = [json.loads(x) for x in f]
+    events = {}
+    for m in log:
+        if "event" in m:
+            events.setdefault(m["event"], []).append(m)
+    by_phase = {}
+    for stp in meter.steps[1:]:              # the first step warms up
+        by_phase.setdefault(stp["phase"], []).append(stp["ms"])
+    run2 = os.path.join(tmp, "stage2_from_stage1")
+    # the raster's dup capacity of STAGE1_BENCH: 60 steps from a random
+    # cloud leave large surfels that touch many tiles
+    s2_launches, s2_s = run_cli(["-s", scene, "-m", run2,
+                                 "--start_checkpoint_refgs", run,
+                                 "--iterations", "3", "--vis_interval", "0",
+                                 *CLI_BENCH, "--dup_capacity", str(2 ** 21)])
+    with open(os.path.join(run2, "train_log.jsonl")) as f:
+        log2 = [json.loads(x) for x in f]
+    files = sorted(os.listdir(run))
+    files2 = sorted(os.listdir(run2))
+    dens = events.get("densify", [{}])[0]
+    line = {"phase": "train_stage1_cli", "cli_s": cli_s,
+            "ms_per_step_by_phase": {k: statistics.median(v)
+                                     for k, v in by_phase.items()},
+            "steps_by_phase": {k: len(v) for k, v in by_phase.items()},
+            "tsdf_refresh_s": tm.seconds.get("tsdf_refresh"),
+            "densify_s": tm.seconds.get("densify"),
+            "checkpoint_s": tm.seconds.get("checkpoint"),
+            "n_alive_before_densify": dens.get("n_alive_before"),
+            "n_alive_after_densify": dens.get("n_alive"),
+            "densify": dens, "events": {k: [m["iter"] for m in v]
+                                        for k, v in events.items()},
+            "max_memory_allocated": peak, "launches": launches,
+            "log_final": log[-1], "files": files,
+            "stage2_s": s2_s, "stage2_launches": s2_launches,
+            "stage2_log": log2, "stage2_files": files2}
+    checks = {
+        "every_phase": set(by_phase) == {"initial", "volume", "surfel",
+                                         "surfel_indirect"},
+        "events": all(k in events for k in (
+            "densify", "opacity_reset", "normal_prop", "material_reset",
+            "tsdf_refresh")),
+        "loss_finite": all(math.isfinite(m["loss"]) for m in log
+                           if "loss" in m),
+        "raster_overflow_zero": all(m.get("raster_overflow", 0) == 0
+                                    for m in log),
+        "blend_once_per_step": all(
+            stp["launches"]["blend_fwd"] == stp["launches"]["blend_bwd"] == 1
+            for stp in meter.steps),
+        "checkpoint": "chkpnt60.ckpt" in files,
+        "stage2_bridged": "chkpnt3.ckpt" in files2 and all(
+            math.isfinite(m["loss"]) for m in log2),
+    }
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("train_stage1_cli", f"checks failed: {checks}")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -1492,12 +2194,18 @@ KERNELS = {
         cases={"stage2": "bench_400px_100k", "eval": "eval_400px_100k",
                "train_cli": "bench_400px_100k",
                "train_cli_oversize": "shadow_400px_12k",
-               "eval_cli": "relight_400px_100k"}),
+               "eval_cli": "relight_400px_100k",
+               "stage1": "stage1_400px_100k_S11",
+               "stage1_indirect": "stage1_400px_100k_S18",
+               "train_stage1_cli": "stage1_400px_100k_S11"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
         cases={"stage2": "bench_400px_100k", "train_cli": "bench_400px_100k",
-               "train_cli_oversize": "shadow_400px_12k"}),
+               "train_cli_oversize": "shadow_400px_12k",
+               "stage1": "stage1_400px_100k_S11",
+               "stage1_indirect": "stage1_400px_100k_S18",
+               "train_stage1_cli": "stage1_400px_100k_S11"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -1508,6 +2216,16 @@ KERNELS = {
                "train_cli": "stage2_first_pass",
                "train_cli_oversize": "shadow_400px_12k_first_pass",
                "eval_cli": "relight_400px_100k_first_pass"}),
+    # no Pallas kernel: the deterministic scatter-add of the gathers'
+    # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
+    # gather); index_add_ is its library call
+    "segment_sum": dict(
+        route="cuda", source="irgs_tpu_torch/csrc/segment_sum.cu",
+        replaces=("irgs_tpu/ops/surfel_raster.py:547 (XLA scatter-add, the "
+                  "VJP of the slab gather; no Pallas kernel)"),
+        cases={"stage2": "stage2_largest", "train_cli": "stage2_largest",
+               "stage1": "stage1_largest",
+               "train_stage1_cli": "stage1_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -1542,7 +2260,8 @@ def kernels_line(results):
 
 
 PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small",
-          "mis_small", "eval", "train_cli", "train_cli_oversize", "eval_cli")
+          "mis_small", "eval", "train_cli", "train_cli_oversize", "eval_cli",
+          "stage1_small", "stage1", "train_stage1_cli")
 
 
 def nvidia_smi_line():
@@ -1589,6 +2308,9 @@ def main():
             "train_cli_oversize": lambda: phase_train_cli_oversize(results,
                                                                    tmp),
             "eval_cli": lambda: phase_eval_cli(results, tmp),
+            "stage1_small": phase_stage1_small,
+            "stage1": lambda: phase_stage1(results),
+            "train_stage1_cli": lambda: phase_train_stage1_cli(results, tmp),
         }
         for name in PHASES:
             if name in phases:

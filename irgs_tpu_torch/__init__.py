@@ -18,9 +18,12 @@ __version__ = "0.1.0"
 import torch as _torch
 
 # fp32 throughout, as irgs_tpu sets jax_default_matmul_precision=highest:
-# no TF32 in matmuls, and none in cuDNN convolutions (SSIM is a conv).
+# no TF32 in matmuls, and none in cuDNN convolutions (SSIM is a conv). The
+# convolutions' backward takes deterministic algorithms, so that a step's
+# gradients have the same bits on every run, as the reference's do.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cudnn.deterministic = True
 
 
 def resolve_device(device=None) -> _torch.device:

@@ -56,7 +56,8 @@
 //   from fwd_out and the cotangent.
 // - The backward reduces the 12 + NA per-splat sums over a warp's 32 pixels
 //   with one reduce-scatter (31 shuffles: lane j ends with sum j) instead of
-//   a butterfly per sum, for live steps only; the 8 warps' partials are
+//   a butterfly per sum (sums past the 32nd, at NA > 20, take a butterfly
+//   each), for live steps only; the 8 warps' partials are
 //   summed in warp order in shared memory every 32 splats. No atomics.
 
 #include <cuda_runtime.h>
@@ -88,7 +89,9 @@ __host__ __device__ constexpr int slab_width(int na) {
 __host__ __device__ constexpr int red_stride(int na) { return (12 + na) | 1; }
 
 // The forward splits each chunk's K splats into FWD_SPLIT sub-ranges, one
-// group of 256 threads (a thread per pixel) each; see blend_fwd_kernel.
+// group of 256 threads (a thread per pixel) each; see blend_fwd_kernel. At
+// 1024 threads a thread has at most 64 registers; ptxas fits the widest
+// width, stage 1's NA = 24 with its 24 accumulators, in 63 without spills.
 constexpr int FWD_SPLIT = 4;
 constexpr int FWD_THREADS = FWD_SPLIT * TILE_PIX;
 // partial sums a sub-range hands on: attrs | D D2 A M1 M2 dist | med_o med_d
@@ -304,8 +307,8 @@ __device__ __forceinline__ void alpha_depth_vjp(const Geo& g, float px,
 // One halving round of the reduce-scatter below: lanes with bit H set keep
 // the upper half of v[0:2H], the others the lower half, and each adds the
 // half its partner sent.
-template <int H>
-__device__ __forceinline__ void reduce_scatter_round(float (&v)[32], int lane) {
+template <int H, int N>
+__device__ __forceinline__ void reduce_scatter_round(float (&v)[N], int lane) {
   const bool up = (lane & H) != 0;
 #pragma unroll
   for (int j = 0; j < H; ++j) {
@@ -315,10 +318,12 @@ __device__ __forceinline__ void reduce_scatter_round(float (&v)[32], int lane) {
   }
 }
 
-// Reduce-scatter of 32 values over the warp: lane j returns the warp's sum
+// Reduce-scatter of v[0:32] over the warp: lane j returns the warp's sum
 // of v[j]. Five rounds, 16 + 8 + 4 + 2 + 1 shuffles; the order of every
 // addition is fixed, so the result is the same on every run.
-__device__ __forceinline__ float warp_reduce_scatter(float (&v)[32], int lane) {
+template <int N>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[N], int lane) {
+  static_assert(N >= 32, "32 values, one per lane");
   reduce_scatter_round<16>(v, lane);
   reduce_scatter_round<8>(v, lane);
   reduce_scatter_round<4>(v, lane);
@@ -508,8 +513,12 @@ blend_bwd_kernel(const float* __restrict__ splat, const int* __restrict__ starts
   constexpr int FS = splat_stride(NA);
   constexpr int CO = NA + 9;
   constexpr int NG = 12 + NA;  // dslab rows written: geometry + attrs
+  // per-splat sums a lane holds: the first 32 go through one
+  // reduce-scatter (lane j ends with sum j), the rest (NA > 20: stage 1's
+  // S = 18) through a butterfly each, read from lane 0
+  constexpr int NV = NG > 32 ? NG : 32;
+  constexpr int NR = NG < 32 ? NG : 32;
   constexpr int RS = red_stride(NA);
-  static_assert(NG <= 32, "one reduce-scatter lane per dslab row");
   extern __shared__ __align__(16) float smem[];
   float* red = smem + 2 * K * FS;  // [NWARP][KSUB][RS]
   const int t = (int)order[blockIdx.x];  // heaviest tiles first
@@ -560,9 +569,9 @@ blend_bwd_kernel(const float* __restrict__ splat, const int* __restrict__ starts
         any = __any_sync(FULL, g.alpha != 0.0f || is_med);
       }
       if (any) {
-        float v[32];
+        float v[NV];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) v[j] = 0.0f;
+        for (int j = 0; j < NV; ++j) v[j] = 0.0f;
         if (g.alpha != 0.0f || is_med) {
           float w = 0.0f, dalpha = 0.0f, ddepth = 0.0f, dm = 0.0f;
           if (g.alpha != 0.0f) {
@@ -591,10 +600,19 @@ blend_bwd_kernel(const float* __restrict__ splat, const int* __restrict__ starts
 #pragma unroll
           for (int a = 0; a < NA; ++a) v[12 + a] = g_attrs[a] * w;
         }
+        float* r = red + (warp * KSUB + kk) * RS;
+#pragma unroll
+        for (int j = 32; j < NG; ++j) {
+          float x = v[j];
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+          if (lane == 0) r[j] = x;
+        }
         const float s = warp_reduce_scatter(v, lane);
-        if (lane < NG) red[(warp * KSUB + kk) * RS + lane] = s;
-      } else if (lane < NG) {
-        red[(warp * KSUB + kk) * RS + lane] = 0.0f;
+        if (lane < NR) r[lane] = s;
+      } else {
+        for (int j = lane; j < NG; j += 32)
+          red[(warp * KSUB + kk) * RS + j] = 0.0f;
       }
       if (kk == KSUB - 1) {
         __syncthreads();
@@ -668,6 +686,8 @@ int irgs_blend_fwd(const float* splat, const int* starts, const int* counts,
     case 6: return launch_fwd<12>(splat, starts, counts, order, out, n_tiles, grid_x, b_pad, st);
     case 7: return launch_fwd<13>(splat, starts, counts, order, out, n_tiles, grid_x, b_pad, st);
     case 8: return launch_fwd<14>(splat, starts, counts, order, out, n_tiles, grid_x, b_pad, st);
+    case 11: return launch_fwd<17>(splat, starts, counts, order, out, n_tiles, grid_x, b_pad, st);
+    case 18: return launch_fwd<24>(splat, starts, counts, order, out, n_tiles, grid_x, b_pad, st);
     default: return -1;
   }
 }
@@ -688,6 +708,8 @@ int irgs_blend_bwd(const float* splat, const int* starts, const int* counts,
     case 6: return launch_bwd<12>(splat, starts, counts, order, fwd_out, cot, dslab, n_tiles, grid_x, b_pad, st);
     case 7: return launch_bwd<13>(splat, starts, counts, order, fwd_out, cot, dslab, n_tiles, grid_x, b_pad, st);
     case 8: return launch_bwd<14>(splat, starts, counts, order, fwd_out, cot, dslab, n_tiles, grid_x, b_pad, st);
+    case 11: return launch_bwd<17>(splat, starts, counts, order, fwd_out, cot, dslab, n_tiles, grid_x, b_pad, st);
+    case 18: return launch_bwd<24>(splat, starts, counts, order, fwd_out, cot, dslab, n_tiles, grid_x, b_pad, st);
     default: return -1;
   }
 }

@@ -57,7 +57,10 @@ FILTER_INV_SQUARE = 2.0
 ALPHA_EPS = 1.0 / 255.0
 T_DONE = 1e-4
 K = 128  # splats per chunk; tile segments are K-aligned
-MAX_S = 8  # feature widths the kernels are instantiated for
+# feature widths the kernels are instantiated for: 0-8 (stage 2 and the
+# evals take 4, stage 1's renderers 0, 5 and 8) and stage 1's volume
+# renderer's 11, and 18 with the indirect features
+SUPPORTED_S = (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 18)
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {"blend_fwd": 0, "blend_bwd": 0}
@@ -114,8 +117,9 @@ def _check(name, x, dtype, shape=None):
 
 
 def _check_inputs(splat, starts, counts, n_tiles, S):
-    if not 0 <= S <= MAX_S:
-        raise ValueError(f"feature width S={S} not in [0, {MAX_S}]")
+    if S not in SUPPORTED_S:
+        raise ValueError(f"feature width S={S} is not one the kernels are "
+                         f"built for: {SUPPORTED_S}")
     _check("splat", splat, torch.float32, (slab_width(S), splat.shape[1]))
     _check("starts", starts, torch.int32, (n_tiles,))
     _check("counts", counts, torch.int32, (n_tiles,))

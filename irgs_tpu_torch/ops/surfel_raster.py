@@ -54,8 +54,10 @@ class Prep(NamedTuple):
 
 def preprocess(means3d, scales, quats, opacities, shs, cam: CameraParams,
                img_w: int, img_h: int, active_sh_degree: int,
-               means2d_offset=None, alive=None) -> Prep:
-    """Per-Gaussian screen-space setup (≙ irgs_tpu preprocess, :87)."""
+               means2d_offset=None, alive=None, colors_precomp=None) -> Prep:
+    """Per-Gaussian screen-space setup (≙ irgs_tpu preprocess, :87). With
+    `colors_precomp` [N, 3] the splats carry those colours, and the SH are
+    not evaluated (nor differentiated)."""
     n = means3d.shape[0]
     grid_x = (img_w + TILE - 1) // TILE
     grid_y = (img_h + TILE - 1) // TILE
@@ -105,10 +107,14 @@ def preprocess(means3d, scales, quats, opacities, shs, cam: CameraParams,
     if alive is not None:
         valid = valid & alive
 
-    dirs = means3d - cam.cam_pos
-    dirs = dirs / maximum(torch.linalg.vector_norm(dirs, dim=-1, keepdim=True),
-                          1e-12)
-    rgb = sh_utils.eval_sh_color(active_sh_degree, shs.transpose(-1, -2), dirs)
+    if colors_precomp is not None:
+        rgb = colors_precomp
+    else:
+        dirs = means3d - cam.cam_pos
+        dirs = dirs / maximum(torch.linalg.vector_norm(dirs, dim=-1,
+                                                       keepdim=True), 1e-12)
+        rgb = sh_utils.eval_sh_color(active_sh_degree, shs.transpose(-1, -2),
+                                     dirs)
 
     return Prep(M=M, center=center, depth=p_view[:, 2], normal=normal_view,
                 opacity=opacities.reshape(n), rgb=rgb,
@@ -217,9 +223,10 @@ def build_slab(prep: Prep, binning: Binning, features, grid_x: int,
 def rasterize(means3d, scales, quats, opacities, shs, features,
               means2d_offset, cam: CameraParams, bg_color, *, img_w: int,
               img_h: int, active_sh_degree: int, dup_capacity: int = 2 ** 21,
-              alive=None) -> RasterOut:
+              alive=None, colors_precomp=None) -> RasterOut:
     """Differentiable surfel rasterization (≙ irgs_tpu rasterize with
-    backend="pallas"). Runs on the device of its inputs."""
+    backend="pallas"). Runs on the device of its inputs. `colors_precomp`
+    [N, 3] replaces the SH colours (stage 1's render_volume)."""
     grid_x = (img_w + TILE - 1) // TILE
     grid_y = (img_h + TILE - 1) // TILE
     n_tiles = grid_x * grid_y
@@ -227,7 +234,7 @@ def rasterize(means3d, scales, quats, opacities, shs, features,
 
     prep = preprocess(means3d, scales, quats, opacities, shs, cam, img_w,
                       img_h, active_sh_degree, means2d_offset=means2d_offset,
-                      alive=alive)
+                      alive=alive, colors_precomp=colors_precomp)
     binning = bin_and_sort(prep, grid_x, grid_y, dup_capacity)
     splat, starts, counts = build_slab(prep, binning, features, grid_x,
                                        n_tiles, dup_capacity)

@@ -38,12 +38,14 @@ class GaussianParams:
     env: torch.Tensor            # [He, We, 3] raw lat-long envmap
     max_sh_degree: int = 3
 
+    FIELDS = PARAM_FIELDS
+
     @property
     def n_capacity(self) -> int:
         return self.xyz.shape[0]
 
     def tensors(self) -> dict[str, torch.Tensor]:
-        return {f: getattr(self, f) for f in PARAM_FIELDS}
+        return {f: getattr(self, f) for f in self.FIELDS}
 
     def get_scaling(self):
         return torch.exp(self.scaling)
@@ -56,6 +58,9 @@ class GaussianParams:
 
     def get_roughness(self):
         return torch.sigmoid(self.roughness)
+
+    def get_metallic(self):
+        return torch.sigmoid(self.metallic)
 
     def get_features(self):
         return torch.cat([self.features_dc, self.features_rest], dim=1)
@@ -70,9 +75,24 @@ class GaussianParams:
 
 @dataclasses.dataclass
 class GaussianAux:
-    """Non-optimized bookkeeping."""
+    """Non-optimized bookkeeping: the alive mask and, for stage 1's
+    densification (train/densify.py), the screen radii and the sums of the
+    screen-space gradient norms (None where nothing densifies)."""
     alive: torch.Tensor          # [N] bool
     active_sh_degree: int = 3
+    max_radii2d: torch.Tensor | None = None         # [N] float32
+    xyz_gradient_accum: torch.Tensor | None = None  # [N] float32
+    denom: torch.Tensor | None = None               # [N] float32
+
+    @property
+    def n_alive(self) -> int:
+        return int(self.alive.sum())
+
+    def with_zero_stats(self) -> "GaussianAux":
+        """The same alive mask with zeroed densification statistics."""
+        z = lambda: torch.zeros(self.alive.shape, dtype=torch.float32,
+                                device=self.alive.device)
+        return GaussianAux(self.alive, self.active_sh_degree, z(), z(), z())
 
 
 def inverse_base_color_activation(x):
@@ -80,22 +100,136 @@ def inverse_base_color_activation(x):
 
 
 def params_from_numpy(fields: dict, alive: np.ndarray, device,
-                      max_sh_degree: int = 3, active_sh_degree: int = 3):
+                      max_sh_degree: int = 3, active_sh_degree: int = 3,
+                      cls=None):
     """Carry a parameter set across: numpy arrays of the JAX `GaussianParams`
-    fields (same names and layouts) -> (GaussianParams, GaussianAux) on
-    `device`, as float32 leaf tensors."""
-    missing = [f for f in PARAM_FIELDS if f not in fields]
+    fields (or, with `cls` = scene/ref_gaussians.RefGaussianParams, of the
+    JAX `RefGaussianParams`; same names and layouts) -> (params,
+    GaussianAux) on `device`, as float32 leaf tensors."""
+    cls = GaussianParams if cls is None else cls
+    names = cls.FIELDS
+    missing = [f for f in names if f not in fields]
     if missing:
         raise KeyError(f"missing parameter fields: {missing}")
     device = resolve_device(device)
     t = {f: torch.tensor(np.asarray(fields[f], np.float32), device=device)
-         for f in PARAM_FIELDS}
+         for f in names}
     n = t["xyz"].shape[0]
     alive_t = torch.tensor(np.asarray(alive, bool), device=device)
     if alive_t.shape != (n,):
         raise ValueError(f"alive must have shape ({n},), got {tuple(alive_t.shape)}")
-    return (GaussianParams(**t, max_sh_degree=max_sh_degree),
+    return (cls(**t, max_sh_degree=max_sh_degree),
             GaussianAux(alive=alive_t, active_sh_degree=active_sh_degree))
+
+
+def _init_const(fn, value: float) -> float:
+    """A raw init value as the JAX package forms it: `fn` of a float32
+    scalar, back to a Python float."""
+    return float(fn(torch.tensor(value, dtype=torch.float32)))
+
+
+def create_from_pcd(points: np.ndarray, colors: np.ndarray, n_capacity: int,
+                    max_sh_degree: int = 3, env_resolution: int = 128,
+                    env_init_value: float = 1.5,
+                    init_base_color: float = 0.5, init_metallic: float = 0.5,
+                    init_roughness: float = 0.5,
+                    knn_dist2: np.ndarray | None = None,
+                    env_activation: str = "exp", device=None,
+                    generator: torch.Generator | None = None):
+    """Initialise from a point cloud, padded to `n_capacity` (≙ irgs_tpu
+    create_from_pcd, gaussians.py:112-174). Scales from the mean squared
+    distance to the 3 nearest neighbours: the Morton-window search of
+    utils/native.py above 50k points, the brute force of ops/knn.py below
+    (or `knn_dist2` as given). The rotation draw is np.random.RandomState(0),
+    as in the JAX package; a softplus envmap's uniform grid comes from
+    `generator`."""
+    from ..ops.knn import mean_knn_dist2
+    from ..utils import sh as sh_utils
+    from . import envlight
+
+    device = resolve_device(device)
+    points = np.asarray(points, np.float32)
+    n = points.shape[0]
+    if n > n_capacity:
+        raise ValueError(f"{n} points > capacity {n_capacity}")
+    k = (max_sh_degree + 1) ** 2
+    if knn_dist2 is None:
+        if n > 50_000:
+            from ..utils.native import mean_knn_dist2_native
+            knn_dist2 = mean_knn_dist2_native(points)
+        else:
+            knn_dist2 = mean_knn_dist2(torch.tensor(points, device=device)
+                                       ).cpu().numpy()
+    dist2 = np.maximum(np.asarray(knn_dist2), 1e-7)
+    scales = np.repeat(np.log(np.sqrt(dist2))[:, None], 2, axis=1)
+
+    def pad(x, fill=0.0):
+        out = np.full((n_capacity,) + x.shape[1:], fill, np.float32)
+        out[:n] = x
+        return out
+
+    rng = np.random.RandomState(0)
+    fdc = sh_utils.rgb2sh(np.asarray(colors, np.float32)).reshape(n, 1, 3)
+    const = lambda fn, v, width: np.full((n, width), _init_const(fn, v))
+    if env_activation == "softplus":
+        env = envlight.init_direct_light(
+            generator or torch.Generator().manual_seed(0),
+            max_res=env_resolution // 2)
+    else:
+        env = envlight.init_env(env_resolution, env_init_value, env_activation)
+    fields = dict(
+        xyz=pad(points),
+        base_color=pad(const(inverse_base_color_activation, init_base_color,
+                             3)),
+        metallic=pad(const(math3d.inverse_sigmoid, init_metallic, 1)),
+        roughness=pad(const(math3d.inverse_sigmoid, init_roughness, 1)),
+        features_dc=pad(fdc),
+        features_rest=pad(np.zeros((n, k - 1, 3), np.float32)),
+        scaling=pad(scales, fill=-10.0),
+        rotation=pad(rng.rand(n, 4).astype(np.float32), fill=1.0),
+        opacity=pad(const(math3d.inverse_sigmoid, 0.1, 1), fill=-12.0),
+        env=env.cpu().numpy())
+    params, aux = params_from_numpy(fields, np.arange(n_capacity) < n, device,
+                                    max_sh_degree=max_sh_degree,
+                                    active_sh_degree=0)
+    return params, aux.with_zero_stats()
+
+
+def from_refgs(ref_params, ref_aux, *, env_resolution: int = 128,
+               env_init_value: float = 1.5, env_activation: str = "exp",
+               init_base_color: float = 0.5, init_metallic: float = 0.5,
+               init_roughness: float = 0.5, generator=None):
+    """Stage 1 -> stage 2 (≙ irgs_tpu from_refgs, gaussians.py:336-371):
+    the Ref-Gaussian geometry and SH appearance, materials at their stage-2
+    starting values, a fresh lat-long envmap in place of the two cubemaps.
+    New leaf tensors on the stage-1 parameters' device."""
+    from . import envlight
+
+    dev = ref_params.xyz.device
+    n = ref_params.n_capacity
+    full = lambda w, fn, v: torch.full((n, w), _init_const(fn, v),
+                                       dtype=torch.float32, device=dev)
+    copy = lambda x: x.detach().clone()
+    if env_activation == "softplus":
+        env = envlight.init_direct_light(
+            generator or torch.Generator().manual_seed(0),
+            max_res=env_resolution // 2)
+    else:
+        env = envlight.init_env(env_resolution, env_init_value,
+                                env_activation)
+    params = GaussianParams(
+        xyz=copy(ref_params.xyz),
+        base_color=full(3, inverse_base_color_activation, init_base_color),
+        metallic=full(1, math3d.inverse_sigmoid, init_metallic),
+        roughness=full(1, math3d.inverse_sigmoid, init_roughness),
+        features_dc=copy(ref_params.features_dc),
+        features_rest=copy(ref_params.features_rest),
+        scaling=copy(ref_params.scaling), rotation=copy(ref_params.rotation),
+        opacity=copy(ref_params.opacity), env=env.to(dev),
+        max_sh_degree=ref_params.max_sh_degree)
+    aux = GaussianAux(alive=ref_aux.alive.clone(),
+                      active_sh_degree=ref_aux.active_sh_degree)
+    return params, aux.with_zero_stats()
 
 
 def empty_params(n_capacity: int, max_sh_degree: int = 3,

@@ -8,12 +8,14 @@ Every option of train.py's configuration (config.py) and its own flags are
 accepted, plus `--device` (default cuda; without a card the run raises, it
 does not fall back to the CPU). Reads Blender/TensoIR and Synthetic4Relight
 folders (scene/datasets.py); starts from a Gaussian PLY or resumes a stage-2
-checkpoint of this package; writes cfg.json, train_log.jsonl, visualisation
-PNGs, point_cloud/iteration_<it>/point_cloud.ply with its envmap sidecars,
-and chkpnt<it>.ckpt. Not ported (NotImplementedError, ROADMAP.md): a
-dataset run without --start_ply (create_from_pcd, A6/A8), stage-1
-checkpoints (--start_checkpoint of a stage-1 run, --start_checkpoint_refgs,
-A8) and --n_devices > 1 (A9).
+checkpoint of this package, bridges from a stage-1 checkpoint of
+`python -m irgs_tpu_torch.train_refgaussian` (--start_checkpoint_refgs, or
+--start_checkpoint of a stage-1 run: from_refgs keeps the geometry and SH
+and re-initialises materials and envmap), or initialises a dataset run from
+its point cloud (create_from_pcd); writes cfg.json, train_log.jsonl,
+visualisation PNGs, point_cloud/iteration_<it>/point_cloud.ply with its
+envmap sidecars, and chkpnt<it>.ckpt. Not ported (NotImplementedError,
+ROADMAP.md): --n_devices > 1 (A9).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def _parser(cfg) -> argparse.ArgumentParser:
                         help="chkpnt*.ckpt (or run dir; latest taken) of a "
                              "stage-2 run to resume in place")
     parser.add_argument("--start_checkpoint_refgs", type=str, default=None,
-                        help="stage-1 checkpoint to bridge from (not ported)")
+                        help="chkpnt*.ckpt (or run dir; latest taken) of a "
+                             "stage-1 run to bridge from")
     parser.add_argument("--checkpoint_interval", type=int, default=5000,
                         help="save a resumable stage-2 chkpnt<it>.ckpt every "
                              "N iters (0 = only at the end)")
@@ -91,7 +94,26 @@ def _reset_materials(params, opt, env_zero: bool):
             params.env.zero_()
 
 
-def _toy_scene(cfg, dev):
+def _from_stage1(path, cfg, dev):
+    """The stage-2 parameters from a stage-1 checkpoint (≙ train.py:172-186,
+    restore_from_refgs)."""
+    from ..scene import gaussians as G
+    from .stage1_full import load_stage1_checkpoint
+    s1_state, s1_iter = load_stage1_checkpoint(path, device=dev)
+    params, aux = G.from_refgs(
+        s1_state.params, s1_state.aux,
+        env_resolution=cfg.model.envmap_resolution,
+        env_init_value=cfg.model.envmap_init_value,
+        env_activation=cfg.model.envmap_activation,
+        init_base_color=cfg.opt.init_base_color_value,
+        init_metallic=cfg.opt.init_metallic_value,
+        init_roughness=cfg.opt.init_roughness_value)
+    print(f"restored stage-1 geometry @ iter {s1_iter} ({aux.n_alive} "
+          "gaussians)", flush=True)
+    return params, aux
+
+
+def _toy_scene(cfg, dev, s1_ckpt=None):
     """The procedural toy run: GT frames of the true sphere scene rendered by
     render_ir_eval, then materials and env reset (≙ train.py:118-194). On
     the CPU every budget shrinks as train.py's does on a CPU mesh."""
@@ -135,7 +157,11 @@ def _toy_scene(cfg, dev):
     grid = gt.build_grid_from_gaussians(params, aux, ecfg.tracer)
     gt_images = [render_ir_eval(params, aux, grid, c.params(dev),
                                 ecfg)["render"].cpu().numpy() for c in cams]
-    _reset_materials(params, cfg.opt, env_zero=True)
+    if s1_ckpt:
+        # the stage-1 toy reconstruction as the start
+        params, aux = _from_stage1(s1_ckpt, cfg, dev)
+    else:
+        _reset_materials(params, cfg.opt, env_zero=True)
     return params, aux, cams, gt_images, [None] * len(cams)
 
 
@@ -167,17 +193,17 @@ def main(argv=None):
     cfg.save()
 
     # --start_checkpoint: a stage-2 checkpoint resumes in place; anything
-    # else would be a stage-1 bridge
-    s2_resume = None
+    # else is a stage-1 bridge, as --start_checkpoint_refgs
+    s2_resume = s1_ckpt = None
     if args.start_checkpoint:
         s2_resume = _resume_target(args.start_checkpoint)
-    if (args.start_checkpoint and not s2_resume) or args.start_checkpoint_refgs:
-        raise NotImplementedError(
-            "starting from a stage-1 checkpoint (from_refgs) is not ported yet "
-            "(ROADMAP.md A8); start from its PLY with --start_ply")
+        if not s2_resume:
+            s1_ckpt = args.start_checkpoint
+    if args.start_checkpoint_refgs:
+        s1_ckpt = args.start_checkpoint_refgs
 
     if args.toy:
-        params, aux, cams, gt_images, masks = _toy_scene(cfg, dev)
+        params, aux, cams, gt_images, masks = _toy_scene(cfg, dev, s1_ckpt)
     else:
         from ..scene.datasets import LIGHT_ROTATE_TRANSFORM, load_scene
         info = load_scene(cfg.model.source_path, cfg.model.white_background,
@@ -186,16 +212,19 @@ def main(argv=None):
         cams = info.train_cameras
         gt_images = [c.image for c in cams]
         masks = [c.mask for c in cams]
-        if args.start_ply:
+        if s1_ckpt:
+            params, aux = _from_stage1(s1_ckpt, cfg, dev)
+        elif args.start_ply:
             params, aux = G.load_ply(args.start_ply, cfg.model.max_gaussians,
                                      cfg.model.sh_degree,
                                      env_activation=cfg.model.envmap_activation,
                                      device=dev)
         elif not s2_resume:
-            raise NotImplementedError(
-                "a dataset run needs --start_ply: initialising from the point "
-                "cloud (create_from_pcd with kNN scales) is not ported yet "
-                "(ROADMAP.md A6, A8)")
+            params, aux = G.create_from_pcd(
+                info.points, info.colors, cfg.model.max_gaussians,
+                cfg.model.sh_degree, cfg.model.envmap_resolution,
+                cfg.model.envmap_init_value,
+                env_activation=cfg.model.envmap_activation, device=dev)
         else:
             params = aux = None           # the checkpoint holds them
         if params is not None:

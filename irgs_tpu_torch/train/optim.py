@@ -96,3 +96,87 @@ class GaussianOptimizer:
                 self.adam.state[p] = {
                     k: v.detach().clone().to("cpu" if k == "step" else p.device)
                     for k, v in state[g["name"]].items()}
+
+
+class RefOptimizer:
+    """Per-group Adam over the 13 fields of a RefGaussianParams (≙ irgs_tpu
+    make_ref_optimizer, stage1_full.py:66-104): eps 1e-15, the exponential
+    xyz schedule stepped by the xyz group's own update count (optax's
+    scale_by_schedule count), and a group at learning rate 0 left out of
+    the optimizer (optax.set_to_zero: the parameter stays as it is)."""
+
+    def __init__(self, params, opt, spatial_lr_scale: float = 1.0):
+        self.xyz_schedule = expon_lr_schedule(
+            opt.position_lr_init * spatial_lr_scale,
+            opt.position_lr_final * spatial_lr_scale,
+            opt.position_lr_max_steps, lr_delay_mult=opt.position_lr_delay_mult)
+        indirect_lr = getattr(opt, "indirect_lr", opt.features_lr)
+        lrs = {
+            "xyz": self.xyz_schedule(0),
+            "features_dc": opt.features_lr,
+            "features_rest": opt.features_lr / 20.0,
+            "indirect_dc": indirect_lr,
+            "indirect_rest": indirect_lr / 20.0,
+            "opacity": opt.opacity_lr,
+            "scaling": opt.scaling_lr,
+            "rotation": opt.rotation_lr,
+            "base_color": opt.base_color_lr,
+            "metallic": opt.metallic_lr,
+            "roughness": opt.roughness_lr,
+            "env1": opt.envmap_cubemap_lr,
+            "env2": opt.envmap_cubemap_lr,
+        }
+        tensors = params.tensors()
+        groups = [{"params": [tensors[k]], "lr": lr, "name": k}
+                  for k, lr in lrs.items() if lr != 0.0]
+        self.frozen = [k for k, lr in lrs.items() if lr == 0.0]
+        self.adam = torch.optim.Adam(groups, betas=(0.9, 0.999), eps=1e-15)
+
+    def _group(self, name):
+        return next((g for g in self.adam.param_groups if g["name"] == name),
+                    None)
+
+    def step(self) -> None:
+        """One update; the xyz learning rate is the schedule at the number
+        of xyz updates so far."""
+        g = self._group("xyz")
+        if g is not None:
+            st = self.adam.state.get(g["params"][0])
+            g["lr"] = self.xyz_schedule(int(st["step"]) if st else 0)
+        self.adam.step()
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def moments(self, name: str):
+        """(exp_avg, exp_avg_sq) of a group, or None before its first
+        update."""
+        g = self._group(name)
+        st = self.adam.state.get(g["params"][0]) if g is not None else None
+        return (st["exp_avg"], st["exp_avg_sq"]) if st else None
+
+    @torch.no_grad()
+    def zero_moments(self, names) -> None:
+        """Zero Adam's moments of the named groups and keep their step
+        counts (≙ irgs_tpu zero_adam_moments, the reference's
+        replace_tensor_to_optimizer)."""
+        for name in names:
+            m = self.moments(name)
+            if m is not None:
+                for x in m:
+                    x.zero_()
+
+    @torch.no_grad()
+    def zero_rows(self, rows, n_capacity: int) -> None:
+        """Zero the moment rows `rows` [M] of every group with a row per
+        Gaussian (≙ irgs_tpu zero_opt_rows, densify.py:72): the optimizer
+        state of freshly written Gaussians."""
+        for g in self.adam.param_groups:
+            p = g["params"][0]
+            st = self.adam.state.get(p)
+            if st and p.shape[0] == n_capacity:
+                st["exp_avg"][rows] = 0.0
+                st["exp_avg_sq"][rows] = 0.0
+
+    state_dict = GaussianOptimizer.state_dict
+    load_state_dict = GaussianOptimizer.load_state_dict

@@ -31,12 +31,39 @@ def clip(x, lo, hi):
     return minimum(maximum(x, lo), hi)
 
 
+class _GatherRows(torch.autograd.Function):
+    """index_select whose backward is ops/segment_sum.scatter_add_rows: on
+    the card a sort and fixed-order sums, so that the gradient has the same
+    bits on every run (index_select's own backward, index_add_, adds with
+    atomics); on the CPU index_add_."""
+
+    @staticmethod
+    def forward(ctx, x, flat_idx):
+        ctx.save_for_backward(flat_idx)
+        ctx.x_shape = x.shape
+        return x.index_select(0, flat_idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ops.segment_sum import scatter_add_rows
+        (flat_idx,) = ctx.saved_tensors
+        n = ctx.x_shape[0]
+        gx = scatter_add_rows(g.reshape(g.shape[0], -1), flat_idx, n)
+        return gx.reshape(ctx.x_shape), None
+
+
 def gather_rows(x, idx):
     """x[idx] along the first axis, for index tensors of any shape. Its
-    gradient is one index_add_ (scatter-add); the gradient of advanced
-    indexing sorts the indices and sums each run serially, which costs
-    seconds on the card when a few rows are gathered millions of times."""
-    return x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+    gradient is a deterministic scatter-add (ops/segment_sum.py); the
+    gradient of advanced indexing sorts the indices and sums each run
+    serially, which costs seconds on the card when a few rows are gathered
+    millions of times."""
+    flat = idx.reshape(-1)
+    if x.requires_grad and torch.is_grad_enabled():
+        out = _GatherRows.apply(x, flat)
+    else:
+        out = x.index_select(0, flat)
+    return out.reshape(idx.shape + x.shape[1:])
 
 
 def safe_normalize(x, eps: float = 1e-20):

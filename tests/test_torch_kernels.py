@@ -123,7 +123,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["base-S0", "base-S4", "base-S8", "cover-S4",
-                                  "skew-S4", "dead_warps-S4"])
+                                  "skew-S4", "dead_warps-S4", "base-S11",
+                                  "base-S18", "cover-S11", "cover-S18"])
 def test_blend_kernels_match_plain(cuda_device, case):
     name, s = case.split("-S")
     s = int(s)
@@ -316,6 +317,154 @@ def test_gather_kernel_rejects_bad_inputs(cuda_device):
                                           device=cuda_device))
 
 
+def test_blend_widths_outside_the_set_raise():
+    """Stage 1's widths 11 and 18 join 0-8; any other width raises before
+    a launch (no quiet fall-back to the plain version), as does a CPU
+    tensor handed to the kernel's wrapper."""
+    splat, starts, counts = slab("cpu")
+    assert rb.SUPPORTED_S == (0, 1, 2, 3, 4, 5, 6, 7, 8, 11, 18)
+    for s_bad in (9, 12, 19):
+        with pytest.raises(ValueError, match="built for"):
+            rb.blend_fwd_cuda(splat, starts, counts, 2, 4, s_bad)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rb.blend_fwd_cuda(splat, starts, counts, 2, 4, S)
+
+
+@pytest.mark.parametrize("s", [11, 18])
+def test_blend_slab_takes_stage1_widths(s):
+    """build_slab pads the splat table to slab_width(S) at the wide widths
+    and the plain blend fills S feature channels."""
+    splat, starts, counts = slab("cpu", make_scene(s=s))
+    assert splat.shape[0] == rb.slab_width(s) >= 12 + rb.n_attr(s)
+    out = rb.blend_tiles(splat, starts, counts, 2, 4, s)
+    assert out.shape == (4, rb.TILE_PIX, rb.c_out(s))
+    assert float(out[..., 3:3 + s].abs().max()) > 0
+
+
+def _scatter_case(dev, seed=0):
+    """Gradient rows for a gather with runs of every length: most indices a
+    few times, one a hundred thousand times (the slab's padding)."""
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.cat([torch.randint(0, 500, (5000,), generator=g),
+                     torch.full((100_000,), 7)])
+    idx = idx[torch.randperm(idx.shape[0], generator=g)]
+    grad = torch.randn((idx.shape[0], 24), generator=g)
+    return grad.to(dev), idx.to(dev)
+
+
+def test_scatter_add_rows_cpu_is_index_add():
+    from irgs_tpu_torch.ops import segment_sum as ss
+    grad, idx = _scatter_case("cpu")
+    ss.reset_launches()
+    want = torch.zeros(600, 24).index_add_(0, idx, grad)
+    assert torch.equal(ss.scatter_add_rows(grad, idx, 600), want)
+    assert ss.LAUNCHES["segment_sum"] == 0
+    # the card's algorithm, with the kernel's plain version, in float64
+    got = ss.scatter_sorted(grad.double(), idx, 600, ss.segment_sum_plain)
+    want = torch.zeros(600, 24, dtype=torch.float64).index_add_(
+        0, idx, grad.double())
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-10)
+
+
+@pytest.mark.cuda
+def test_scatter_add_rows_on_card(cuda_device):
+    """The sorted segment sums: the same bits twice, bit for bit with the
+    plain version of the kernel, and within 1e-5·max of index_add_ (fp32
+    sums in another order)."""
+    from irgs_tpu_torch.ops import segment_sum as ss
+    grad, idx = _scatter_case(cuda_device)
+    ss.reset_launches()
+    a = ss.scatter_add_rows(grad, idx, 600)
+    b = ss.scatter_add_rows(grad, idx, 600)
+    assert ss.LAUNCHES["segment_sum"] >= 2
+    assert torch.equal(a, b)
+    assert torch.equal(a, ss.scatter_sorted(grad, idx, 600,
+                                            ss.segment_sum_plain))
+    ref = torch.zeros(600, 24, device=cuda_device).index_add_(0, idx, grad)
+    torch.testing.assert_close(a, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+def _bitwise_twice(make_loss, tensors):
+    runs = []
+    for _ in range(2):
+        for t in tensors.values():
+            t.grad = None
+        make_loss().backward()
+        runs.append({k: None if t.grad is None else t.grad.clone()
+                     for k, t in tensors.items()})
+    return [k for k in tensors if (runs[0][k] is None) != (runs[1][k] is None)
+            or (runs[0][k] is not None
+                and not torch.equal(runs[0][k], runs[1][k]))]
+
+
+STAGE2_SMALL_TRACER = dict(grid_res=12, pair_capacity=2 ** 14, max_cells=8,
+                           max_hits=24, hit_budget=16, max_crossings=10,
+                           select_tiles=4, tile=32, tiled_direct=True,
+                           n_segments=4, retrace_frac=0.25)
+
+
+@pytest.mark.cuda
+def test_stage2_gradients_are_deterministic_on_card(cuda_device):
+    """Two backward passes of the test-scale stage-2 step from the same
+    inputs give the same gradient bits (ROADMAP C2)."""
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.train import stage2 as s2
+    state, grid, cams, st = workload.stage2_setup(
+        512, 1024, 64, 8, 8 * 128, 2 ** 14, cuda_device, STAGE2_SMALL_TRACER)
+    draws = s2.draw_stage2(torch.Generator().manual_seed(0), st,
+                           "cpu").to(cuda_device)
+    gt_img = torch.full((64, 64, 3), 0.4, device=cuda_device)
+    cam = cams[0].params(cuda_device)
+    differ = _bitwise_twice(lambda: s2.stage2_forward_loss(
+        state.params, state.aux, grid, cam, gt_img, None, draws, 1001,
+        st)[0], state.params.tensors())
+    assert not differ, differ
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["initial", "volume", "surfel",
+                                   "volume_indirect", "surfel_indirect"])
+def test_stage1_gradients_are_deterministic_on_card(cuda_device, phase):
+    """Two backward passes of the test-scale stage-1 step (STAGE1_SMALL)
+    from the same inputs give the same gradient bits, the screen-space
+    offset's (which feeds densification) included."""
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.config import stage1_config
+    from irgs_tpu_torch.scene import cubemap as cm
+    from irgs_tpu_torch.scene import gaussians as G
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.scene.ref_gaussians import RefGaussianParams
+    from irgs_tpu_torch.train import stage1_full as s1
+    w = workload.STAGE1_SMALL
+    fields, alive = workload.stage1_small_fields(w["n_surface"],
+                                                 w["n_capacity"], w["env_res"])
+    params, aux = G.params_from_numpy(fields, alive, cuda_device,
+                                      cls=RefGaussianParams)
+    state = s1.init_state(params, aux, stage1_config().opt)
+    cams = toy.make_ring_cameras(w["n_cams"], width=w["img"],
+                                 height_px=w["img"])
+    vol = None
+    if phase.endswith("indirect"):
+        vol = s1.reconstruct_tsdf(params, aux, cams, img_w=w["img"],
+                                  img_h=w["img"], active_sh_degree=3,
+                                  mesh_res=32, dup_capacity=w["dup"])
+    st = s1.Stage1FullStatic(img_w=w["img"], img_h=w["img"],
+                             active_sh_degree=3, white_background=False,
+                             phase=phase.split("_")[0],
+                             use_indirect=vol is not None,
+                             dup_capacity=w["dup"])
+    lut = cm.compute_fg_lut(res=32, samples=64, device=cuda_device)
+    gt = torch.full((w["img"], w["img"], 3), 0.4, device=cuda_device)
+    m2d = torch.zeros((params.n_capacity, 2), device=cuda_device,
+                      requires_grad=True)
+    cam = cams[0].params(cuda_device)
+    differ = _bitwise_twice(lambda: s1.stage1_forward_loss(
+        params, aux, cam, gt, None, lut, vol, 10, st, means2d_offset=m2d)[0],
+        {**params.tensors(), "means2d": m2d})
+    assert not differ, differ
+
+
 def test_gather_rows_cpu_takes_plain():
     tab = torch.arange(40.0).reshape(10, 4)
     idx = torch.tensor([3, 3, 9, 0, 7])
@@ -403,3 +552,5 @@ def test_package_turns_tf32_off():
     import irgs_tpu_torch  # noqa: F401
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    # and cuDNN's convolutions (SSIM) take deterministic algorithms
+    assert torch.backends.cudnn.deterministic

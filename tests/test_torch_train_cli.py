@@ -210,12 +210,16 @@ def test_cli_refuses_unported_paths_and_needs_a_card(data, tmp_path):
             main(argv)
     with pytest.raises(NotImplementedError, match="A9"):
         main(_argv(scene, str(tmp_path / "b"), ply, "--n_devices", "2"))
-    with pytest.raises(NotImplementedError, match="start_ply"):
+    # without --start_ply a dataset run starts from the reader's 100k-point
+    # cloud (create_from_pcd), which a capacity of 1024 cannot hold
+    with pytest.raises(ValueError, match="capacity 1024"):
         main(["-s", scene, "-m", str(tmp_path / "c"), *SMALL])
+    # a --start_checkpoint that is not a stage-2 one is taken as the stage-1
+    # bridge, which checks its kind
     stage1 = tmp_path / "chkpnt7.ckpt"
     stage1.write_bytes(b"")
     (tmp_path / "chkpnt7.ckpt.json").write_text('{"iteration": 7}')
-    with pytest.raises(NotImplementedError, match="stage-1"):
+    with pytest.raises(ValueError, match="not a stage-1"):
         main(_argv(scene, str(tmp_path / "d"), ply, "--start_checkpoint",
                    str(stage1)))
     with pytest.raises(ValueError, match="not a stage-2"):
