@@ -20,8 +20,13 @@ Phases (JSON lines; any failure exits non-zero):
                 400x400, 256 diffuse samples, 2^18 trace rays); both blend
                 kernels and the gather must run on every step (the gather
                 held at its first real inputs, the segment-sum scatter-add
-                at its largest); then as many steps with index_add_ in its
-                place;
+                at its largest and at blend_hits' seven column blocks
+                (65 wide), each with no host sync and n_levels(M) launches
+                a call);
+                one untimed step counted (scatter-add calls, segment-sum
+                launches, host syncs) and one with index_add_ in the
+                scatter-add's place; then the timed steps, and as many with
+                index_add_;
   eval_small    one test-scale NVS eval frame on the card and on the CPU;
   mis_small     the MIS branch at test scale, card against CPU: one eval
                 frame at 32 diffuse + 32 light samples, one stage-2 step with
@@ -655,12 +660,17 @@ class LargestScatter:
     call, and undo it on exit."""
 
     def __enter__(self):
+        import torch
         from irgs_tpu_torch.ops import segment_sum as ss
         self.mod, self.orig, self.args = ss, ss.scatter_add_rows, None
 
         def rec(grad, idx, n_rows):
-            if self.args is None or grad.numel() > self.args[0].numel():
-                self.args = (grad.detach().clone(), idx.clone(), n_rows)
+            blocks = [grad] if torch.is_tensor(grad) else list(grad)
+            size = sum(b.numel() for b in blocks)
+            if self.args is None or size > sum(b.numel()
+                                               for b in self.args[0]):
+                self.args = ([b.detach().clone() for b in blocks],
+                             idx.clone(), n_rows)
             return self.orig(grad, idx, n_rows)
         ss.scatter_add_rows = rec
         return self
@@ -669,74 +679,120 @@ class LargestScatter:
         self.mod.scatter_add_rows = self.orig
 
 
-class IndexAddScatter:
-    """Patch ops/segment_sum.scatter_add_rows to index_add_, the atomic
-    scatter-add it replaces (to time a step both ways), and undo it."""
-
-    def __enter__(self):
-        from irgs_tpu_torch.ops import segment_sum as ss
-        self.mod, self.orig = ss, ss.scatter_add_rows
-        ss.scatter_add_rows = index_add_rows
-        return self
-
-    def __exit__(self, *exc):
-        self.mod.scatter_add_rows = self.orig
-
-
-def index_add_rows(grad, idx, n_rows):
-    import torch
-    out = torch.zeros((n_rows, grad.shape[1]), dtype=grad.dtype,
-                      device=grad.device)
-    return out.index_add_(0, idx, grad)
-
-
 SCATTER_REL = 1e-4   # x max|out|: fp32 sums of another order than index_add_'s
+SCATTER_TILES = (64, 128, 256, 512, 1024)   # tiles C timed beside TILE
+# blend_hits' tables with the materials, the column blocks of its gradient:
+# means3d 3, opacity 1, ru 3, rv 3, normals 3, SH 48, base colour and
+# roughness 4 (65 columns)
+CONCAT_BLOCKS = (3, 1, 3, 3, 3, 48, 4)
 
 
-def check_scatter(results, rec, name):
-    """The deterministic scatter-add (the sort and the segment-sum kernel)
-    on the largest gradient a main path gave it: twice bit for bit, bit for
-    bit with its plain version (the same sums in the same order), and
-    within SCATTER_REL of index_add_, with its time, the plain version's,
-    index_add_'s and its bound (the gradient, the indices and the output
-    each moved once)."""
+def check_scatter(results, rec, name, blocks_case=False):
+    """The deterministic scatter-add (one sort and the reduce-by-key kernel's
+    levels) on the largest gradient a main path gave it (its column blocks,
+    read in place), and with `blocks_case` on the same indices with rows of
+    CONCAT_BLOCKS uniform in [0, 1) from a seed: twice bit for bit, bit for
+    bit with its plain version (the same sums in the same order) and with the
+    blocks concatenated first, within SCATTER_REL of index_add_, n_levels(M)
+    launches a call, no host sync (sync debug mode "error"), with its time,
+    the sort's, the plain version's, index_add_'s, its bound (the gradient,
+    the indices and the output each moved once), its device time (calls
+    queued back to back) at TILE, at each tile C of SCATTER_TILES and with
+    the blocks concatenated first, and the device time of its parts (the
+    gradient's layout copy, the sort, level 0 of the kernel)."""
     import torch
     from irgs_tpu_torch.ops import segment_sum as ss
+    from irgs_tpu_torch.profile_stage2 import index_add_rows
     if rec.args is None:
         fail("kernels", f"no scatter-add of gathered rows ran on {name}")
-    grad, idx, n = rec.args
-    out = ss.scatter_add_rows(grad, idx, n)
-    out2 = ss.scatter_add_rows(grad, idx, n)
-    plain = ss.scatter_sorted(grad, idx, n, ss.segment_sum_plain)
-    ref = index_add_rows(grad, idx, n)
-    torch.cuda.synchronize()
-    scale = float(ref.abs().max().clamp_min(1e-30))
-    err_ia = float((out - ref).abs().max())
-    same = bool(torch.equal(out, out2)) and bool(torch.equal(out, plain))
-    ok = same and err_ia <= SCATTER_REL * scale
-    nbytes = 4 * grad.numel() + 8 * idx.numel() + 4 * n * grad.shape[1]
-    line = {"phase": "kernels", "kernel": "segment_sum", "case": name,
-            "ok": ok, "deterministic": bool(torch.equal(out, out2)),
-            "bitwise_equal_plain": bool(torch.equal(out, plain)),
-            "max_abs_err": float((out - plain).abs().max()),
-            "max_abs_err_index_add": err_ia, "rel_tol_index_add": SCATTER_REL,
-            "rows": int(idx.numel()), "width": int(grad.shape[1]),
-            "out_rows": int(n), "distinct_rows": int(torch.unique(idx).numel()),
-            "ms": cuda_ms(lambda: ss.scatter_add_rows(grad, idx, n)),
-            "plain_ms": cuda_ms(lambda: ss.scatter_sorted(
-                grad, idx, n, ss.segment_sum_plain), reps=3),
-            "library_ms": cuda_ms(lambda: index_add_rows(grad, idx, n)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": nbytes}
-    emit(line)
-    results.setdefault("segment_sum", {})[name] = line
-    if not ok:
-        fail("kernels", f"segment_sum disagrees on {name}")
+    blocks0, idx, n = rec.args
+    dev = idx.device
+    gen = torch.Generator(dev).manual_seed(0)
+    cases = [(name, blocks0)]
+    if blocks_case:
+        cases.append((f"{name}_w{sum(CONCAT_BLOCKS)}", [
+            torch.rand((idx.numel(), w), generator=gen, device=dev)
+            for w in CONCAT_BLOCKS]))
+    for case, blocks in cases:
+        cat = torch.cat(blocks, 1) if len(blocks) > 1 else blocks[0]
+        torch.cuda.synchronize()
+        ss.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ss.scatter_add_rows(blocks, idx, n)
+            out2 = ss.scatter_add_rows(blocks, idx, n)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        launches = ss.LAUNCHES["segment_sum"] / 2
+        plain = ss.scatter_sorted(blocks, idx, n, ss.segment_sum_plain)
+        concat = ss.scatter_add_rows(cat, idx, n)
+        ref = index_add_rows(cat, idx, n)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max().clamp_min(1e-30))
+        err_ia = float((out - ref).abs().max())
+        same = (bool(torch.equal(out, out2)) and bool(torch.equal(out, plain))
+                and bool(torch.equal(out, concat)))
+        m, w = idx.numel(), cat.shape[1]
+        ok = (same and err_ia <= SCATTER_REL * scale
+              and launches == ss.n_levels(m))
+        nbytes = 4 * m * w + 8 * m + 4 * n * w
+        idx32 = idx.to(torch.int32)
+        line = {"phase": "kernels", "kernel": "segment_sum", "case": case,
+                "ok": ok, "deterministic": bool(torch.equal(out, out2)),
+                "bitwise_equal_plain": bool(torch.equal(out, plain)),
+                "bitwise_equal_concatenated": bool(torch.equal(out, concat)),
+                "max_abs_err": float((out - plain).abs().max()),
+                "max_abs_err_index_add": err_ia, "max_abs_index_add": scale,
+                "rel_tol_index_add": SCATTER_REL,
+                "rows": m, "width": int(w),
+                "blocks": [b.shape[1] for b in blocks], "out_rows": int(n),
+                "distinct_rows": int(torch.unique(idx).numel()),
+                "tile": ss.TILE, "launches_per_call": launches,
+                "n_levels": ss.n_levels(m), "host_syncs": 0,
+                "ms": cuda_ms(lambda: ss.scatter_add_rows(blocks, idx, n)),
+                "sort_ms": cuda_ms(lambda: torch.sort(idx32, stable=True)),
+                "plain_ms": cuda_ms(lambda: ss.scatter_sorted(
+                    blocks, idx, n, ss.segment_sum_plain), reps=3),
+                "library_ms": cuda_ms(lambda: index_add_rows(cat, idx, n)),
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "bytes": nbytes,
+                "ms_queued": cuda_ms_queued(
+                    lambda: ss.scatter_add_rows(blocks, idx, n)),
+                "tile_ms_queued": {c: cuda_ms_queued(
+                    lambda c=c: ss.scatter_sorted(blocks, idx, n, tile=c))
+                    for c in SCATTER_TILES}}
+        if len(blocks) > 1:
+            # the alternative: the blocks concatenated first, then one block
+            line["ms_queued_concatenated_first"] = cuda_ms_queued(
+                lambda: ss.scatter_add_rows(torch.cat(blocks, 1), idx, n))
+        # where a call's device time goes: the layout copy of a gradient
+        # that is not contiguous (the slab's, transposed), the sort, level 0
+        src = [b.contiguous() for b in blocks]
+        keys, perm = torch.sort(idx32, stable=True)
+        t = ss.n_tiles(m)
+        ck, cv = ((torch.empty(2 * t, dtype=torch.int32, device=dev),
+                   torch.empty((2 * t, w), device=dev)) if t > 1
+                  else (None, None))
+        o = torch.zeros((n, w), device=dev)
+        line.update({
+            "grad_contiguous": all(b.is_contiguous() for b in blocks),
+            "contiguous_ms_queued": cuda_ms_queued(
+                lambda: [b.contiguous() for b in blocks]),
+            "sort_ms_queued": cuda_ms_queued(
+                lambda: torch.sort(idx32, stable=True)),
+            "level0_ms_queued": cuda_ms_queued(lambda: ss.segment_sum_cuda(
+                src, perm, keys, ss.TILE, o, ck, cv)),
+            "level0_bytes": 4 * m * w + 12 * m + 4 * n * w})
+        emit(line)
+        results.setdefault("segment_sum", {})[case] = line
+        if not ok:
+            fail("kernels", f"segment_sum disagrees on {case}")
 
 
 def phase_stage2(results, n_warm=1, n_timed=5):
     """stage2_step at the bench workload, on the card."""
     import torch
+    from irgs_tpu_torch import profile_stage2 as prof
     from irgs_tpu_torch import workload
     from irgs_tpu_torch.ops import grid_tracer as gt
     from irgs_tpu_torch.train import stage2 as s2
@@ -767,10 +823,26 @@ def phase_stage2(results, n_warm=1, n_timed=5):
             LargestScatter() as scat:
         step(0)
     check_recorded(results, rec, "stage2")
-    check_scatter(results, scat, "stage2_largest")
+    check_scatter(results, scat, "stage2_largest", blocks_case=True)
     del rec, scat
     for i in range(1, n_warm):
         step(i)
+    # one untimed step counted: the scatter-adds (a host sync inside one
+    # raises), their launches and the step's host syncs; then one with
+    # index_add_ in the scatter-add's place
+    blend_calls, blend_hits = [0], gt.blend_hits
+
+    def counted_blend(*a, **kw):
+        blend_calls[0] += 1
+        return blend_hits(*a, **kw)
+    gt.blend_hits = counted_blend
+    try:
+        counts = prof.count_step(lambda: step(n_warm),
+                                 scatter_sync_error=True)
+    finally:
+        gt.blend_hits = blend_hits
+    with prof.scatter_swapped(prof.index_add_rows):
+        counts_ia = prof.count_step(lambda: step(n_warm))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()                    # count the main path only
@@ -785,7 +857,7 @@ def phase_stage2(results, n_warm=1, n_timed=5):
     peak = torch.cuda.max_memory_allocated()
     # the same steps with the gathers' gradients summed by index_add_ (the
     # atomic scatter-add the deterministic one replaces), in the same call
-    with IndexAddScatter():
+    with prof.scatter_swapped(prof.index_add_rows):
         times_ia = []
         for i in range(n_warm + n_timed, n_warm + 2 * n_timed):
             a = time.perf_counter()
@@ -806,12 +878,23 @@ def phase_stage2(results, n_warm=1, n_timed=5):
             "max_memory_allocated": peak,
             "ms_per_step_index_add": statistics.median(times_ia),
             "ms_steps_index_add": times_ia,
+            "scatter_calls_per_step": counts["scatter_calls"],
+            "blend_hits_calls_per_step": blend_calls[0],
+            "scatter_shapes": counts["scatter_shapes"],
+            "segment_sum_launches_per_step": counts["segment_sum_launches"],
+            "host_syncs_per_step": counts["host_syncs"],
+            "host_syncs_per_step_index_add": counts_ia["host_syncs"],
+            "scatter_stream_ms_per_step": counts["scatter_stream_ms"],
+            "scatter_stream_ms_per_step_index_add":
+                counts_ia["scatter_stream_ms"],
             "launches": launches,
             "launches_per_step": {k: v / n_timed for k, v in launches.items()}}
     checks = {
         "loss_finite": all(math.isfinite(m["loss"]) for m in metrics),
         "raster_overflow_zero": line["raster_overflow"] == 0.0,
         "kernels_every_step": all(v >= n_timed for v in launches.values()),
+        # one scatter-add per blend_hits call, one for the raster slab
+        "one_scatter_per_blend": counts["scatter_calls"] <= blend_calls[0] + 1,
         "xyz_frozen": bool(torch.equal(state.params.xyz.detach(), xyz0)),
         "materials_moved": not bool(torch.equal(
             state.params.base_color.detach(), mat0)),
@@ -2218,11 +2301,13 @@ KERNELS = {
                "eval_cli": "relight_400px_100k_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
-    # gather); index_add_ is its library call
+    # gather and of blend_hits' gathers); index_add_ is its library call
     "segment_sum": dict(
         route="cuda", source="irgs_tpu_torch/csrc/segment_sum.cu",
-        replaces=("irgs_tpu/ops/surfel_raster.py:547 (XLA scatter-add, the "
-                  "VJP of the slab gather; no Pallas kernel)"),
+        replaces=("irgs_tpu/ops/surfel_raster.py:547 and "
+                  "irgs_tpu/ops/grid_tracer.py:1440 (XLA scatter-add, the "
+                  "VJP of the slab gather and of blend_hits' gathers; no "
+                  "Pallas kernel)"),
         cases={"stage2": "stage2_largest", "train_cli": "stage2_largest",
                "stage1": "stage1_largest",
                "train_stage1_cli": "stage1_largest"}),

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import sh as sh_utils
-from ..utils.math3d import gather_rows, maximum, minimum
+from ..utils.math3d import gather_rows_many, maximum, minimum
 from .gather_rows import gather_rows as gather_rows_kernel
 
 INF = 1e16
@@ -777,10 +777,13 @@ def blend_hits(ray_o, ray_d, inputs: TraceInputs, gs_s, valid_s,
     (≙ blend_hits, :1440). `t0` [R]: incoming transmittance carried from
     the previous segment (differentiable)."""
     n_coeff = (sh_deg + 1) ** 2
-    take = lambda x: gather_rows(x, gs_s)
-    alpha, n_flip, d = _hit_geom(
-        take(inputs.means3d), take(inputs.opacity), take(inputs.ru),
-        take(inputs.rv), take(inputs.normals), ray_o[:, None], ray_d[:, None])
+    # one gather of every table, so that the backward sorts gs_s once and
+    # sums all their gradient rows in one scatter-add
+    means, opac, ru, rv, normals, sh_g, feat = gather_rows_many(
+        (inputs.means3d, inputs.opacity, inputs.ru, inputs.rv, inputs.normals,
+         inputs.shs[:, :n_coeff], inputs.features), gs_s)
+    alpha, n_flip, d = _hit_geom(means, opac, ru, rv, normals, ray_o[:, None],
+                                 ray_d[:, None])
     alpha = torch.where(valid_s & (alpha >= cfg.alpha_min), alpha,
                         torch.zeros_like(alpha))
     lg = torch.log1p(-alpha)
@@ -791,7 +794,6 @@ def blend_hits(ray_o, ray_d, inputs: TraceInputs, gs_s, valid_s,
     w = torch.where(T_in > cfg.transmittance_min, w, torch.zeros_like(w))
 
     basis = _sh_basis(sh_deg, ray_d)                           # [R, C]
-    sh_g = take(inputs.shs[:, :n_coeff])                       # [R, H, C, 3]
     color = maximum(torch.einsum("rc,rhcd->rhd", basis, sh_g) + 0.5, 0.0)
     trans = torch.exp(torch.sum(lg, -1))
     if t0 is not None:
@@ -799,7 +801,7 @@ def blend_hits(ray_o, ray_d, inputs: TraceInputs, gs_s, valid_s,
     return TraceOut(
         color=torch.einsum("rh,rhd->rd", w, color),
         normal=torch.einsum("rh,rhd->rd", w, n_flip),
-        feature=torch.einsum("rh,rhs->rs", w, take(inputs.features)),
+        feature=torch.einsum("rh,rhs->rs", w, feat),
         depth=torch.sum(w * d, -1),
         alpha=torch.sum(w, -1),
         trans=trans)

@@ -32,24 +32,46 @@ def clip(x, lo, hi):
 
 
 class _GatherRows(torch.autograd.Function):
-    """index_select whose backward is ops/segment_sum.scatter_add_rows: on
-    the card a sort and fixed-order sums, so that the gradient has the same
-    bits on every run (index_select's own backward, index_add_, adds with
-    atomics); on the CPU index_add_."""
+    """index_select of several tables [N, ...] by one index; the backward
+    sums the gradients of all of them with one ops/segment_sum.
+    scatter_add_rows over their columns side by side ([M, ΣW]; the kernel
+    reads each table's gradient in place): on the card one sort of the index
+    and fixed-order sums, so that the gradients have the same bits on every
+    run (index_select's own backward, index_add_, adds with atomics); on the
+    CPU index_add_."""
 
     @staticmethod
-    def forward(ctx, x, flat_idx):
+    def forward(ctx, flat_idx, *xs):
         ctx.save_for_backward(flat_idx)
-        ctx.x_shape = x.shape
-        return x.index_select(0, flat_idx)
+        ctx.shapes = [x.shape for x in xs]
+        return tuple(x.index_select(0, flat_idx) for x in xs)
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         from ..ops.segment_sum import scatter_add_rows
         (flat_idx,) = ctx.saved_tensors
-        n = ctx.x_shape[0]
-        gx = scatter_add_rows(g.reshape(g.shape[0], -1), flat_idx, n)
-        return gx.reshape(ctx.x_shape), None
+        m, need = flat_idx.shape[0], ctx.needs_input_grad[1:]
+        cols = [g.reshape(m, -1) for g, n in zip(gs, need) if n]
+        gx = scatter_add_rows(cols, flat_idx, ctx.shapes[0][0])
+        parts = iter(torch.split(gx, [c.shape[1] for c in cols], 1))
+        return (None, *(next(parts).reshape(s) if n else None
+                        for s, n in zip(ctx.shapes, need)))
+
+
+def gather_rows_many(tables, idx):
+    """[x[idx] for x in tables] along the first axis, which every table
+    shares, for index tensors of any shape. The gradient of all of them is
+    one deterministic scatter-add (ops/segment_sum.py): one sort of `idx`
+    and one reduction of their gradient rows side by side."""
+    flat = idx.reshape(-1)
+    if any(x.shape[0] != tables[0].shape[0] for x in tables):
+        raise ValueError("gather_rows_many: the tables differ in rows: "
+                         f"{[tuple(x.shape) for x in tables]}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tables):
+        outs = _GatherRows.apply(flat, *tables)
+    else:
+        outs = [x.index_select(0, flat) for x in tables]
+    return [o.reshape(idx.shape + x.shape[1:]) for o, x in zip(outs, tables)]
 
 
 def gather_rows(x, idx):
@@ -58,12 +80,7 @@ def gather_rows(x, idx):
     gradient of advanced indexing sorts the indices and sums each run
     serially, which costs seconds on the card when a few rows are gathered
     millions of times."""
-    flat = idx.reshape(-1)
-    if x.requires_grad and torch.is_grad_enabled():
-        out = _GatherRows.apply(x, flat)
-    else:
-        out = x.index_select(0, flat)
-    return out.reshape(idx.shape + x.shape[1:])
+    return gather_rows_many((x,), idx)[0]
 
 
 def safe_normalize(x, eps: float = 1e-20):
