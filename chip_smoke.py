@@ -27,6 +27,14 @@ Phases (JSON lines; any failure exits non-zero):
                 launches, host syncs) and one with index_add_ in the
                 scatter-add's place; then the timed steps, and as many with
                 index_add_;
+  stage2_full   the full-image branch (train_ray off): the test-scale step
+                on the card against the CPU and two of its backward passes
+                bit for bit, then one step at the bench workload (400x400,
+                157 chunks of 1024 pixels, each recomputed in the backward
+                pass) with its forward and backward timed apart, peak
+                memory and launches; the gather and the scatter-add held at
+                its inputs; and the CLI with --no-train_ray at the test
+                scale (2 iterations, visualisations, a resume);
   eval_small    one test-scale NVS eval frame on the card and on the CPU;
   mis_small     the MIS branch at test scale, card against CPU: one eval
                 frame at 32 diffuse + 32 light samples, one stage-2 step with
@@ -75,7 +83,14 @@ Phases (JSON lines; any failure exits non-zero):
                 train_cli's folder with a 60-iteration schedule through
                 every phase, densify, resets, normal propagation and TSDF
                 refreshes; then python -m irgs_tpu_torch.train for 3
-                iterations from its checkpoint (--start_checkpoint_refgs).
+                iterations from its checkpoint (--start_checkpoint_refgs);
+  extract_mesh  python -m irgs_tpu_torch.extract_mesh in-process on the
+                run train_stage1_cli leaves, at --mesh_res 256, bounded and
+                --unbounded: the seconds of fusion, marching tetrahedra,
+                weld, clean-up and writes, the meshes' counts, peak memory,
+                the forward blend held at the depth render's inputs; then
+                --toy at the defaults (the unit sphere) and the analytic
+                spheres' meshes card against CPU. Needs train_stage1_cli.
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -524,20 +539,28 @@ STAGE2_SMALL_TRACER = dict(grid_res=12, pair_capacity=2 ** 14, max_cells=8,
 STEP_LOSS_REL_TOL, STEP_PARAM_TOL = 1e-4, 1e-5
 
 
-def stage2_card_vs_cpu(light=0):
-    """One stage-2 step at the CPU tests' scale (512 surfels, 64x64, 8
-    diffuse and `light` light samples on 128 pixels) on the card and with
-    the plain CPU path, from the same draws -> its JSON fields and ok."""
-    import torch
+def stage2_small_setup(dev, light=0, train_ray=True):
+    """The CPU tests' stage-2 scale (512 surfels, 64x64, 8 diffuse and
+    `light` light samples on 128 pixels, or with train_ray off on every
+    pixel in 32 chunks of 128) -> stage2_setup's tuple."""
+    import dataclasses
     from irgs_tpu_torch import workload
+    state, grid, cams, st = workload.stage2_setup(
+        512, 1024, 64, 8, (8 + light) * 128, 2 ** 14, dev,
+        STAGE2_SMALL_TRACER, light=light)
+    return state, grid, cams, dataclasses.replace(st, train_ray=train_ray)
+
+
+def stage2_card_vs_cpu(light=0, train_ray=True):
+    """One stage-2 step at the CPU tests' scale on the card and with the
+    plain CPU path, from the same draws -> its JSON fields and ok."""
+    import torch
     from irgs_tpu_torch.train import stage2 as s2
 
     res = {}
     gen = torch.Generator().manual_seed(0)
     for dev in ("cpu", "cuda"):
-        state, grid, cams, st = workload.stage2_setup(
-            512, 1024, 64, 8, (8 + light) * 128, 2 ** 14, dev,
-            STAGE2_SMALL_TRACER, light=light)
+        state, grid, cams, st = stage2_small_setup(dev, light, train_ray)
         if dev == "cpu":
             draws = s2.draw_stage2(gen, st, "cpu")
         gt_img = torch.full((64, 64, 3), 0.4, device=dev)
@@ -551,7 +574,7 @@ def stage2_card_vs_cpu(light=0):
     p_err = max(float((res["cuda"][1][k] - res["cpu"][1][k]).abs().max())
                 for k in res["cpu"][1])
     ok = loss_rel <= STEP_LOSS_REL_TOL and p_err <= STEP_PARAM_TOL
-    return {"light_sample_num": light,
+    return {"light_sample_num": light, "train_ray": train_ray,
             "loss_cuda": float(res["cuda"][0]["loss"]),
             "loss_cpu": float(res["cpu"][0]["loss"]), "loss_rel_err": loss_rel,
             "loss_rel_tol": STEP_LOSS_REL_TOL, "param_max_abs_err": p_err,
@@ -578,15 +601,13 @@ def grads_twice(make_loss, tensors):
     return not differ, differ
 
 
-def stage2_grads_deterministic():
+def stage2_grads_deterministic(train_ray=True):
     """Two backward passes of the test-scale stage-2 step on the card from
     the same inputs -> (bitwise equal, fields that differ)."""
     import torch
-    from irgs_tpu_torch import workload
     from irgs_tpu_torch.train import stage2 as s2
     dev = torch.device("cuda")
-    state, grid, cams, st = workload.stage2_setup(
-        512, 1024, 64, 8, 8 * 128, 2 ** 14, dev, STAGE2_SMALL_TRACER)
+    state, grid, cams, st = stage2_small_setup(dev, train_ray=train_ray)
     draws = s2.draw_stage2(torch.Generator().manual_seed(0), st, "cpu").to(dev)
     gt_img = torch.full((64, 64, 3), 0.4, device=dev)
     cam = cams[0].params(dev)
@@ -905,6 +926,129 @@ def phase_stage2(results, n_warm=1, n_timed=5):
     results["stage2"] = line
     if not line["ok"]:
         fail("stage2", f"checks failed: {checks}")
+
+
+def stage2_full_cli(tmp):
+    """python -m irgs_tpu_torch.train --no-train_ray at the test scale on the
+    card: a Blender folder of 4 ring views at 64x64 rendered from the
+    512-surfel sphere, 2 iterations with a visualisation frame and a
+    checkpoint each, then iteration 2 again resumed from chkpnt1 ->
+    (JSON fields, ok)."""
+    from irgs_tpu_torch.scene import gaussians as G
+    from irgs_tpu_torch.scene import toy
+    import torch
+    dev = torch.device("cuda")
+    scene, run, run2 = (os.path.join(tmp, d) for d in
+                        ("fi_scene", "fi_run", "fi_resumed"))
+    params, aux = toy.make_sphere_scene(n_surface=512, n_capacity=1024,
+                                        env_resolution=16, device=dev)
+    write_blender_dataset(scene, params, aux, toy.make_ring_cameras(
+        4, width=64, height_px=64), spp=16, white=False)
+    G.save_ply(os.path.join(tmp, "fi_start.ply"), params, aux)
+    small = ["-s", scene, "--no-train_ray", "--diffuse_sample_num", "8",
+             "--trace_num_rays", "1024", "--dup_capacity", "65536",
+             "--max_gaussians", "1024", "--envmap_resolution", "16",
+             "--iterations", "2"]
+    launches, cli_s = run_cli([*small, "-m", run, "--start_ply",
+                               os.path.join(tmp, "fi_start.ply"),
+                               "--vis_interval", "1",
+                               "--checkpoint_interval", "1"])
+    _, resume_s = run_cli([*small, "-m", run2, "--vis_interval", "0",
+                           "--start_checkpoint",
+                           os.path.join(run, "chkpnt1.ckpt")])
+    log = read_log(run)
+    vis = sorted(os.listdir(os.path.join(run, "vis")))
+    line = {"cli_s": cli_s, "resume_s": resume_s, "log": log[1],
+            "vis": vis, "launches": launches}
+    ok = (math.isfinite(log[1]["loss"]) and "psnr" in log[1]
+          and {"iter_000001.png", "iter_000002.png"} <= set(vis)
+          and os.path.exists(os.path.join(run2, "chkpnt2.ckpt"))
+          and all(v > 0 for v in launches.values()))
+    return line, ok
+
+
+def phase_stage2_full(results, tmp):
+    """One stage-2 step with train_ray off at the bench workload: every
+    pixel of the 400x400 frame shaded in 157 chunks of 1024 (2^18 rays a
+    chunk, as a train_ray step traces), each chunk recomputed in the
+    backward pass; the forward and the backward timed apart. The step also
+    records the gather's first inputs and the largest scatter-add, held
+    against their plain versions after it (the blend's slab is the kernels
+    phase's bench_400px_100k: the same scene and camera). Before it, the
+    test-scale full-image step on the card against the CPU, two of its
+    backward passes on the card bit for bit, and the CLI with
+    --no-train_ray at that scale (stage2_full_cli)."""
+    import dataclasses
+
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.train import stage2 as s2
+
+    small, small_ok = stage2_card_vs_cpu(train_ray=False)
+    det, differ = stage2_grads_deterministic(train_ray=False)
+    cli, cli_ok = stage2_full_cli(tmp)
+    dev = torch.device("cuda")
+    state, grid, cams, st = workload.stage2_setup(**workload.BENCH,
+                                                  device=dev)
+    st = dataclasses.replace(st, train_ray=False)
+    cam = cams[0].params(dev)
+    gt_img = torch.full((st.img_h, st.img_w, 3), 0.5, device=dev)
+    draws = s2.draw_stage2(torch.Generator(dev).manual_seed(0), st, dev)
+    mat0 = state.params.base_color.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with FirstCalls({"gather": (gt, "gather_rows_kernel")},
+                    clone=(1,)) as rec, LargestScatter() as scat:
+        t0 = time.perf_counter()
+        state.optimizer.zero_grad()
+        loss, m = s2.stage2_forward_loss(state.params, state.aux, grid, cam,
+                                         gt_img, None, draws, state.step, st)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state.optimizer.step(state.step)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    results.setdefault("launches", {})["stage2_full"] = launches
+    check_recorded(results, rec, "stage2_full")
+    check_scatter(results, scat, "stage2_full_largest")
+    m = {k: float(v.detach()) for k, v in m.items()}
+    n = st.n_chunks
+    line = {"phase": "stage2_full", "img": st.img_w, "n_chunks": n,
+            "chunk_pixels": st.chunk_pixels,
+            "rays_per_chunk": st.chunk_pixels * st.diffuse_sample_num,
+            "ms_step": (t3 - t0) * 1e3, "ms_forward": (t1 - t0) * 1e3,
+            "ms_backward": (t2 - t1) * 1e3, "ms_adam": (t3 - t2) * 1e3,
+            "ms_forward_per_chunk": (t1 - t0) * 1e3 / n,
+            "ms_backward_per_chunk": (t2 - t1) * 1e3 / n,
+            "max_memory_allocated": peak, "loss": m["loss"],
+            "psnr": m["psnr"], "raster_overflow": m["raster_overflow"],
+            "grid_overflow": m["grid_overflow"], "launches": launches,
+            "launches_per_chunk": {k: v / n for k, v in launches.items()},
+            "small": small, "small_grads_bitwise_deterministic": det,
+            "small_grads_differ": differ, "cli": cli}
+    checks = {
+        "small_card_vs_cpu": small_ok, "small_bitwise": det,
+        "cli_trains_visualises_resumes": cli_ok,
+        "loss_finite": math.isfinite(m["loss"]),
+        "raster_overflow_zero": m["raster_overflow"] == 0.0,
+        # the forward and the recomputation each blend and gather a chunk
+        "every_kernel_ran": all(v > 0 for v in launches.values()),
+        "materials_moved": not bool(torch.equal(
+            state.params.base_color.detach(), mat0)),
+    }
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    results["stage2_full"] = line
+    if not line["ok"]:
+        fail("stage2_full", f"checks failed: {checks}")
 
 
 # eval frame agreement, card against CPU or JAX: rtol 2e-4 / atol 2e-5 per
@@ -2267,6 +2411,153 @@ def phase_train_stage1_cli(results, tmp):
         fail("train_stage1_cli", f"checks failed: {checks}")
 
 
+def _mesh_stats(out_dir):
+    """Vertex and triangle counts of the CLI's two PLYs, and the median
+    vertex radius of fuse_post.ply."""
+    import numpy as np
+    from irgs_tpu_torch.utils import ply
+    res = {}
+    for name in ("fuse", "fuse_post"):
+        el = ply.read_ply(os.path.join(out_dir, f"{name}.ply"))
+        v = np.stack([el["vertex"].data[k] for k in "xyz"], -1)
+        res[name] = {"verts": len(v), "tris": el["face"].count}
+    res["median_radius"] = float(np.median(np.linalg.norm(v, axis=-1)))
+    return res
+
+
+def _analytic_mesh_card_vs_cpu():
+    """extract_mesh on an analytic sphere volume (128³, tests/test_mesh.py's
+    construction) and extract_mesh_unbounded on a sphere's analytic depth
+    maps (12 views at 96², 64³), each on the card and on the CPU: the same
+    triangles, and the vertices' largest difference."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.ops import tsdf as T
+    from irgs_tpu_torch.scene import toy
+
+    res, r = 128, 0.6
+    voxel = 2.0 / res
+    idx = (np.arange(res) + 0.5) * voxel - 1.0
+    zz, yy, xx = np.meshgrid(idx, idx, idx, indexing="ij")
+    d = np.sqrt(xx ** 2 + yy ** 2 + zz ** 2) - r
+    vol = [torch.tensor(np.clip(d / (5 * voxel), -1, 1).astype(np.float32)),
+           torch.full((res,) * 3, 2.0), torch.full((3,), -1.0),
+           torch.tensor(voxel, dtype=torch.float32)]
+    depths, projs, centers = [], [], []
+    for cam in toy.make_ring_cameras(12, radius=3.0, height=0.5, width=96,
+                                     height_px=96):
+        cp = cam.params("cpu")
+        dirs = cp.ray_dirs(96, 96, normalize=True).numpy()
+        o = cam.cam_pos.astype(np.float64)
+        b = dirs @ o
+        disc = b ** 2 - (o @ o - r ** 2)
+        t = -b - np.sqrt(np.maximum(disc, 0))
+        depths.append(np.where(disc > 0, t * (dirs @ cam.w2c[2, :3]),
+                               0.0).astype(np.float32))
+        projs.append(cam.full_proj)
+        centers.append(cam.cam_pos)
+    centers = np.stack(centers)
+    center = centers.mean(0)
+    radius = float(np.linalg.norm(centers - center, axis=-1).min())
+    xyz = np.random.RandomState(0).normal(size=(512, 3)).astype(np.float32)
+    xyz = xyz / np.linalg.norm(xyz, axis=-1, keepdims=True) * r
+    out, ok = {}, True
+    for name, fn in (
+            ("bounded_128", lambda dev: T.extract_mesh(T.TSDFVolume(
+                *(x.to(dev) for x in vol)))),
+            ("unbounded_64", lambda dev: T.extract_mesh_unbounded(
+                torch.tensor(np.stack(depths), device=dev),
+                torch.tensor(np.stack(projs), device=dev), xyz, center,
+                radius, resolution=64))):
+        (vc, fc), (vp, fp) = fn("cuda"), fn("cpu")
+        same = fc.shape == fp.shape and bool(torch.equal(fc.cpu(), fp))
+        err = float((vc.cpu() - vp).abs().max()) if same else None
+        out[name] = {"tris": int(fp.shape[0]), "same_faces": same,
+                     "max_abs_err": err}
+        ok &= same and err <= 1e-6
+    return out, ok
+
+
+def phase_extract_mesh(results, tmp):
+    """python -m irgs_tpu_torch.extract_mesh in-process on the run that
+    train_stage1_cli leaves (8 views at 400x400, iteration 60), at
+    --mesh_res 256, bounded and --unbounded: the seconds of its parts
+    (fusion: the depth renders and the TSDF; marching tetrahedra; the weld;
+    the clean-up; the two PLY writes), vertex and triangle counts, peak
+    memory, launches; the forward blend held at the first depth render's
+    inputs. Then --toy at the defaults (the unit sphere: median vertex
+    radius within 0.05 of 1), and the analytic spheres card vs CPU."""
+    import torch
+    from irgs_tpu_torch.extract_mesh.__main__ import main as mesh_main
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.ops import tsdf as T
+    from irgs_tpu_torch.render import ref_gaussian as rg
+    from irgs_tpu_torch.train import stage1_full as s1
+    from irgs_tpu_torch.utils import ply
+
+    run = os.path.join(tmp, "stage1_run")
+    if not os.path.isfile(os.path.join(run, "chkpnt60.ckpt")):
+        fail("extract_mesh", "needs the run that train_stage1_cli leaves")
+    parts = {"tsdf_fusion": (s1, "reconstruct_tsdf"),
+             "depth_renders": (rg, "render_initial"),
+             "unbounded_fusion": (T, "fuse_unbounded_tsdf"),
+             "marching_tets": (T, "extract_mesh"),
+             "weld": (T, "merge_vertices"),
+             "post_process": (T, "post_process_mesh"),
+             "write": (ply, "write_ply")}
+    line, peaks = {"phase": "extract_mesh", "mesh_res": 256}, []
+    reset_launch_counts()
+    for mode in ("bounded", "unbounded"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = FirstCalls({"blend": (rb, "blend_tiles")})
+        with rec, Timed(parts) as tm:
+            t = time.perf_counter()
+            mesh_main(["-m", run, "--mesh_res", "256",
+                       *(["--unbounded"] if mode == "unbounded" else [])])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+        peaks.append(torch.cuda.max_memory_allocated())
+        sec = {k: sum(v) for k, v in tm.seconds.items()}
+        # post_process_mesh welds again inside: the weld's first call is
+        # fuse.ply's
+        sec["weld"] = tm.seconds["weld"][0]
+        line[mode] = {"cli_s": cli_s, "part_s": sec,
+                      "calls": {k: len(v) for k, v in tm.seconds.items()},
+                      "max_memory_allocated": peaks[-1],
+                      **_mesh_stats(os.path.join(run, "mesh"))}
+        if mode == "bounded":
+            launches = dict(launch_counts())
+            check_recorded(results, rec, "extract_mesh_400px")
+            reset_launch_counts()
+    launches = {k: v + launch_counts()[k] for k, v in launches.items()}
+    results.setdefault("launches", {})["extract_mesh"] = launches
+    toy_dir = os.path.join(tmp, "mesh_toy")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mesh_main(["--toy", "-m", toy_dir])
+    torch.cuda.synchronize()
+    line["toy"] = {"cli_s": time.perf_counter() - t,
+                   **_mesh_stats(os.path.join(toy_dir, "mesh"))}
+    line["analytic_card_vs_cpu"], analytic_ok = _analytic_mesh_card_vs_cpu()
+    line["launches"] = launches
+    checks = {
+        "meshes": all(line[m]["fuse_post"]["tris"] > 0
+                      for m in ("bounded", "unbounded")),
+        "toy_unit_sphere": abs(line["toy"]["median_radius"] - 1.0) < 0.05,
+        "analytic_card_vs_cpu": analytic_ok,
+        # one depth render a view, each one forward blend
+        "blend_per_render": launches["blend_fwd"] == sum(
+            line[m]["calls"]["depth_renders"] for m in ("bounded",
+                                                        "unbounded")),
+    }
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("extract_mesh", f"checks failed: {checks}")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -2280,7 +2571,9 @@ KERNELS = {
                "eval_cli": "relight_400px_100k",
                "stage1": "stage1_400px_100k_S11",
                "stage1_indirect": "stage1_400px_100k_S18",
-               "train_stage1_cli": "stage1_400px_100k_S11"}),
+               "train_stage1_cli": "stage1_400px_100k_S11",
+               "stage2_full": "bench_400px_100k",
+               "extract_mesh": "extract_mesh_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -2288,7 +2581,8 @@ KERNELS = {
                "train_cli_oversize": "shadow_400px_12k",
                "stage1": "stage1_400px_100k_S11",
                "stage1_indirect": "stage1_400px_100k_S18",
-               "train_stage1_cli": "stage1_400px_100k_S11"}),
+               "train_stage1_cli": "stage1_400px_100k_S11",
+               "stage2_full": "bench_400px_100k"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -2298,7 +2592,8 @@ KERNELS = {
         cases={"eval": "eval_first_pass", "stage2": "stage2_first_pass",
                "train_cli": "stage2_first_pass",
                "train_cli_oversize": "shadow_400px_12k_first_pass",
-               "eval_cli": "relight_400px_100k_first_pass"}),
+               "eval_cli": "relight_400px_100k_first_pass",
+               "stage2_full": "stage2_full_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -2310,7 +2605,8 @@ KERNELS = {
                   "Pallas kernel)"),
         cases={"stage2": "stage2_largest", "train_cli": "stage2_largest",
                "stage1": "stage1_largest",
-               "train_stage1_cli": "stage1_largest"}),
+               "train_stage1_cli": "stage1_largest",
+               "stage2_full": "stage2_full_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -2344,9 +2640,10 @@ def kernels_line(results):
     return {"kernels": out}
 
 
-PHASES = ("build", "kernels", "stage2_small", "stage2", "eval_small",
-          "mis_small", "eval", "train_cli", "train_cli_oversize", "eval_cli",
-          "stage1_small", "stage1", "train_stage1_cli")
+PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
+          "eval_small", "mis_small", "eval", "train_cli", "train_cli_oversize",
+          "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
+          "extract_mesh")
 
 
 def nvidia_smi_line():
@@ -2386,6 +2683,7 @@ def main():
                                 phase_kernels_gather(results)),
             "stage2_small": phase_stage2_small,
             "stage2": lambda: phase_stage2(results),
+            "stage2_full": lambda: phase_stage2_full(results, tmp),
             "eval_small": phase_eval_small,
             "mis_small": phase_mis_small,
             "eval": lambda: phase_eval(results),
@@ -2396,6 +2694,7 @@ def main():
             "stage1_small": phase_stage1_small,
             "stage1": lambda: phase_stage1(results),
             "train_stage1_cli": lambda: phase_train_stage1_cli(results, tmp),
+            "extract_mesh": lambda: phase_extract_mesh(results, tmp),
         }
         for name in PHASES:
             if name in phases:

@@ -1,16 +1,21 @@
 """Stage-2 trainer: material + environment-light fitting
-(≙ irgs_tpu/train/stage2.py:37-338, the train_ray branch).
+(≙ irgs_tpu/train/stage2.py:37-338).
 
 One step: rasterize the surfels with base colour and roughness as features
 (the blend runs as the CUDA kernels on the card), derive the G-buffer maps,
-pick a fixed number of eligible pixels, shade them with the Monte-Carlo
-rendering equation through the grid tracer, compute calculate_loss2 and take
-one Adam step. Geometry stays frozen at lr_scale = 0.
+shade pixels with the Monte-Carlo rendering equation through the grid
+tracer, compute calculate_loss2 and take one Adam step. Geometry stays
+frozen at lr_scale = 0. With `train_ray` (the reference's --train_ray) a
+fixed number of eligible pixels is shaded and the loss is their L1; without
+it every pixel is shaded in chunks, each recomputed in the backward pass
+(`torch.utils.checkpoint`), and the loss is the full image's L1 + D-SSIM.
 
 Every random draw comes in `Stage2Draws` (made by `draw_stage2` from a
-torch.Generator, or handed in by a caller that wants the JAX draws). With
-`light_sample_num` > 0 the shading is the MIS mixture, its light samples
-drawn from the detached env's pdf.
+torch.Generator, or handed in by a caller that wants the JAX draws), before
+the step runs: nothing inside it draws, so that a chunk's recomputation
+shades with the samples its forward pass used. With `light_sample_num` > 0
+the shading is the MIS mixture, its light samples drawn from the detached
+env's pdf.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import os
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import grid_tracer as gt
 from ..ops import surfel_raster as sr
@@ -79,6 +86,23 @@ class Stage2Static:
         return self.trace_num_rays // (self.diffuse_sample_num
                                        + self.light_sample_num)
 
+    @property
+    def chunk_pixels(self) -> int:
+        """Pixels a chunk of the full-image branch shades."""
+        return min(self.num_shaded_pixels, self.img_w * self.img_h)
+
+    @property
+    def n_chunks(self) -> int:
+        """Chunks of the full-image branch (the last one zero-padded)."""
+        return -(-(self.img_w * self.img_h) // self.chunk_pixels)
+
+    @property
+    def shaded_rows(self) -> int:
+        """Rows the sampler shades a step: the pixel subset, or every
+        chunk's rows."""
+        return (self.num_shaded_pixels if self.train_ray
+                else self.n_chunks * self.chunk_pixels)
+
 
 def from_configs(cfg, img_w: int, img_h: int,
                  active_sh_degree: int = 3) -> Stage2Static:
@@ -107,12 +131,16 @@ def from_configs(cfg, img_w: int, img_h: int,
 
 class Stage2Draws(NamedTuple):
     """The draws one step consumes (≙ the reference's jax.random.split(key),
-    stage2.py:158, and the light draws of its k_shade half)."""
+    stage2.py:158, and the light draws of its k_shade half). P is
+    `Stage2Static.shaded_rows`: the pixel subset, or with train_ray off
+    every chunk's rows in order (the reference draws each chunk's from its
+    own key of jax.random.split(k_shade, n_chunks))."""
     pixel_u: torch.Tensor  # [H*W] pixel-selection scores (ir.py:377)
     theta_u: torch.Tensor  # [P, 1] sampler rotations (sampling.py:37)
-    # light_sample_num > 0: the key of the light draws ([] int64), or the
-    # draws themselves (envlight.LightDraws [P, S_l], e.g. JAX's), which
-    # take precedence
+    # light_sample_num > 0: the key of the light draws ([] int64; keyed by
+    # the ray's slot, or with train_ray off by its pixel), or the draws
+    # themselves (envlight.LightDraws [P, S_l], e.g. JAX's), which take
+    # precedence
     light_seed: torch.Tensor | None = None
     light: envlight.LightDraws | None = None
 
@@ -131,7 +159,7 @@ def draw_stage2(generator: torch.Generator, st: Stage2Static,
     last, so that the uniforms do not depend on the light sample count)."""
     kw = dict(generator=generator, device=device)
     pixel_u = torch.rand(st.img_w * st.img_h, dtype=torch.float32, **kw)
-    theta_u = torch.rand(st.num_shaded_pixels, 1, dtype=torch.float32, **kw)
+    theta_u = torch.rand(st.shaded_rows, 1, dtype=torch.float32, **kw)
     light_seed = None
     if st.light_sample_num > 0:
         light_seed = torch.randint(0, 2 ** 31, (), dtype=torch.int64, **kw)
@@ -142,9 +170,6 @@ def stage2_forward_loss(params: GaussianParams, aux: GaussianAux,
                         grid: gt.Grid, cam: CameraParams, gt_image, cam_mask,
                         draws: Stage2Draws, iteration: int, st: Stage2Static):
     """One forward pass + calculate_loss2 -> (loss, metrics)."""
-    if not st.train_ray:
-        raise NotImplementedError("the full-image branch (train_ray=False) "
-                                  "is not ported yet")
     dev = params.xyz.device
     bg = torch.full((3,), 1.0 if st.white_background else 0.0, device=dev)
     features = torch.cat([params.get_base_color(), params.get_roughness()], -1)
@@ -168,43 +193,98 @@ def stage2_forward_loss(params: GaussianParams, aux: GaussianAux,
     pdf = envlight.build_pdf(params.env.detach(), activation=st.env_activation)
     flat = lambda x: x.reshape(-1, x.shape[-1])
     unit_z = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    zero3 = torch.zeros_like(unit_z)
+    light_seed = 0 if draws.light_seed is None else draws.light_seed
     trace_stats = {}
 
-    eligible = alpha[..., 0] > 0.9
-    if cam_mask is not None:
-        eligible = eligible & cam_mask
-    idx, ray_valid = ir.select_train_pixels(draws.pixel_u, eligible,
-                                            st.num_shaded_pixels)
-    px_base = flat(base_color_img)[idx]
-    px_rough = flat(rough_img)[idx]
-    px_alpha = flat(alpha)[idx]
-    # padding rays (beyond the eligible count) get safe inputs: degenerate
-    # normals would turn into NaNs inside the sampling frame
-    safe = ray_valid[:, None]
-    px_normal = torch.where(safe, flat(maps["normal_map"])[idx], unit_z)
-    px_wo = torch.where(safe, -flat(maps["rays_d"])[idx], unit_z)
-    px_points = torch.where(safe, flat(maps["points"])[idx],
-                            torch.zeros_like(unit_z))
+    if st.train_ray:
+        eligible = alpha[..., 0] > 0.9
+        if cam_mask is not None:
+            eligible = eligible & cam_mask
+        idx, ray_valid = ir.select_train_pixels(draws.pixel_u, eligible,
+                                                st.num_shaded_pixels)
+        px_base = flat(base_color_img)[idx]
+        px_rough = flat(rough_img)[idx]
+        px_alpha = flat(alpha)[idx]
+        # padding rays (beyond the eligible count) get safe inputs:
+        # degenerate normals would turn into NaNs inside the sampling frame
+        safe = ray_valid[:, None]
+        px_normal = torch.where(safe, flat(maps["normal_map"])[idx], unit_z)
+        px_wo = torch.where(safe, -flat(maps["rays_d"])[idx], unit_z)
+        px_points = torch.where(safe, flat(maps["points"])[idx], zero3)
 
-    trace_fn = ir.make_trace_fn(params, aux, grid, st.tracer, cam.cam_pos,
-                                st.active_sh_degree, stats_out=trace_stats)
-    # the light draws are keyed by the ray's slot (no pixel ids), as the
-    # reference's train_ray branch draws them (stage2.py:185-187)
-    re = ir.rendering_equation(
-        px_base, px_rough, px_normal, px_points, px_wo, params.env, pdf,
-        trace_fn, shade_cfg, theta_u=draws.theta_u, light_draws=draws.light,
-        light_seed=0 if draws.light_seed is None else draws.light_seed)
-    full = rgb_to_srgb(re["diffuse"] + re["specular"])
-    ray_rgb = full * px_alpha + bg[None] * (1 - px_alpha)
-    gt_flat = flat(gt_image)[idx]
-    ray_rgb = torch.where(safe, ray_rgb, torch.zeros_like(ray_rgb))
-    gt_flat = torch.where(safe, gt_flat, torch.zeros_like(gt_flat))
-    vw = ray_valid.float()[:, None]
-    denom = torch.clamp(vw.sum() * 3, min=1.0)
+        trace_fn = ir.make_trace_fn(params, aux, grid, st.tracer, cam.cam_pos,
+                                    st.active_sh_degree,
+                                    stats_out=trace_stats)
+        # the light draws are keyed by the ray's slot (no pixel ids), as the
+        # reference's train_ray branch draws them (stage2.py:185-187)
+        re = ir.rendering_equation(
+            px_base, px_rough, px_normal, px_points, px_wo, params.env, pdf,
+            trace_fn, shade_cfg, theta_u=draws.theta_u,
+            light_draws=draws.light, light_seed=light_seed)
+        full = rgb_to_srgb(re["diffuse"] + re["specular"])
+        ray_rgb = full * px_alpha + bg[None] * (1 - px_alpha)
+        gt_flat = flat(gt_image)[idx]
+        ray_rgb = torch.where(safe, ray_rgb, torch.zeros_like(ray_rgb))
+        gt_flat = torch.where(safe, gt_flat, torch.zeros_like(gt_flat))
+        vw = ray_valid.float()[:, None]
+        denom = torch.clamp(vw.sum() * 3, min=1.0)
+        l_l1 = torch.sum(torch.abs(ray_rgb - gt_flat) * vw) / denom
+        metrics = {"loss_l1": l_l1,
+                   "ray_psnr": L.psnr(ray_rgb * vw, gt_flat * vw)}
+        light_direct = re["light_direct"]
+    else:
+        # the full-image branch (reference train.py:163 else-branch): every
+        # pixel shaded in chunks of chunk_pixels, the background (alpha = 0)
+        # with safe inputs and masked afterwards, the last chunk padded
+        # with zero rows; then L1 + D-SSIM of the composite over the whole
+        # image (loss_utils.py:173-175)
+        n_px, pc = st.img_w * st.img_h, st.chunk_pixels
+        fg = alpha[..., 0].reshape(-1) > 0
+        safe = fg[:, None]
+        pad = lambda x: F.pad(x, (0, 0, 0, st.n_chunks * pc - n_px))
+        px = [pad(x) for x in (
+            flat(base_color_img), flat(rough_img),
+            torch.where(safe, flat(maps["normal_map"]), unit_z),
+            torch.where(safe, flat(maps["points"]), zero3),
+            torch.where(safe, -flat(maps["rays_d"]), unit_z))]
+        pid = pad(torch.arange(n_px, device=dev)[:, None])[:, 0]
+        trace_fn = ir.make_trace_fn(params, aux, grid, st.tracer, cam.cam_pos,
+                                    st.active_sh_degree)
 
-    l_l1 = torch.sum(torch.abs(ray_rgb - gt_flat) * vw) / denom
+        def shade_chunk(base, rough, normal, points, wo, theta_u, ids,
+                        light):
+            re = ir.rendering_equation(
+                base, rough, normal, points, wo, params.env, pdf, trace_fn,
+                shade_cfg, theta_u=theta_u, pixel_ids=ids, light_draws=light,
+                light_seed=light_seed)
+            return re["diffuse"], re["specular"], re["light_direct"]
+
+        outs = []
+        for c in range(st.n_chunks):
+            rows = slice(c * pc, (c + 1) * pc)
+            light = None if draws.light is None else envlight.LightDraws(
+                *(None if x is None else x[rows] for x in draws.light))
+            args = (*(x[rows] for x in px), draws.theta_u[rows], pid[rows],
+                    light)
+            # each chunk's backward recomputes its shading instead of
+            # keeping its [pc, S, 3] intermediates (the reference's
+            # jax.checkpoint); its samples come in as inputs, so the
+            # recomputation draws nothing and takes the forward's samples
+            outs.append(shade_chunk(*args) if st.n_chunks == 1 else
+                        checkpoint(shade_chunk, *args, use_reentrant=False))
+        diffuse, specular, light_direct = (torch.cat(x)[:n_px]
+                                           for x in zip(*outs))
+        full = rgb_to_srgb(diffuse + specular)
+        full = torch.where(safe, full, torch.zeros_like(full))
+        render = (full.reshape(st.img_h, st.img_w, 3) * alpha
+                  + bg * (1 - alpha))
+        l_l1 = (L.l1_loss(render, gt_image)
+                + st.lambda_dssim * (1 - L.ssim(render, gt_image)))
+        metrics = {"loss_l1": l_l1, "psnr": L.psnr(render, gt_image)}
+        vw = fg.float()[:, None]
+        denom = torch.clamp(vw.sum() * 3, min=1.0)
     loss = l_l1
-    metrics = {"loss_l1": l_l1, "ray_psnr": L.psnr(ray_rgb * vw, gt_flat * vw)}
 
     render_sh = rgb_to_srgb(raster.color) + bg * (1 - alpha)
     sh_mask = (alpha > 0.9).float()
@@ -249,7 +329,7 @@ def stage2_forward_loss(params: GaussianParams, aux: GaussianAux,
         loss = loss + st.lambda_normal_smooth * L.first_order_edge_aware_loss(
             img, gt_image)
     if st.lambda_light > 0:
-        ld = re["light_direct"]
+        ld = light_direct
         loss = loss + st.lambda_light * torch.sum(
             torch.abs(ld - ld.mean(-1, keepdim=True)) * vw) / denom
     if st.lambda_light_smooth > 0:
