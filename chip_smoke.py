@@ -90,7 +90,25 @@ Phases (JSON lines; any failure exits non-zero):
                 weld, clean-up and writes, the meshes' counts, peak memory,
                 the forward blend held at the depth render's inputs; then
                 --toy at the defaults (the unit sphere) and the analytic
-                spheres' meshes card against CPU. Needs train_stage1_cli.
+                spheres' meshes card against CPU. Needs train_stage1_cli;
+  tracer_options
+                the tracer's options: at test scale (96 surfels, 256 rays)
+                the per-candidate select single- and two-tier, the packed
+                cell collection, the bf16 pair table and iterative
+                deepening, card against CPU (forward, and gradients but for
+                the forward-only retrace_while); one warm and two timed
+                BENCH stage-2 steps with select_tiles 0, with the two-tier
+                prefilter at 192, with tiled_direct off and with table_bf16
+                (the gather held at the bf16 table's first inputs); one EVAL
+                frame with retrace_while off and on (s/frame, rounds run,
+                Mrays/s);
+  parallel      multi-device on torch.distributed: a one-rank NCCL world's
+                BENCH DP step against the plain step, bit for bit; then two
+                gloo ranks sharing the card (NCCL refuses two ranks on one
+                device): the test-scale DP step against one process's mean
+                step bit for bit, equal parameters on both ranks, the
+                sample-sharded test-scale eval frame against the one-rank
+                frame, and three BENCH DP steps with their all_reduce timed.
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -2558,6 +2576,485 @@ def phase_extract_mesh(results, tmp):
         fail("extract_mesh", f"checks failed: {checks}")
 
 
+# ---------------------------------------------------------------------------
+# the tracer's options: test scale card against CPU, BENCH steps and
+# EVAL frames
+
+# tests/test_torch_tracer_options.py's scale: 96 surfels on a jittered unit
+# sphere, 256 rays shot inward, a grid of 12 and 4 segments
+OPTIONS_BASE = dict(grid_res=12, pair_capacity=2 ** 15, max_cells=8,
+                    max_hits=24, hit_budget=16, max_crossings=10, span_cap=6,
+                    n_segments=4, retrace_frac=0.25)
+OPTIONS = {
+    "candidates": dict(),
+    "two_tier": dict(prefilter_width=96),
+    "packed_tiled": dict(select_tiles=4, tile=32, tiled_direct=False),
+    "bf16": dict(select_tiles=4, tile=32, tiled_direct=True, table_bf16=True),
+    # forward only, as the reference's while_loop
+    "retrace_while": dict(retrace_while=True, n_segments=8, retrace_bulk=1),
+}
+# card against CPU: the forward elementwise (a ray whose hit sits at a
+# threshold may flip, so the share of elements outside the tolerance is
+# bounded, as eval_small's), the gradients per field in units of max|g|
+OPT_ATOL, OPT_RTOL, OPT_MAX_OUTLIER_SHARE, OPT_GRAD_REL = 1e-5, 1e-4, 0.01, 1e-3
+# the training tracer's options at BENCH (from_pipe: 24 tiles of 32, max_hits
+# 40), and the eval frame's iterative deepening
+BENCH_OPTIONS = {
+    "default": dict(),                   # the training tracer, as a baseline
+    "select_tiles_0": dict(select_tiles=0),
+    "select_tiles_0_prefilter_192": dict(select_tiles=0, prefilter_width=192),
+    "tiled_direct_off": dict(tiled_direct=False),
+    "table_bf16": dict(table_bf16=True),
+}
+
+
+def _option_inputs(seed=0, n=96, s=4, r=256):
+    """tests/test_torch_tracer_options.py's make_inputs."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3))
+    nrm = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    means = nrm * (1.0 + 0.15 * rng.standard_normal((n, 1)))
+    tu = np.cross(nrm, rng.standard_normal((n, 3)))
+    tu /= np.linalg.norm(tu, axis=-1, keepdims=True)
+    tv = np.cross(nrm, tu)
+    scales = np.exp(rng.uniform(-2.0, -1.2, (n, 2)))
+    opac = 1.0 / (1.0 + np.exp(-(rng.standard_normal(n) + 1.5)))
+    arrs = dict(means3d=means, opacity=opac, ru=tu / scales[:, :1],
+                rv=tv / scales[:, 1:], normals=nrm,
+                shs=0.3 * rng.standard_normal((n, 16, 3)),
+                features=rng.uniform(size=(n, s)))
+    arrs = {k: v.astype(np.float32) for k, v in arrs.items()}
+    dirs = rng.standard_normal((r, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rd = dirs + 0.1 * rng.standard_normal((r, 3))
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return (arrs, scales.astype(np.float32), (-2.5 * dirs).astype(np.float32),
+            rd.astype(np.float32))
+
+
+def option_card_vs_cpu(over):
+    """tests/test_torch_tracer_options.py's segmented trace with one option
+    on the card and on the CPU: the forward, and (unless retrace_while) the
+    gradients of a random linear functional -> its JSON fields and ok."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.ops import gather_rows as gr
+    from irgs_tpu_torch.ops import grid_tracer as gt
+
+    arrs, scales, ro, rd = _option_inputs()
+    cfg = gt.TracerConfig(**dict(OPTIONS_BASE, **over))
+    grad = not cfg.retrace_while
+    fields = list(gt.TraceInputs._fields)
+    rng = np.random.default_rng(3)
+    r, s = ro.shape[0], arrs["features"].shape[1]
+    cot = [rng.standard_normal(sh).astype(np.float32)
+           for sh in [(r, 3), (r, 3), (r, s), (r,), (r,), (r,)]]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [torch.tensor(arrs[k], device=dev, requires_grad=grad)
+                  for k in fields]
+        inp = gt.TraceInputs(*leaves)
+        radius = gt.bounding_radius(inp.opacity.detach(),
+                                    torch.tensor(scales, device=dev),
+                                    cfg.alpha_min)
+        grid = gt.build_grid(inp.means3d.detach(), radius,
+                             torch.ones(len(scales), dtype=torch.bool,
+                                        device=dev),
+                             grid_res=cfg.grid_res,
+                             pair_capacity=cfg.pair_capacity,
+                             span_cap=cfg.span_cap,
+                             normals=inp.normals.detach())
+        gr.reset_launches()
+        with torch.set_grad_enabled(grad):
+            out = gt.trace_segments(torch.tensor(ro, device=dev),
+                                    torch.tensor(rd, device=dev), grid, inp,
+                                    cfg=cfg, sh_deg=3)
+        grads = []
+        if grad:
+            loss = sum((a * torch.tensor(b, device=dev)).sum()
+                       for a, b in zip(out, cot))
+            grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        res[dev] = ([x.detach().cpu() for x in out], grads,
+                    gr.LAUNCHES["gather_rows"])
+    fwd, ok = {}, True
+    for name, got, want in zip(gt.TraceOut._fields, res["cuda"][0],
+                               res["cpu"][0]):
+        d = (got - want).abs()
+        share = float((d > OPT_ATOL + OPT_RTOL * want.abs()).float().mean())
+        fwd[name] = {"max_abs_err": float(d.max()), "outlier_share": share}
+        ok &= bool(torch.isfinite(got).all()) and share <= OPT_MAX_OUTLIER_SHARE
+    grad_err = {}
+    for name, got, want in zip(fields, res["cuda"][1], res["cpu"][1]):
+        grad_err[name] = float((got - want).abs().max()
+                               / max(float(want.abs().max()), 1e-12))
+        ok &= grad_err[name] <= OPT_GRAD_REL
+    tiled = cfg.select_tiles > 0
+    ok &= (res["cuda"][2] > 0) == tiled and res["cpu"][2] == 0
+    ok &= float(res["cpu"][0][4].max()) > 0.5          # rays hit surfels
+    return {"forward": fwd, "grad_rel_err": grad_err,
+            "gather_launches_cuda": res["cuda"][2]}, bool(ok)
+
+
+def phase_tracer_options(results, n_timed=2):
+    """Every tracer option at test scale, card against CPU (forward, and
+    gradients where the option trains); one BENCH stage-2 step per training
+    option, timed, the first one's gather held against its plain version at
+    the bf16 table's shape; and one EVAL frame with retrace_while on against
+    off (s/frame, rounds run, Mrays/s)."""
+    import dataclasses
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.render.eval import render_ir_eval
+    from irgs_tpu_torch.train import stage2 as s2
+
+    small, ok = {}, True
+    for name, over in OPTIONS.items():
+        small[name], ok_i = option_card_vs_cpu(over)
+        small[name]["ok"] = ok_i
+        ok &= ok_i
+    emit({"phase": "tracer_options", "part": "test_scale", "ok": ok,
+          "atol": OPT_ATOL, "rtol": OPT_RTOL,
+          "max_outlier_share": OPT_MAX_OUTLIER_SHARE,
+          "grad_rel": OPT_GRAD_REL, "options": small})
+    if not ok:
+        fail("tracer_options", "an option on the card disagrees with the CPU")
+
+    dev = torch.device("cuda")
+    state, grid, cams, st = workload.stage2_setup(**workload.BENCH,
+                                                  device=dev)
+    cam_params = [c.params(dev) for c in cams]
+    gt_img = torch.full((st.img_h, st.img_w, 3), 0.5, device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def step(st_v, i):
+        nonlocal state
+        draws = s2.draw_stage2(gen, st_v, dev)
+        state, m = s2.stage2_step(state, grid, cam_params[i % len(cams)],
+                                  gt_img, None, draws, st=st_v)
+        return m
+
+    bench = {}
+    for name, over in BENCH_OPTIONS.items():
+        st_v = dataclasses.replace(st, tracer=dataclasses.replace(st.tracer,
+                                                                  **over))
+        if name == "table_bf16":
+            # the gather's first inputs: the bf16 table viewed as int32
+            with FirstCalls({"gather": (gt, "gather_rows_kernel")},
+                            clone=(1,)) as rec:
+                step(st_v, 0)
+            check_recorded(results, rec, "tracer_options_bf16")
+            del rec
+        else:
+            step(st_v, 0)
+        torch.cuda.synchronize()
+        reset_launch_counts()                # count the main path only
+        times, metrics = [], []
+        for i in range(1, 1 + n_timed):
+            a = time.perf_counter()
+            m = step(st_v, i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - a) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+        launches = launch_counts()
+        for k, v in launches.items():
+            results.setdefault("launches", {}).setdefault(
+                "tracer_options", {}).setdefault(k, 0)
+            results["launches"]["tracer_options"][k] += v
+        bench[name] = {"tracer": over, "ms_per_step": statistics.median(times),
+                       "ms_steps": times, "loss": metrics[-1]["loss"],
+                       "trace_trunc_frac": metrics[-1].get("trace_trunc_frac"),
+                       "trace_more_frac": metrics[-1].get("trace_more_frac"),
+                       "launches_per_step": {k: v / n_timed
+                                             for k, v in launches.items()},
+                       "loss_finite": all(math.isfinite(m["loss"])
+                                          for m in metrics)}
+    del state, grid
+    torch.cuda.empty_cache()
+
+    params, aux, egrid, cam, ecfg = workload.eval_setup(**workload.EVAL,
+                                                        device=dev)
+    frames = {}
+    body = gt._retrace_body
+    for on in (False, True):
+        cfg = dataclasses.replace(ecfg, tracer=dataclasses.replace(
+            ecfg.tracer, retrace_while=on))
+        caps = []
+        gt._retrace_body = lambda *a, **k: (caps.append(a[9]),
+                                            body(*a, **k))[1]
+        try:
+            stats = {}
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            out = render_ir_eval(params, aux, egrid, cam, cfg,
+                                 stats_out=stats)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - a
+        finally:
+            gt._retrace_body = body
+        frames["on" if on else "off"] = {
+            "s_per_frame": sec, "rounds_run": len(caps),
+            # rounds by capacity: with retrace_while the tail's are the
+            # smallest (retrace_tail_frac of a chunk's rays)
+            "rounds_by_capacity": {str(c): caps.count(c)
+                                   for c in sorted(set(caps))},
+            "mrays_per_s": stats["shaded_rays"] / sec / 1e6,
+            "trace_more_frac": stats.get("trace_more_frac"),
+            "finite": all(bool(torch.isfinite(v).all()) for v in out.values()),
+            "render": out["render"]}
+    d = (frames["on"].pop("render") - frames["off"].pop("render")).abs()
+    line = {"phase": "tracer_options", "part": "bench", "bench": bench,
+            "eval_retrace_while": frames,
+            "eval_render_max_abs_diff_on_off": float(d.max()),
+            "eval_render_mean_abs_diff_on_off": float(d.mean()),
+            "launches": results["launches"]["tracer_options"]}
+    checks = {"bench_loss_finite": all(b["loss_finite"]
+                                       for b in bench.values()),
+              "eval_finite": all(f["finite"] for f in frames.values()),
+              "retrace_rounds_ran": frames["on"]["rounds_run"] > 0}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("tracer_options", f"checks failed: {checks}")
+
+
+# ---------------------------------------------------------------------------
+# multi-device: one rank on the card over NCCL, and two ranks that
+# share the card over gloo
+
+# tests/test_parallel.py's scale: the toy sphere's 256 surfels, 32x32, the
+# default (per-candidate) tracer at grid 16 and one segment
+PAR_TRACER = dict(grid_res=16, pair_capacity=2 ** 14, max_cells=8,
+                  max_hits=16, hit_budget=8)
+PAR_RTOL, PAR_ATOL = 2e-4, 2e-5
+
+
+def _par_small_frames(params, aux, cam, mesh):
+    """The sample-sharded test-scale eval frame (16 diffuse + 8 light
+    samples, all pixels) with `mesh`, as a dict of CPU arrays."""
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.render.eval import EvalConfig, render_ir_eval
+    ecfg = EvalConfig(img_w=32, img_h=32, active_sh_degree=1,
+                      diffuse_sample_num=16, light_sample_num=8,
+                      dup_capacity=2 ** 12, tracer=gt.TracerConfig(**PAR_TRACER))
+    grid = gt.build_grid_from_gaussians(params, aux, ecfg.tracer)
+    out = render_ir_eval(params, aux, grid, cam, ecfg, mesh=mesh,
+                         compact_fg=False)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _parallel_rank(mesh, device, out_dir):
+    """One of the two ranks that share the card (gloo): the test-scale DP
+    step (rank 0 also takes one process's mean of the two ranks' gradients),
+    the test-scale sample-sharded eval frame (rank 0 also the one-rank
+    frame), then one BENCH DP step, timed with its all_reduce."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import irgs_tpu_torch  # noqa: F401  (precision flags)
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.parallel import broadcast_params, stage2_dp_step
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.train import stage2 as s2
+
+    r, out = mesh.rank, {}
+    gen = torch.Generator().manual_seed(0)
+    state, grid, cams, st = stage2_small_setup(device)
+    draws = [s2.draw_stage2(gen, st, "cpu").to(device)
+             for _ in range(mesh.size)]
+    gts = [torch.full((64, 64, 3), 0.3 + 0.1 * q, device=device)
+           for q in range(mesh.size)]
+    state.step = 1001
+    broadcast_params(mesh, state.params)
+    state, m = stage2_dp_step(mesh, st)(state, grid, cams[r].params(device),
+                                         gts[r], draws[r])
+    out.update({f"dp_{k}": v.detach().cpu().numpy()
+                for k, v in state.params.tensors().items()})
+    out["dp_loss"] = float(m["loss"])
+    if r == 0:
+        ref = stage2_small_setup(device)[0]
+        ref.step = 1001
+        sums = {}
+        for q in range(mesh.size):
+            ref.optimizer.zero_grad()
+            loss, _ = s2.stage2_forward_loss(
+                ref.params, ref.aux, grid, cams[q].params(device), gts[q],
+                None, draws[q], ref.step, st)
+            loss.backward()
+            for f, t in ref.params.tensors().items():
+                if t.grad is not None:
+                    sums[f] = t.grad.clone() if f not in sums else sums[f] + t.grad
+        for f, t in ref.params.tensors().items():
+            t.grad = sums[f] / mesh.size if f in sums else None
+        ref.optimizer.step(ref.step)
+        out.update({f"mean_{k}": v.detach().cpu().numpy()
+                    for k, v in ref.params.tensors().items()})
+    del state, grid
+
+    params, aux = toy.make_sphere_scene(n_surface=256, n_capacity=512,
+                                        env_resolution=16, device=device)
+    cam = toy.make_ring_cameras(1, width=32, height_px=32)[0].params(device)
+    out.update({f"sharded_{k}": v for k, v in
+                _par_small_frames(params, aux, cam, mesh).items()})
+    if r == 0:
+        out.update({f"single_{k}": v for k, v in
+                    _par_small_frames(params, aux, cam, None).items()})
+
+    state, grid, cams, st = workload.stage2_setup(**workload.BENCH,
+                                                  device=device)
+    broadcast_params(mesh, state.params)
+    step = stage2_dp_step(mesh, st)
+    gen = torch.Generator(device).manual_seed(0)
+    gt_img = torch.full((st.img_h, st.img_w, 3), 0.5, device=device)
+    reduce_ms, all_reduce = [], dist.all_reduce
+
+    def timed_all_reduce(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = all_reduce(t, *a, **kw)
+        torch.cuda.synchronize()
+        reduce_ms.append(((time.perf_counter() - t0) * 1e3, t.numel()))
+        return res
+
+    times = []
+    dist.all_reduce = timed_all_reduce
+    try:
+        for i in range(3):
+            d = [s2.draw_stage2(gen, st, device)
+                 for _ in range(mesh.size)][r]
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            state, m = step(state, grid, cams[r].params(device), gt_img, d)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - a) * 1e3)
+    finally:
+        dist.all_reduce = all_reduce
+    out["bench_ms_steps"] = np.array(times)
+    out["bench_all_reduce_ms"] = np.array([t for t, _ in reduce_ms])
+    out["bench_all_reduce_numel"] = reduce_ms[-1][1]
+    out["bench_loss"] = float(m["loss"])
+    np.savez(os.path.join(out_dir, f"rank{r}.npz"), **out)
+
+
+def phase_parallel(results, tmp):
+    """(a) A one-rank NCCL world on the card: stage2_dp_step at BENCH
+    equals the plain stage2_step bit for bit (the mean over one rank is the
+    identity); three steps timed each way; the first DP step's launches are
+    the path's. (b) Two ranks sharing the card
+    over gloo (NCCL refuses two ranks on one device): the test-scale DP
+    step equals one process's mean of the same two gradients, bit for bit,
+    both ranks end with equal parameters, and the sample-sharded test-scale
+    eval frame equals the one-rank frame within tests/test_parallel.py's
+    tolerance. (c) The same world's BENCH DP step timed, with its
+    all_reduce: two ranks sharing one card, not a scaling figure."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.parallel import Mesh, spawn_ranks, stage2_dp_step
+    from irgs_tpu_torch.train import stage2 as s2
+
+    dev = torch.device("cuda")
+    runs, step_ms = {}, {}
+    for name in ("plain", "dp"):
+        state, grid, cams, st = workload.stage2_setup(**workload.BENCH,
+                                                      device=dev)
+        gen = torch.Generator(dev).manual_seed(0)
+        gt_img = torch.full((st.img_h, st.img_w, 3), 0.5, device=dev)
+        cam = cams[0].params(dev)
+        if name == "plain":
+            step = lambda state, d: s2.stage2_step(state, grid, cam, gt_img,
+                                                   None, d, st=st)
+        else:
+            store = os.path.join(tmp, "nccl_store")
+            dist.init_process_group("nccl", init_method="file://" + store,
+                                    world_size=1, rank=0)
+            # NCCL sets its communicator up at the first collective
+            dist.all_reduce(torch.zeros(1, device=dev))
+            dp = stage2_dp_step(Mesh(rank=0, size=1), st)
+            step = lambda state, d: dp(state, grid, cam, gt_img, d)
+        try:
+            # three steps each way from the same state and draws; the
+            # first's parameters are compared, the DP ones' launches kept
+            times = []
+            for i in range(3):
+                draws = s2.draw_stage2(gen, st, dev)
+                if name == "dp" and i == 0:
+                    reset_launch_counts()    # count the main path only
+                torch.cuda.synchronize()
+                a = time.perf_counter()
+                state, m = step(state, draws)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - a) * 1e3)
+                if i == 0:
+                    runs[name] = ({k: v.detach().clone()
+                                   for k, v in state.params.tensors().items()},
+                                  float(m["loss"]))
+                    if name == "dp":
+                        launches = launch_counts()
+        finally:
+            if name == "dp":
+                dist.destroy_process_group()
+        step_ms[name] = times
+        del state, grid, step
+    results.setdefault("launches", {})["parallel"] = launches
+    one_rank_equal = {k: bool(torch.equal(v, runs["dp"][0][k]))
+                      for k, v in runs["plain"][0].items()}
+    losses = {k: v[1] for k, v in runs.items()}
+    del runs
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(tmp, "parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    a = time.perf_counter()
+    spawn_ranks(_parallel_rank, ["cuda:0", "cuda:0"], "gloo",
+                args=(out_dir,))
+    world_s = time.perf_counter() - a
+    w = [dict(np.load(os.path.join(out_dir, f"rank{q}.npz")))
+         for q in range(2)]
+    fields = [k[3:] for k in w[0] if k.startswith("dp_") and k != "dp_loss"]
+    mean_equal = {f: bool(np.array_equal(w[0]["dp_" + f], w[0]["mean_" + f]))
+                  for f in fields}
+    ranks_equal = {f: bool(np.array_equal(w[0]["dp_" + f], w[1]["dp_" + f]))
+                   for f in fields}
+    frame_err, frame_ok = {}, True
+    for k in (k[7:] for k in w[0] if k.startswith("single_")):
+        want = w[0]["single_" + k]
+        for q in range(2):
+            got = w[q]["sharded_" + k]
+            frame_ok &= bool(np.allclose(got, want, rtol=PAR_RTOL,
+                                         atol=PAR_ATOL))
+        frame_err[k] = float(np.abs(w[0]["sharded_" + k] - want).max())
+    line = {"phase": "parallel",
+            "one_rank_nccl": {"dp_step_ms": step_ms["dp"],
+                              "plain_step_ms": step_ms["plain"],
+                              "launches": launches,
+                              "loss_plain": losses["plain"],
+                              "loss_dp": losses["dp"]},
+            "two_ranks_sharing_one_card": {
+                "backend": "gloo", "world_s": world_s,
+                "bench_dp_step_ms": w[0]["bench_ms_steps"].tolist(),
+                "bench_all_reduce_ms": w[0]["bench_all_reduce_ms"].tolist(),
+                "bench_all_reduce_numel": int(w[0]["bench_all_reduce_numel"]),
+                "bench_loss": float(w[0]["bench_loss"]),
+                "small_dp_loss": float(w[0]["dp_loss"]),
+                "sharded_frame_max_abs_err": frame_err,
+                "rtol": PAR_RTOL, "atol": PAR_ATOL}}
+    checks = {"one_rank_nccl_equals_plain_bitwise": all(one_rank_equal.values()),
+              "two_rank_step_equals_mean_bitwise": all(mean_equal.values()),
+              "ranks_end_equal": all(ranks_equal.values()),
+              "sharded_frame_matches_one_rank": frame_ok,
+              "kernels_launched": all(v > 0 for v in launches.values())}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("parallel", f"checks failed: {checks} (one rank: "
+             f"{one_rank_equal}, mean: {mean_equal}, ranks: {ranks_equal})")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -2573,7 +3070,9 @@ KERNELS = {
                "stage1_indirect": "stage1_400px_100k_S18",
                "train_stage1_cli": "stage1_400px_100k_S11",
                "stage2_full": "bench_400px_100k",
-               "extract_mesh": "extract_mesh_400px"}),
+               "extract_mesh": "extract_mesh_400px",
+               "tracer_options": "bench_400px_100k",
+               "parallel": "bench_400px_100k"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -2582,7 +3081,9 @@ KERNELS = {
                "stage1": "stage1_400px_100k_S11",
                "stage1_indirect": "stage1_400px_100k_S18",
                "train_stage1_cli": "stage1_400px_100k_S11",
-               "stage2_full": "bench_400px_100k"}),
+               "stage2_full": "bench_400px_100k",
+               "tracer_options": "bench_400px_100k",
+               "parallel": "bench_400px_100k"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -2593,7 +3094,10 @@ KERNELS = {
                "train_cli": "stage2_first_pass",
                "train_cli_oversize": "shadow_400px_12k_first_pass",
                "eval_cli": "relight_400px_100k_first_pass",
-               "stage2_full": "stage2_full_first_pass"}),
+               "stage2_full": "stage2_full_first_pass",
+               # the bf16 pair table's rows, viewed as int32 words
+               "tracer_options": "tracer_options_bf16_first_pass",
+               "parallel": "stage2_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -2606,7 +3110,9 @@ KERNELS = {
         cases={"stage2": "stage2_largest", "train_cli": "stage2_largest",
                "stage1": "stage1_largest",
                "train_stage1_cli": "stage1_largest",
-               "stage2_full": "stage2_full_largest"}),
+               "stage2_full": "stage2_full_largest",
+               "tracer_options": "stage2_largest",
+               "parallel": "stage2_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -2643,7 +3149,7 @@ def kernels_line(results):
 PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "eval_small", "mis_small", "eval", "train_cli", "train_cli_oversize",
           "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
-          "extract_mesh")
+          "extract_mesh", "tracer_options", "parallel")
 
 
 def nvidia_smi_line():
@@ -2695,6 +3201,8 @@ def main():
             "stage1": lambda: phase_stage1(results),
             "train_stage1_cli": lambda: phase_train_stage1_cli(results, tmp),
             "extract_mesh": lambda: phase_extract_mesh(results, tmp),
+            "tracer_options": lambda: phase_tracer_options(results),
+            "parallel": lambda: phase_parallel(results, tmp),
         }
         for name in PHASES:
             if name in phases:

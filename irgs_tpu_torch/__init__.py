@@ -1,10 +1,10 @@
 """irgs_tpu_torch — the PyTorch + CUDA port of irgs_tpu, for NVIDIA Hopper.
 
 The JAX package ``irgs_tpu`` is the reference; this package mirrors its
-layout (``ops/ scene/ render/ train/ utils/``) and module names so that each
-counterpart is easy to find. It imports ``torch`` and numpy, never ``jax``
-and nothing of ``irgs_tpu`` (whose ``__init__`` imports JAX and sets global
-config).
+layout (``ops/ scene/ render/ train/ eval/ parallel/ utils/``) and module
+names so that each counterpart is easy to find. It imports ``torch`` and
+numpy, never ``jax`` and nothing of ``irgs_tpu`` (whose ``__init__`` imports
+JAX and sets global config).
 
 The per-tile surfel blend that ``irgs_tpu`` wrote as a Pallas TPU kernel is a
 hand-written CUDA kernel here (``csrc/raster_blend.cu``, bound in

@@ -1,9 +1,8 @@
 """Differentiable 2D-Gaussian-surfel ray tracer (≙ irgs_tpu/ops/grid_tracer.py).
 
 A uniform voxel grid over per-Gaussian bounding spheres (disk-slab insertion),
-a loop-free DDA that records each ray's visited cells, a TILED hit selection
-over a pair-ordered candidate table (hit-cell dedup, the nearest
-`hit_budget` hits by a (depth, pair position) key), and a differentiable
+a loop-free DDA that records each ray's visited cells, a hit selection that
+keeps each ray's nearest `hit_budget` hits, and a differentiable
 front-to-back blend of the selected hits. Segmented re-trace rounds extend
 rays whose hit list was truncated while still transmissive, with the carried
 transmittance differentiable.
@@ -12,16 +11,20 @@ Cell collection and hit selection are index-only: they run under
 ``torch.no_grad()`` on detached inputs (≙ stop_gradient in the reference);
 only ``blend_hits`` and the carried T are differentiated.
 
-Ported: the training and eval configurations of `TracerConfig.from_pipe`
-(tiled select, ``tiled_direct`` collection, unrolled re-trace rounds, and
-the eval switches: the re-trace capacity ladder `adaptive` and
-`select_topk`), and the exact oversize merge (`oversize_cap` > 0: the
-widest Gaussians leave the grid and are depth-merged into every hit list).
-On the card the select fetches its candidate rows with the row-gather
-kernel of ops/gather_rows.py; `pallas_gather`, the JAX package's switch for
-its Pallas gather, is kept as a config field and changes nothing here. Not
-ported (raise NotImplementedError): the per-candidate select, `table_bf16`
-and `retrace_while`.
+Every option of the reference's `TracerConfig` is ported. Cell collection
+hands the select every visited segment (``tiled_direct``) or packs the first
+`max_cells` non-empty ones. The select is tiled (`select_tiles` > 0: whole
+tile rows of a pair-ordered candidate table, f32 or with `table_bf16` bf16,
+dedup by hit cell, optionally ordered as `select_topk`) or per candidate
+(`select_tiles` == 0, the default: candidates expanded from the recorded
+cells, optionally screened first by the two-tier prefilter). Re-trace rounds
+are unrolled (with the `adaptive` capacity ladder) or, with
+`retrace_while`, iterative deepening, forward only. The exact oversize merge
+(`oversize_cap` > 0) depth-merges the widest Gaussians, kept out of the
+grid, into every hit list. On the card the tiled select fetches its table
+rows with the row-gather kernel of ops/gather_rows.py; `pallas_gather`, the
+JAX package's switch for its Pallas gather, is kept as a config field and
+changes nothing here.
 """
 
 from __future__ import annotations
@@ -89,18 +92,6 @@ class TracerConfig:
             hit_budget=self.retrace_hit_budget or self.hit_budget,
             max_crossings=(self.max_crossings if self.retrace_max_crossings < 0
                            else self.retrace_max_crossings))
-
-    def check_supported(self) -> None:
-        """Raise for the options this port does not implement yet."""
-        unsupported = {
-            "select_tiles == 0 (per-candidate select)": self.select_tiles <= 0,
-            "tiled_direct == False": not self.tiled_direct,
-            "table_bf16": self.table_bf16,
-            "retrace_while": self.retrace_while,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(f"TracerConfig options not ported: {bad}")
 
     @classmethod
     def from_pipe(cls, pipe, eval: bool = False) -> "TracerConfig":
@@ -271,7 +262,9 @@ def build_grid(means3d, radius, alive, *, grid_res: int, pair_capacity: int,
                           torch.full_like(means3d, -math.inf)).amax(0)
         bmn = torch.where(torch.isinf(bmn), torch.full_like(bmn, -1.0), bmn) - 1e-3
         bmx = torch.where(torch.isinf(bmx), torch.full_like(bmx, 1.0), bmx) + 1e-3
-        cl = (bmx - bmn) / g
+        # XLA compiles the reference's division by the constant g as a
+        # product with its f32 reciprocal; so does the port, for the same bits
+        cl = (bmx - bmn) * (1.0 / g)
         ic = 1.0 / cl
         lo_ = _floor_cell((means3d - rr[:, None] - bmn) * ic, g)
         hi_ = _floor_cell((means3d + rr[:, None] - bmn) * ic, g)
@@ -549,12 +542,11 @@ def _coarse_scan(ray_o, ray_d, grid: Grid, g: int):
 @torch.no_grad()
 def collect_cells(ray_o, ray_d, grid: Grid, cfg: TracerConfig,
                   t_start=None) -> Cells:
-    """[R] rays -> the DDA's visited segments, unpacked (the ``tiled_direct``
-    branch of irgs_tpu collect_cells, :754-864). `t_start` [R] restricts to
-    windows ending past it (the re-trace restart)."""
-    if not (cfg.select_tiles > 0 and cfg.tiled_direct):
-        raise NotImplementedError("collect_cells: only the tiled_direct branch "
-                                  "is ported")
+    """[R] rays -> the DDA's visited segments (≙ collect_cells, :754-896):
+    for the tiled select with ``tiled_direct`` every segment, unpacked;
+    otherwise the first `max_cells` non-empty ones in traversal order.
+    `t_start` [R] restricts to windows ending past it (the re-trace
+    restart)."""
     g = cfg.grid_res
     R = ray_o.shape[0]
     k_ax = min(cfg.max_crossings if cfg.max_crossings > 0 else g, g)
@@ -597,7 +589,29 @@ def collect_cells(ray_o, ray_d, grid: Grid, cfg: TracerConfig,
                          torch.zeros_like(meta))
     starts, counts = unpack_cell_meta(meta_v)
     resume = torch.where(incomplete, horizon, torch.zeros_like(horizon))
-    return Cells(starts, counts, t_in_j, t_out_j, incomplete, resume)
+    if cfg.select_tiles > 0 and cfg.tiled_direct:
+        return Cells(starts, counts, t_in_j, t_out_j, incomplete, resume)
+
+    # packed: the first max_cells non-empty segments, padded with empty
+    # slots. The reference pulls them out with a one-hot einsum in f32, exact
+    # for these values (start < 2^21, count < 2^10); they are gathered here
+    C = cfg.max_cells
+    nonempty = meta_v != 0
+    n_seg = meta_v.shape[1]
+    big = 1 << 30
+    seg = torch.arange(n_seg, device=ray_o.device).expand(R, n_seg)
+    pos = torch.sort(torch.where(nonempty, seg, big), dim=-1).values
+    if C > n_seg:
+        pos = torch.nn.functional.pad(pos, (0, C - n_seg), value=big)
+    pos = pos[:, :C]
+    kept = pos < big
+    pos = torch.clamp(pos, max=n_seg - 1)
+    take = lambda x: torch.where(kept, torch.gather(x, 1, pos),
+                                 torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+    truncated = (nonempty.sum(-1) > C) | incomplete
+    return Cells(take(starts), take(counts), take(t_in_j), take(t_out_j),
+                 truncated, resume)
 
 
 # ---------------------------------------------------------------------------
@@ -612,28 +626,67 @@ def _pack_geom(inputs: TraceInputs):
 _TAB_COMPS = 11    # mean3 | opacity | ru3 | rv3 | cell id bits
 
 
+def _pack_prefilter(geom):
+    """[7, N] table of the two-tier select's screen (≙ _pack_prefilter,
+    :911-921): centre | normal | a bounding radius with the opacity folded
+    in, at alpha_min = 1/255 whatever the config's (a plane hit farther than
+    r from the centre provably has alpha < 1/255)."""
+    norm = lambda x: torch.sqrt(torch.sum(x * x, dim=-1))
+    su = 1.0 / maximum(norm(geom[:, 4:7]), 1e-12)
+    sv = 1.0 / maximum(norm(geom[:, 7:10]), 1e-12)
+    r = bounding_radius(geom[:, 3], torch.stack([su, sv], -1), 1.0 / 255.0)
+    return torch.cat([geom[:, 0:3].T, geom[:, 10:13].T, r[None]], dim=0)
+
+
 @torch.no_grad()
-def _pair_tab_from_geom(grid: Grid, geom, tile: int = 16):
-    """[ceil(P/tile), 11·tile] f32 tile-row candidate table (≙
-    _pair_tab_from_geom, :938-1002): row t holds the 11 components of pairs
-    [t·tile, (t+1)·tile), component-major — mean3 | opacity | ru3 (the
-    stored normal's flip folded into its sign) | rv3 | the pair's cell id as
-    its raw int32 bits. One row gather fetches all of a tile. Rows are not
-    padded to 128 lanes as on the TPU: 11·tile words are 16-byte aligned
-    for any tile, which is what the card's gather needs."""
+def _pair_tab_from_geom(grid: Grid, geom, tile: int = 16, bf16: bool = False):
+    """Tile-row candidate table (≙ _pair_tab_from_geom, :938-1002): row t
+    holds pairs [t·tile, (t+1)·tile), component-major. f32: [ceil(P/tile),
+    11·tile], the components mean3 | opacity | ru3 (the stored normal's
+    flip folded into its sign) | rv3 | the pair's cell id as its raw int32
+    bits. `bf16`: [ceil(P/tile), 12·tile] bfloat16, the mean stored
+    relative to the centre of the pair's cell, the 10 geometry components
+    rounded to nearest even, and the cell id's int32 bits in two lanes (low
+    half first). One row gather fetches all of a tile. Rows are not padded
+    to 128 lanes as on the TPU: the card's gather needs none."""
     rows13 = geom[grid.sorted_gauss]
     ru, rv, n_st = rows13[:, 4:7], rows13[:, 7:10], rows13[:, 10:13]
     cr = torch.linalg.cross(ru, rv, dim=-1)
     flip = torch.where(torch.sum(cr * n_st, dim=-1) < 0.0, -1.0, 1.0)
-    cellf = grid.sorted_cell.to(torch.int32).view(torch.float32)
-    tab = torch.cat([rows13[:, 0:4], ru * flip[:, None], rv, cellf[:, None]],
-                    dim=-1)                                    # [P, 11]
-    P = tab.shape[0]
+    rows = torch.cat([rows13[:, 0:4], ru * flip[:, None], rv], dim=-1)
+    cid = grid.sorted_cell.to(torch.int32)
+    if bf16:
+        # the grid resolution as the reference recovers it from the cell
+        # table's length
+        n_cells = grid.cell_meta.shape[0]
+        g = round(n_cells ** (1 / 3))
+        while g ** 3 < n_cells:
+            g += 1
+        cell = torch.stack([cid % g, (cid % (g * g)) // g, cid // (g * g)],
+                           dim=-1).to(torch.float32)
+        center = grid.bb_min[None] + (cell + 0.5) * grid.cell_size[None]
+        geo = torch.cat([rows[:, 0:3] - center, rows[:, 3:10]], dim=-1)
+        tab = torch.cat([geo.to(torch.bfloat16),
+                         cid.contiguous().view(torch.bfloat16).reshape(-1, 2)],
+                        dim=-1)                                 # [P, 12]
+    else:
+        tab = torch.cat([rows, cid.view(torch.float32)[:, None]],
+                        dim=-1)                                 # [P, 11]
+    P, nc = tab.shape
     pad = (-P) % tile
     tab = torch.nn.functional.pad(tab, (0, 0, 0, pad))
     T = (P + pad) // tile
-    return tab.reshape(T, tile, _TAB_COMPS).transpose(1, 2).reshape(
-        T, _TAB_COMPS * tile)
+    return tab.reshape(T, tile, nc).transpose(1, 2).reshape(T, nc * tile)
+
+
+def _table_rows(pair_tab, row_idx):
+    """The table rows `row_idx` through the row-gather kernel (plain
+    indexing for a table on the CPU). The kernel copies 32-bit words, so a
+    bf16 table goes through it viewed as int32, bit for bit."""
+    if pair_tab.dtype == torch.bfloat16:
+        return gather_rows_kernel(pair_tab.view(torch.int32),
+                                  row_idx).view(torch.bfloat16)
+    return gather_rows_kernel(pair_tab, row_idx)
 
 
 @torch.no_grad()
@@ -647,7 +700,9 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     (depth, pair position) key, or with `select_topk` by (depth, lane), the
     stable top-k order of the reference — one int64 key, depth bits high.
     The table rows come through ops/gather_rows.py: the row-gather kernel
-    for a table on the card, plain indexing for one on the CPU."""
+    for a table on the card, plain indexing for one on the CPU. A bf16
+    table's rows are read back to f32 and accepted at alpha_min / 2
+    (:1079-1110)."""
     TILE, ST = cfg.tile, cfg.select_tiles
     S1 = ST * TILE
     R, C = cells.starts.shape
@@ -686,11 +741,27 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     row_idx = torch.where(tile_valid, torch.clamp(row_idx, max=n_rows - 1),
                           zero(row_idx))
 
-    # ONE row gather: [R·ST] tile rows of 11·TILE words
-    rows = gather_rows_kernel(pair_tab, row_idx.reshape(-1))
-    blocks = rows.view(R, ST, _TAB_COMPS, TILE)
-    cols = [blocks[:, :, i, :].reshape(R, S1) for i in range(10)]
-    pair_cid = blocks[:, :, 10, :].reshape(R, S1).view(torch.int32)
+    # ONE row gather: [R·ST] tile rows of 11·TILE f32 (12·TILE bf16)
+    rows = _table_rows(pair_tab, row_idx.reshape(-1))
+    if pair_tab.dtype == torch.bfloat16:
+        blocks = rows.view(R, ST, _TAB_COMPS + 1, TILE)
+        pair_cid = blocks[:, :, 10:12, :].transpose(2, 3).contiguous().view(
+            torch.int32).reshape(R, S1)
+        cols = [blocks[:, :, i, :].reshape(R, S1).to(torch.float32)
+                for i in range(10)]
+        # the means are cell-relative: add back the pair's cell centre (f32)
+        pc = (pair_cid % g, (pair_cid % (g * g)) // g, pair_cid // (g * g))
+        for a in range(3):
+            cols[a] = cols[a] + (grid.bb_min[a] + (pc[a].to(torch.float32)
+                                                    + 0.5) * grid.cell_size[a])
+        # accept at half the threshold: bf16 rounding can depress a true
+        # alpha_min hit, and the blend re-tests with the exact f32 alpha
+        accept_min = cfg.alpha_min * 0.5
+    else:
+        blocks = rows.view(R, ST, _TAB_COMPS, TILE)
+        cols = [blocks[:, :, i, :].reshape(R, S1) for i in range(10)]
+        pair_cid = blocks[:, :, 10, :].reshape(R, S1).view(torch.int32)
+        accept_min = cfg.alpha_min
     lane = torch.arange(TILE, device=dev)
     pos3 = row_idx[:, :, None] * TILE + lane
     lane_valid = (tile_valid[:, :, None] & (pos3 >= start_c[:, :, None])
@@ -700,7 +771,7 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     hc = [_floor_cell((ray_o[:, a:a + 1] + d * ray_d[:, a:a + 1] - grid.bb_min[a])
                       * grid.inv_cell[a], g) for a in range(3)]
     hcid = (hc[2] * g + hc[1]) * g + hc[0]
-    accept = (lane_valid & (alpha >= cfg.alpha_min) & (d > 1e-6)
+    accept = (lane_valid & (alpha >= accept_min) & (d > 1e-6)
               & (hcid == pair_cid))
     if t_start is not None:
         accept = accept & (d > t_start[:, None])
@@ -760,15 +831,168 @@ def select_hits_tiled(ray_o, ray_d, grid: Grid, cells: Cells,
     return SelectedHits(gs_kb, valid_kb, t_last, t_cell, more, skip_next)
 
 
+def _hit_geom_cols(cols, ray_o, ray_d):
+    """Hit math on the 13 candidate columns (mean3 | opacity | ru3 | rv3 |
+    normal3), each [R, H] (≙ _hit_geom_cols, :573-594) -> (alpha, depth,
+    d·n)."""
+    ox, oy, oz = ray_o[:, 0:1], ray_o[:, 1:2], ray_o[:, 2:3]
+    dx, dy, dz = ray_d[:, 0:1], ray_d[:, 1:2], ray_d[:, 2:3]
+    mx, my, mz, opa = cols[0], cols[1], cols[2], cols[3]
+    nx, ny, nz = cols[10], cols[11], cols[12]
+    o_g = nx * (ox - mx) + ny * (oy - my) + nz * (oz - mz)
+    d_g = nx * dx + ny * dy + nz * dz
+    d = -o_g * d_g / maximum(d_g * d_g, 1e-6)
+    px = ox + d * dx - mx
+    py = oy + d * dy - my
+    pz = oz + d * dz - mz
+    pu = cols[4] * px + cols[5] * py + cols[6] * pz
+    pv = cols[7] * px + cols[8] * py + cols[9] * pz
+    alpha = minimum(opa * torch.exp(-0.5 * (pu * pu + pv * pv)), 0.99)
+    return alpha, d, d_g
+
+
+@torch.no_grad()
+def select_hits_candidates(ray_o, ray_d, sorted_gauss, cells: Cells, geom,
+                           cfg: TracerConfig, back_culling: bool,
+                           t_start=None, cand_skip=None) -> SelectedHits:
+    """Per-candidate hit selection (≙ the select_tiles == 0 branch of
+    select_hits, :1246-1437): the recorded cells' pairs expanded into
+    `max_hits` candidate slots, exact hit math, acceptance inside the
+    candidate's cell window, and the `hit_budget` nearest kept by the
+    (depth, slot) order. With `prefilter_width` > `max_hits` (two-tier) a
+    wider enumeration is screened first on the [7, N] prefilter table —
+    exact plane hit against the bounding radius and the cell window, with a
+    tolerance of 1e-4 of the window — and the survivors are compacted into
+    the exact slots. `cand_skip` counts candidates of the first recorded
+    cell that the previous segment examined.
+
+    The reference sorts depth with one key and no promise of stability;
+    XLA's CPU sort keeps ties in slot order up to 16 candidates (an
+    insertion sort) and not above. The port keeps the slot order at every
+    width: coplanar hits then blend in the order the oracle and the tiled
+    select use."""
+    starts, counts, tin, tout = cells.starts, cells.counts, cells.tin, cells.tout
+    if cand_skip is not None:
+        skip0 = torch.minimum(cand_skip, counts[:, 0])
+        starts = torch.cat([starts[:, :1] + skip0[:, None], starts[:, 1:]], 1)
+        counts = torch.cat([counts[:, :1] - skip0[:, None], counts[:, 1:]], 1)
+    R, C = starts.shape
+    P = sorted_gauss.shape[0]
+    H2 = cfg.max_hits                                 # exact-test width
+    H1 = max(cfg.prefilter_width, H2)                 # enumeration width
+    big = 1 << 30
+    dev = ray_o.device
+    cum = torch.cumsum(counts, dim=-1)
+    excl = cum - counts
+
+    def expand(h):
+        """candidate h [R, W] -> (pair position, valid, its cell window)."""
+        cidx = torch.searchsorted(cum.contiguous(), h.contiguous(), right=True)
+        take = lambda x: torch.gather(x, 1, torch.clamp(cidx, max=C - 1))
+        offset = h - take(excl)
+        valid = (h < cum[:, -1:]) & (cidx < C) & (offset < take(counts))
+        pos = torch.clamp(take(starts) + offset, 0, P - 1)
+        return pos, valid, take(tin), take(tout)
+
+    h1 = torch.arange(H1, device=dev).expand(R, H1)
+    pos1, valid1, tin1, tout1 = expand(h1)
+    gs = sorted_gauss[pos1]
+    if H1 > H2:
+        # tier 1: the screen on the prefilter table; a rejected candidate
+        # provably has alpha < 1/255
+        c7 = _pack_prefilter(geom)[:, gs]                  # [7, R, H1]
+        ox, oy, oz = ray_o[:, 0:1], ray_o[:, 1:2], ray_o[:, 2:3]
+        dx, dy, dz = ray_d[:, 0:1], ray_d[:, 1:2], ray_d[:, 2:3]
+        nx, ny, nz, r_b = c7[3], c7[4], c7[5], c7[6]
+        o_g = nx * (ox - c7[0]) + ny * (oy - c7[1]) + nz * (oz - c7[2])
+        d_g = nx * dx + ny * dy + nz * dz
+        d1 = -o_g * d_g / maximum(d_g * d_g, 1e-6)
+        px = ox + d1 * dx - c7[0]
+        py = oy + d1 * dy - c7[1]
+        pz = oz + d1 * dz - c7[2]
+        q2 = px * px + py * py + pz * pz
+        tol = 1e-4 * (tout1 - tin1)
+        pass1 = (valid1 & (q2 <= r_b * r_b) & (d1 >= tin1 - tol)
+                 & (d1 < tout1 + tol))
+        if t_start is not None:
+            pass1 = pass1 & (d1 > t_start[:, None] - tol)
+        # survivors compacted by their enumeration index; E: the first
+        # untested survivor's index (everything before it was decided)
+        key = torch.sort(torch.where(pass1, h1, big), dim=-1).values
+        h_s = key[:, :H2]
+        valid = h_s < big
+        E = torch.where(key[:, H2] < big, key[:, H2], H1)
+        pos2, _, t_in_h, t_out_h = expand(torch.where(valid, h_s, 0))
+        gs = sorted_gauss[pos2]
+    else:
+        valid, t_in_h, t_out_h = valid1, tin1, tout1
+        E = torch.full((R,), H1, dtype=torch.long, device=dev)
+
+    rows = geom.index_select(0, gs.reshape(-1)).reshape(R, H2, 13)
+    alpha, d, d_dot_n = _hit_geom_cols(rows.unbind(-1), ray_o, ray_d)
+    accept = (valid & (alpha >= cfg.alpha_min) & (d >= maximum(t_in_h, 1e-6))
+              & (d < t_out_h))
+    if t_start is not None:
+        accept = accept & (d > t_start[:, None])
+    if back_culling:
+        accept = accept & (d_dot_n < 0)
+
+    # the depth sort as one int64 key: depth bits high (accepted depths are
+    # > 0, so their f32 bits order like the values), the slot low
+    kb = min(cfg.hit_budget, H2)
+    d_key = torch.where(accept, d, torch.full_like(d, INF))
+    slot = torch.arange(H2, device=dev)
+    top = torch.topk(_f32_bits(d_key).long() * (1 << 32) + slot, kb, dim=-1,
+                     largest=False, sorted=True).values
+    d_s = _bits_f32(top >> 32)
+    slot_s = top & 0xFFFFFFFF
+    valid_kb = torch.gather(accept, 1, slot_s)
+    gs_s = torch.gather(gs, 1, slot_s)
+
+    # re-trace metadata (:1398-1437)
+    zero = lambda x: torch.zeros_like(x)
+    n_accepted = accept.sum(-1)
+    t_last = torch.where(valid_kb, d_s, zero(d_s)).amax(-1)
+    overflowed = n_accepted > kb
+    more = overflowed | (cum[:, -1] > E) | cells.truncated
+    fully = (cum <= E[:, None]) & (counts > 0)
+    tout_frontier = torch.where(fully, tout, zero(tout)).amax(-1)
+    all_ex = cum[:, -1] <= E
+    frontier = torch.where(all_ex, torch.maximum(tout_frontier, cells.resume),
+                           tout_frontier)
+    t_cell = torch.where(overflowed, t_last, torch.maximum(t_last, frontier))
+    n_before = torch.where(fully, cum, zero(cum)).amax(-1)
+    skip_next = torch.where(overflowed | all_ex, zero(E),
+                            torch.clamp(E - n_before, min=0))
+    skip_next = torch.where(t_cell > frontier, zero(skip_next), skip_next)
+    if cand_skip is not None:
+        same_cell = ~overflowed & ~all_ex & (n_before == 0)
+        skip_next = skip_next + torch.where(same_cell, skip0, zero(skip0))
+    return SelectedHits(gs_s, valid_kb, t_last, t_cell, more, skip_next)
+
+
 def select_hits(ray_o, ray_d, grid: Grid, cells: Cells, geom, cfg: TracerConfig,
                 back_culling: bool, t_start=None, cand_skip=None,
                 pair_tab=None) -> SelectedHits:
-    """Index-only hit selection; the tiled branch of the reference."""
-    cfg.check_supported()
+    """Index-only hit selection (≙ select_hits, :1246): the tiled select
+    when `select_tiles` > 0 (on `pair_tab`, built here when not given), the
+    per-candidate select otherwise."""
+    if cfg.select_tiles <= 0:
+        return select_hits_candidates(ray_o, ray_d, grid.sorted_gauss, cells,
+                                      geom, cfg, back_culling, t_start=t_start,
+                                      cand_skip=cand_skip)
     if pair_tab is None:
-        pair_tab = _pair_tab_from_geom(grid, geom, cfg.tile)
+        pair_tab = _maybe_pair_tab(grid, geom, cfg)
     return select_hits_tiled(ray_o, ray_d, grid, cells, pair_tab, cfg,
                              back_culling, t_start=t_start, cand_skip=cand_skip)
+
+
+def _maybe_pair_tab(grid: Grid, geom, cfg: TracerConfig):
+    """The tiled select's candidate table, or None for the per-candidate
+    select, which reads none (≙ :1812-1814)."""
+    if cfg.select_tiles <= 0:
+        return None
+    return _pair_tab_from_geom(grid, geom, cfg.tile, bf16=cfg.table_bf16)
 
 
 def blend_hits(ray_o, ray_d, inputs: TraceInputs, gs_s, valid_s,
@@ -942,7 +1166,7 @@ def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
     t_collect = torch.clamp(hits.t_cell[idx], min=0.0)
     geom = _detached_geom(inputs)
     if pair_tab is None:
-        pair_tab = _pair_tab_from_geom(grid, geom, cfg.tile)
+        pair_tab = _maybe_pair_tab(grid, geom, cfg)
 
     # per-ray independent: groups only bound the working set
     group = _sel_chunk(cfg)
@@ -1004,17 +1228,48 @@ def _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs, cfg, sh_deg,
 def retrace_rounds(out: TraceOut, hits: SelectedHits, ray_o, ray_d,
                    grid: Grid, inputs: TraceInputs, cfg: TracerConfig,
                    sh_deg: int, back_culling: bool = False, pair_tab=None):
-    """The configured re-trace rounds, unrolled (:1744-1797)."""
+    """The configured re-trace rounds (:1744-1797): unrolled, at capacities
+    that decay by round; or with `retrace_while`, iterative deepening:
+    `retrace_bulk` rounds at the full capacity, then rounds at the tail
+    capacity until no ray is truncated and still transmissive, within
+    n_segments - 1 rounds in all. Each round reads the host once. The
+    iterative schedule is forward only, as the reference's while_loop, which
+    has no reverse-mode derivative: under autograd with inputs that require
+    grad it raises."""
     if cfg.n_segments <= 1:
         return out, hits
     rcfg = cfg.retrace_cfg()
     if pair_tab is None:
-        pair_tab = _pair_tab_from_geom(grid, _detached_geom(inputs), rcfg.tile)
+        pair_tab = _maybe_pair_tab(grid, _detached_geom(inputs), rcfg)
     n_rays = ray_o.shape[0]
-    for rnd in range(cfg.n_segments - 1):
+    if not cfg.retrace_while:
+        for rnd in range(cfg.n_segments - 1):
+            out, hits = retrace_pass(out, hits, ray_o, ray_d, grid, inputs,
+                                     rcfg, sh_deg,
+                                     cfg.round_capacity(n_rays, rnd),
+                                     back_culling, pair_tab=pair_tab)
+        return out, hits
+
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (out.trans, ray_o, ray_d, *inputs)):
+        raise RuntimeError(
+            "retrace_while is forward only (the reference's while_loop has no "
+            "reverse-mode derivative): trace under torch.no_grad(), or use "
+            "the unrolled re-trace rounds")
+    clamp = lambda c: max(1, min(n_rays, c))
+    cap = clamp(int(n_rays * cfg.retrace_frac))
+    tail_cap = clamp(int(n_rays * cfg.retrace_tail_frac))
+    n_bulk = min(cfg.retrace_bulk, cfg.n_segments - 1)
+    for _ in range(n_bulk):
         out, hits = retrace_pass(out, hits, ray_o, ray_d, grid, inputs, rcfg,
-                                 sh_deg, cfg.round_capacity(n_rays, rnd),
-                                 back_culling, pair_tab=pair_tab)
+                                 sh_deg, cap, back_culling, pair_tab=pair_tab)
+    for _ in range(cfg.n_segments - 1 - n_bulk):
+        need = hits.more & (out.trans > cfg.transmittance_min)
+        if not bool(need.any()):
+            break
+        out, hits = _retrace_body(out, hits, need, ray_o, ray_d, grid, inputs,
+                                  rcfg, sh_deg, tail_cap, back_culling,
+                                  pair_tab=pair_tab)
     return out, hits
 
 
@@ -1034,7 +1289,7 @@ def trace_segments(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *,
     ro, rd = ray_o.detach(), ray_d.detach()
     cells = collect_cells(ro, rd, grid, cfg)
     geom = _detached_geom(inputs)
-    pair_tab = _pair_tab_from_geom(grid, geom, cfg.tile)
+    pair_tab = _maybe_pair_tab(grid, geom, cfg)
     hits = select_hits(ro, rd, grid, cells, geom, cfg, back_culling,
                        pair_tab=pair_tab)
     gs1, valid1 = merge_oversize(hits.gs, hits.valid, hits.more, hits.t_last,
@@ -1043,6 +1298,13 @@ def trace_segments(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *,
     out, _ = retrace_rounds(out, hits, ray_o, ray_d, grid, inputs, cfg, sh_deg,
                             back_culling, pair_tab=pair_tab)
     return out
+
+
+def first_hit(ray_o, ray_d, grid: Grid, inputs: TraceInputs, *,
+              cfg: TracerConfig):
+    """Boolean any-hit test of [R] rays (≙ first_hit, :1833-1837)."""
+    out = trace_forward_only(ray_o, ray_d, grid, inputs, cfg=cfg, sh_deg=0)
+    return out.alpha > 0.0
 
 
 # ---------------------------------------------------------------------------

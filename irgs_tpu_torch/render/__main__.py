@@ -9,8 +9,10 @@ cfg.json (every config option can be overridden, e.g. `--light_sample_num
 `render_ir_eval`, writes each view's render and six AOVs as PNGs under
 `<split>/ours_<it>/` and `<split>/nvs_results.json` (PSNR, SSIM, LPIPS and
 the reference's `*_avg` aliases). LPIPS is null without VGG weights.
-`--device` defaults to cuda and raises without a card; `--n_devices` > 1 (the
-sample-sharded eval) is not ported (ROADMAP.md A9).
+`--device` defaults to cuda and raises without a card. `--n_devices N` shards
+each pixel's MC samples over N ranks, one process each (on cuda one per
+card over NCCL, with `--device cpu` N gloo CPU processes); rank 0 writes the
+images and metrics.
 """
 
 from __future__ import annotations
@@ -33,8 +35,8 @@ def _parser(cfg) -> argparse.ArgumentParser:
     parser.add_argument("--skip_test", action="store_true", default=False)
     parser.add_argument("--max_images", type=int, default=-1)
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="sample-sharded eval over N devices (only 1 is "
-                             "ported)")
+                        help="sample-sharded eval over N ranks (one per card "
+                             "on cuda, CPU processes with --device cpu)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (cuda, or cpu for the plain "
                              "PyTorch path)")
@@ -43,25 +45,45 @@ def _parser(cfg) -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    import sys
+
+    from .. import resolve_device
+    from ..config import Config
+    from ..parallel.dp import launch_ranks
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    parser = _parser(Config())
+    args = parser.parse_args(argv)
+    if not args.model_path:
+        parser.error("-m/--model_path is required")
+    if args.n_devices > 1:
+        launch_ranks(_render_rank, args.n_devices, args.device, (argv,))
+        return
+    _render(args, resolve_device(args.device))
+
+
+def _render_rank(mesh, device, argv):
+    """One rank of `--n_devices` N; rank 0 alone prints."""
+    import sys
+
+    from ..config import Config
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")
+    _render(_parser(Config()).parse_args(argv), device, mesh)
+
+
+def _render(args, dev, mesh=None):
     import numpy as np
     import torch
 
-    from .. import resolve_device
-    from ..config import Config, apply_args, load_config
+    from ..config import apply_args, load_config
     from ..eval import metrics as M
     from ..eval.common import load_trained, write_png8
     from ..ops import grid_tracer as gt
     from ..render import eval as reval
     from ..scene.datasets import LIGHT_ROTATE_TRANSFORM, load_scene
 
-    parser = _parser(Config())
-    args = parser.parse_args(argv)
-    if not args.model_path:
-        parser.error("-m/--model_path is required")
-    dev = resolve_device(args.device)
-    if args.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: the sample-sharded eval "
-                                  "is not ported yet (ROADMAP.md A9)")
+    lead = mesh is None or mesh.rank == 0     # the rank that writes
     cfg = apply_args(load_config(args.model_path), args)
     params, aux, it = load_trained(args.model_path, args.iteration, cfg, dev)
 
@@ -93,16 +115,18 @@ def main(argv=None):
     vgg = M.load_vgg16_weights()
     for split_name, split_cams in splits:
         out_dir = os.path.join(args.model_path, split_name, f"ours_{it}")
-        os.makedirs(out_dir, exist_ok=True)
         psnrs, ssims, lpipss = [], [], []
         for i, cam in enumerate(split_cams):
             out = reval.render_ir_eval(params, aux, grid, cam.params(dev), ecfg,
-                                       env_transform=transform)
+                                       env_transform=transform, mesh=mesh)
+            if not lead:
+                continue
             render = torch.clamp(out["render"], 0, 1)
             gt_img = torch.tensor(cam.image, device=dev)
             psnrs.append(float(M.psnr(render, gt_img)))
             ssims.append(float(M.ssim(render, gt_img)))
             lpipss.append(M.lpips_fn(render, gt_img, vgg))
+            os.makedirs(out_dir, exist_ok=True)
             write_png8(os.path.join(out_dir, f"{cam.image_name}_render.png"),
                        render)
             for k in AOV_PNGS:
@@ -110,6 +134,8 @@ def main(argv=None):
                            out[k])
             print(f"[{split_name} {i+1}/{len(split_cams)}] {cam.image_name} "
                   f"psnr={psnrs[-1]:.2f}", flush=True)
+        if not lead:
+            continue
 
         results = {
             "psnr": float(np.mean(psnrs)),

@@ -62,9 +62,10 @@ def _gbuffer(params, aux, cam: CameraParams, cfg: EvalConfig):
 
 
 def _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg: EvalConfig,
-                light_draws=None):
+                light_draws=None, shard=None):
     """One pixel chunk through the MC rendering equation; its light samples
-    are keyed by the pixel ids, or come from the `light_draws` hook."""
+    are keyed by the pixel ids, or come from the `light_draws` hook. With
+    `shard` (a parallel.Mesh) this rank traces its slice of the samples."""
     pid = px_c["pid"][:, 0]
     shade_cfg = ir.ShadeConfig(
         diffuse_sample_num=cfg.diffuse_sample_num,
@@ -75,7 +76,8 @@ def _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg: EvalConfig,
         px_c["base"], px_c["rough"], px_c["normal"], px_c["points"],
         px_c["wo"], env_raw, pdf, trace_fn, shade_cfg,
         env_transform=env_transform, pixel_ids=pid,
-        light_draws=None if light_draws is None else light_draws(pid))
+        light_draws=None if light_draws is None else light_draws(pid),
+        shard=shard)
 
 
 @torch.no_grad()
@@ -94,16 +96,20 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
     `key` is unused: eval draws are deterministic (the light samples are
     keyed by pixel id with seed 0). `light_draws`, a callable from a chunk's
     pixel ids [n] to its `envlight.LightDraws`, replaces the sampler's draws
-    (a test feeds JAX's). `mesh` (the sample-sharded multi-device eval) is
-    not ported. `stats_out`, when given, receives the
+    (a test feeds JAX's). `mesh`, a parallel.Mesh: every rank rasterizes
+    the same G-buffer and shades the same chunks, tracing its 1/size slice
+    of each pixel's samples; the chunk's results are averaged over the
+    ranks (the sample count must divide the mesh size). `stats_out`, when
+    given, receives the
     frame's `raster_overflow`, `shaded_pixels` (foreground pixels, or all),
     `shaded_rays` (their incident rays), `traced_rays` (those plus the last
     chunk's padding, which retraces pixel 0) and the tracer's
     `trace_trunc_frac` / `trace_more_frac` averaged over the chunks that
     report them."""
-    if mesh is not None:
-        raise NotImplementedError("render_ir_eval: the multi-device mesh path "
-                                  "is not ported")
+    spp = cfg.diffuse_sample_num + cfg.light_sample_num
+    if mesh is not None and spp % mesh.size:
+        raise ValueError(f"render_ir_eval: the sample count {spp} must divide "
+                         f"the mesh size {mesh.size}")
     dev = params.xyz.device
     bg = torch.full((3,), 1.0 if cfg.white_background else 0.0,
                     dtype=torch.float32, device=dev)
@@ -133,7 +139,7 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
     def shade(px_c):
         tstats.clear()
         re_c = _shade_impl(px_c, env_raw, pdf, trace_fn, env_transform, cfg,
-                           light_draws)
+                           light_draws, shard=mesh)
         chunk_stats.append(dict(tstats))
         return re_c
 
@@ -166,7 +172,6 @@ def render_ir_eval(params, aux, grid, cam: CameraParams, cfg: EvalConfig,
               for k in outs[0]}
 
     if stats_out is not None:
-        spp = cfg.diffuse_sample_num + cfg.light_sample_num
         stats_out.update(
             raster_overflow=int(raster.overflow), shaded_pixels=n_shaded,
             shaded_rays=n_shaded * spp,

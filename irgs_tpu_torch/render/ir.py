@@ -104,14 +104,19 @@ def rendering_equation(base_color, roughness, normals, position, viewdirs,
                        env_raw, env_pdf, trace_fn: Callable, cfg: ShadeConfig,
                        theta_u=None, env_transform=None, pixel_ids=None,
                        light_draws: envlight.LightDraws | None = None,
-                       light_seed=0):
+                       light_seed=0, shard=None):
     """MC estimate of the rendering equation at [B] surface points
     (≙ rendering_equation, :78-178): s_d hemisphere samples, and with
     `light_sample_num` > 0 the MIS mixture with s_l light samples.
     `theta_u` [B, 1]: the hemisphere sampler's uniforms (training).
     `env_transform` [3, 3] rotates the environment lookups. The light
     samples are `light_draws` when given (a test feeds JAX's), else drawn
-    with `light_seed` and keyed by `pixel_ids` (or by the batch slot)."""
+    with `light_seed` and keyed by `pixel_ids` (or by the batch slot).
+
+    `shard`, a parallel.Mesh: every rank builds the full sample set, traces
+    only its slice [rank·s, (rank+1)·s) of each pixel's s·size samples, and
+    every result is averaged over the ranks (equal slices: the mean of the
+    partial means is the full-sample mean)."""
     s_d, s_l = cfg.diffuse_sample_num, cfg.light_sample_num
     if s_d <= 0:
         raise NotImplementedError("diffuse_sample_num must be > 0")
@@ -122,6 +127,16 @@ def rendering_equation(base_color, roughness, normals, position, viewdirs,
                                 light_draws, light_seed)
         incident_dirs, incident_areas, _ = mis_directions(
             incident_dirs, incident_areas, env_pdf, cfg, draws, env_transform)
+
+    if shard is not None:
+        s_total = incident_dirs.shape[1]
+        if s_total % shard.size:
+            raise ValueError(f"sample count {s_total} must divide the mesh "
+                             f"size {shard.size}")
+        s_loc = s_total // shard.size
+        mine = slice(shard.rank * s_loc, (shard.rank + 1) * s_loc)
+        incident_dirs = incident_dirs[:, mine]
+        incident_areas = incident_areas[:, mine]
 
     global_incident = envlight.query_env(env_raw, incident_dirs,
                                          activation=cfg.env_activation,
@@ -150,6 +165,9 @@ def rendering_equation(base_color, roughness, normals, position, viewdirs,
             "visibility": torch.mean(incident_visibility, dim=1),
             "light": torch.mean(incident_lights, dim=1),
             "light_indirect": torch.mean(local_incident, dim=1)})
+    if shard is not None:
+        names = list(results)
+        results = dict(zip(names, shard.pmean([results[k] for k in names])))
     return results
 
 
@@ -161,7 +179,6 @@ def make_trace_fn(params, aux, grid, tracer_cfg: gt.TracerConfig, cam_pos,
     sort, one collect+select over all rays (in memory-bounded groups),
     blends per chunk, re-trace rounds, and the `trace_trunc_frac` /
     `trace_more_frac` stats in `stats_out`. Fewer rays take trace_segments."""
-    tracer_cfg.check_supported()
     s = params.get_scaling()
     R = math3d.quat_to_rotmat(params.rotation)
     opacity = torch.where(aux.alive, params.get_opacity()[:, 0],
@@ -200,7 +217,7 @@ def make_trace_fn(params, aux, grid, tracer_cfg: gt.TracerConfig, cam_pos,
             mp = rop.shape[0]
             ro_sg, rd_sg = rop.detach(), rdp.detach()
             geom = gt._detached_geom(inputs)
-            pair_tab = gt._pair_tab_from_geom(grid, geom, tracer_cfg.tile)
+            pair_tab = gt._maybe_pair_tab(grid, geom, tracer_cfg)
             # collect + select once over all rays, in groups that bound the
             # working set (per-ray independent, so grouping changes nothing)
             group = gt._sel_chunk(tracer_cfg)

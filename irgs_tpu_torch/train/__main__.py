@@ -14,8 +14,15 @@ checkpoint of this package, bridges from a stage-1 checkpoint of
 and re-initialises materials and envmap), or initialises a dataset run from
 its point cloud (create_from_pcd); writes cfg.json, train_log.jsonl,
 visualisation PNGs, point_cloud/iteration_<it>/point_cloud.ply with its
-envmap sidecars, and chkpnt<it>.ckpt. Not ported (NotImplementedError,
-ROADMAP.md): --n_devices > 1 (A9).
+envmap sidecars, and chkpnt<it>.ckpt.
+
+`--n_devices N` (≙ train.py's data-parallel mesh) trains on N ranks, one
+process each: on cuda one rank per card (NCCL; fewer visible cards raise),
+with `--device cpu` N CPU processes (gloo). Every rank draws the same
+camera choice and all N ranks' draws from the one seeded generator and
+keeps its own; the gradients are averaged over the ranks each step
+(parallel/dp.py), and rank 0 alone writes the log, visualisations,
+checkpoints and PLY.
 """
 
 from __future__ import annotations
@@ -59,7 +66,8 @@ def _parser(cfg) -> argparse.ArgumentParser:
                         help="TESTING: poison the envmap with NaN before "
                              "iter N to exercise the reproducer path")
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="data-parallel devices (only 1 is ported)")
+                        help="data-parallel ranks: one per card on cuda, CPU "
+                             "processes with --device cpu")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (cuda, or cpu for the "
                              "plain PyTorch path)")
@@ -166,10 +174,30 @@ def _toy_scene(cfg, dev, s1_ckpt=None):
 
 
 def main(argv=None):
+    from .. import resolve_device
+    from ..config import Config
+    from ..parallel.dp import launch_ranks
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser(Config()).parse_args(argv)
+    if args.n_devices > 1:
+        launch_ranks(_train_rank, args.n_devices, args.device, (argv,))
+        return
+    _train(args, resolve_device(args.device))
+
+
+def _train_rank(mesh, device, argv):
+    """One rank of `--n_devices` N; rank 0 alone prints."""
+    from ..config import Config
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")
+    _train(_parser(Config()).parse_args(argv), device, mesh)
+
+
+def _train(args, dev, mesh=None):
     import numpy as np
     import torch
 
-    from .. import resolve_device
     from ..config import Config, apply_args
     from ..ops import grid_tracer as gt
     from ..render import eval as reval
@@ -179,18 +207,14 @@ def main(argv=None):
     from ..utils.checkpoint import save_checkpoint
     from . import stage2 as s2
 
-    cfg = Config()
-    args = _parser(cfg).parse_args(argv)
-    dev = resolve_device(args.device)
-    if args.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: data-parallel training is "
-                                  "not ported yet (ROADMAP.md A9)")
-    cfg = apply_args(cfg, args)
+    lead = mesh is None or mesh.rank == 0     # the rank that writes
+    cfg = apply_args(Config(), args)
     if not cfg.model.model_path:
         cfg.model.model_path = os.path.join(tempfile.gettempdir(),
                                             "irgs_tpu_stage2")
-    os.makedirs(cfg.model.model_path, exist_ok=True)
-    cfg.save()
+    if lead:
+        os.makedirs(cfg.model.model_path, exist_ok=True)
+        cfg.save()
 
     # --start_checkpoint: a stage-2 checkpoint resumes in place; anything
     # else is a stage-1 bridge, as --start_checkpoint_refgs
@@ -259,7 +283,8 @@ def main(argv=None):
         print(f"auto-enabled tracer_oversize_cap="
               f"{cfg.pipe.tracer_oversize_cap} ({n_ov} gaussians span > "
               f"span_cap cells)", flush=True)
-        cfg.save()
+        if lead:
+            cfg.save()
         st = s2.from_configs(cfg, img_w=w, img_h=h)
         grid = gt.build_grid_from_gaussians(state.params, state.aux,
                                             st.tracer)
@@ -273,8 +298,17 @@ def main(argv=None):
     mask_dev = [None if m is None else torch.tensor(m, device=dev)
                 for m in masks]
 
+    dp_step = None
+    if mesh is not None:
+        from ..parallel import broadcast_params, stage2_dp_step
+        broadcast_params(mesh, state.params)
+        dp_step = stage2_dp_step(mesh, st)
+        if lead:
+            print(f"data-parallel over {mesh.size} ranks ({dev.type}); each "
+                  f"step consumes {mesh.size} cameras", flush=True)
+
     vcfg = None
-    if args.vis_interval:
+    if args.vis_interval and lead:
         vcfg = reval.EvalConfig(img_w=w, img_h=h, diffuse_sample_num=64,
                                 light_sample_num=0, tracer=st.tracer,
                                 white_background=cfg.model.white_background,
@@ -286,7 +320,7 @@ def main(argv=None):
     order = rng.permutation(len(cams))
     t0 = time.time()
     log_path = os.path.join(cfg.model.model_path, "train_log.jsonl")
-    with open(log_path, "a") as logf:
+    with open(log_path if lead else os.devnull, "a") as logf:
         for it in range(first_iter + 1, cfg.opt.iterations + 1):
             i = int(order[it % len(cams)])
             if it % len(cams) == 0:
@@ -299,10 +333,21 @@ def main(argv=None):
             # copy of the state before it, taken only on checked steps
             prev = s2.state_tensors(state) if checked else None
             gen_state = gen.get_state() if checked else None
-            draws = s2.draw_stage2(gen, st, dev)
-            state, metrics = s2.stage2_step(state, grid, cam_params[i],
-                                            gt_dev[i], mask_dev[i], draws,
-                                            st=st)
+            if dp_step is not None:
+                # every rank makes the same choices and all ranks' draws, in
+                # rank order, and keeps its own
+                idxs = rng.choice(len(cams), size=mesh.size,
+                                  replace=len(cams) < mesh.size)
+                draws = [s2.draw_stage2(gen, st, dev)
+                         for _ in range(mesh.size)][mesh.rank]
+                j = int(idxs[mesh.rank])
+                state, metrics = dp_step(state, grid, cam_params[j],
+                                         gt_dev[j], draws)
+            else:
+                draws = s2.draw_stage2(gen, st, dev)
+                state, metrics = s2.stage2_step(state, grid, cam_params[i],
+                                                gt_dev[i], mask_dev[i], draws,
+                                                st=st)
             # reproducer dump on a non-finite loss: the state before the
             # step, the camera and the generator state of its draws
             if checked:
@@ -310,21 +355,22 @@ def main(argv=None):
                 if not np.isfinite(loss_now):
                     rp = os.path.join(cfg.model.model_path,
                                       f"reproducer_{it:06d}.ckpt")
-                    save_checkpoint(rp, {**prev, "generator_state": gen_state},
-                                    it, extra={"cam_index": i,
-                                               "seed": args.seed,
-                                               "loss": loss_now,
-                                               "kind": "stage2_nonfinite_loss"})
-                    print(f"ERROR iter {it}: non-finite loss ({loss_now}); "
-                          f"reproducer dumped to {rp}", file=sys.stderr,
-                          flush=True)
+                    if lead:
+                        save_checkpoint(
+                            rp, {**prev, "generator_state": gen_state}, it,
+                            extra={"cam_index": i, "seed": args.seed,
+                                   "loss": loss_now,
+                                   "kind": "stage2_nonfinite_loss"})
+                        print(f"ERROR iter {it}: non-finite loss "
+                              f"({loss_now}); reproducer dumped to {rp}",
+                              file=sys.stderr, flush=True)
                     if not args.anomaly_continue:
                         raise SystemExit(3)
             del prev
             if cfg.opt.lr_scale > 0:
                 grid = gt.build_grid_from_gaussians(state.params, state.aux,
                                                     st.tracer)
-            if it % 50 == 0 or it == 1:
+            if lead and (it % 50 == 0 or it == 1):
                 m = {k_: float(v) for k_, v in metrics.items()}
                 m.update(iter=it, elapsed=round(time.time() - t0, 1))
                 print(json.dumps(m), flush=True)
@@ -364,6 +410,8 @@ def main(argv=None):
                                  f"env_{it:06d}.png"),
                     envlight.activate(state.params.env.detach(),
                                       cfg.model.envmap_activation))
+            if not lead:
+                continue
             if it % 5000 == 0 or it == cfg.opt.iterations:
                 out_dir = os.path.join(cfg.model.model_path, "point_cloud",
                                        f"iteration_{it}")
@@ -376,7 +424,8 @@ def main(argv=None):
                 s2.save_stage2_checkpoint(
                     os.path.join(cfg.model.model_path, f"chkpnt{it}.ckpt"),
                     state, it)
-    print("done:", cfg.model.model_path)
+    if lead:
+        print("done:", cfg.model.model_path)
 
 
 if __name__ == "__main__":

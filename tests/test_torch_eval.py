@@ -129,8 +129,14 @@ def test_compact_frame_matches_full_frame(frames, aov):
 
 
 def test_render_ir_eval_rejects_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tev.render_ir_eval(None, None, None, None, None, mesh=object())
+    """A mesh whose size does not divide the sample count is refused before
+    any work (tests/test_torch_parallel.py runs the sharded frames)."""
+    from irgs_tpu_torch.parallel import Mesh
+    cfg = tev.EvalConfig(img_w=8, img_h=8, diffuse_sample_num=16,
+                         light_sample_num=0)
+    with pytest.raises(ValueError, match="mesh size 3"):
+        tev.render_ir_eval(None, None, None, None, cfg,
+                           mesh=Mesh(rank=0, size=3))
 
 
 def test_pixel_chunk_matches_jax():

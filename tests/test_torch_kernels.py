@@ -292,6 +292,26 @@ def test_gather_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile", [1, 16, 32])
+def test_gather_kernel_bf16_table_rows(cuda_device, tile):
+    """The tiled select's bf16 pair table (12·tile bf16 a row) goes through
+    the kernel viewed as 6·tile int32 words (ops/grid_tracer._table_rows):
+    the 16-byte path at tile 16 and 32, word copies at tile 1; bit for bit
+    against table[idx], one launch."""
+    from irgs_tpu_torch.ops.grid_tracer import _table_rows
+    T = 777
+    g = torch.Generator(cuda_device).manual_seed(tile)
+    tab = torch.randn((T, 12 * tile), device=cuda_device,
+                      generator=g).to(torch.bfloat16)
+    idx = torch.randint(0, T, (3 * T + 7,), device=cuda_device, generator=g)
+    gr.reset_launches()
+    out = _table_rows(tab, idx)
+    assert out.dtype == torch.bfloat16 and out.shape == (idx.shape[0], 12 * tile)
+    assert torch.equal(out.view(torch.int16), tab[idx].view(torch.int16))
+    assert gr.LAUNCHES["gather_rows"] == 1
+
+
+@pytest.mark.cuda
 def test_light_sampler_card_equals_cpu(cuda_device):
     """The light sampler's hash uniforms and integer CDF draw the same texels
     and jitter on the card as on the CPU, from the same pdf."""
