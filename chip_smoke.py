@@ -108,7 +108,27 @@ Phases (JSON lines; any failure exits non-zero):
                 device): the test-scale DP step against one process's mean
                 step bit for bit, equal parameters on both ranks, the
                 sample-sharded test-scale eval frame against the one-rank
-                frame, and three BENCH DP steps with their all_reduce timed.
+                frame, and three BENCH DP steps with their all_reduce timed;
+  datasets      the readers on the card's machine (no PIL, no cv2): the
+                committed JPEG fixtures of tests/data/jpeg decoded bit for
+                bit (ms per 1297x840 frame); a COLMAP folder of the BENCH
+                sphere (8 views at 600², PINHOLE with the principal point
+                7 px off centre, points3D.bin of its 100k surfel centres)
+                through python -m irgs_tpu_torch.train at --resolution 400
+                (a fractional INTER_AREA) for 20 iterations; a Stanford-ORB
+                folder (8 views of 2048² PNG frames and masks, read at 512,
+                the surfel centres as its cloud) through the stage-1 CLI
+                for 20 iterations (every phase) and 3 stage-2 iterations
+                from its checkpoint; each run's losses
+                finite, no overflow, the kernels launched and held at its
+                inputs, ms/step and peak memory beside train_cli's;
+  e2e           tools/run_e2e (E2E_SMOKE: the analytic dataset at 400²,
+                stage 1, stage 2, the NVS, material and relighting evals,
+                each stage's CLI main(argv) in this process): every
+                stage's rc, seconds and peak memory, finite eval PSNR,
+                stage 2's ray_psnr rising, each stage's kernel launches,
+                and the training stages' first blend and gather inputs and
+                largest scatter-add held against the plain versions.
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -1560,6 +1580,7 @@ def phase_train_cli(results, tmp):
     }
     line["checks"] = checks
     line["ok"] = all(checks.values())
+    results["train_cli_line"] = line
     emit(line)
     if not line["ok"]:
         fail("train_cli", f"checks failed: {checks}")
@@ -3055,6 +3076,415 @@ def phase_parallel(results, tmp):
              f"{one_rank_equal}, mean: {mean_equal}, ranks: {ranks_equal})")
 
 
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+
+
+def _render_frames(params, aux, cams, spp):
+    """Each camera's render_ir_eval frame at `spp` diffuse samples on a
+    black background -> [(rgb, alpha) uint8 numpy] (alpha [H, W])."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.config import Config
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.render.eval import EvalConfig, render_ir_eval
+
+    dev = params.xyz.device
+    ecfg = EvalConfig(img_w=cams[0].width, img_h=cams[0].height,
+                      diffuse_sample_num=spp, light_sample_num=0,
+                      white_background=False,
+                      tracer=gt.TracerConfig.from_pipe(Config().pipe,
+                                                       eval=True))
+    grid = gt.build_grid_from_gaussians(params, aux, ecfg.tracer)
+    out = []
+    for cam in cams:
+        o = render_ir_eval(params, aux, grid, cam.params(dev), ecfg)
+        to8 = lambda x: (x.clamp(0, 1).cpu().numpy() * 255 + 0.5).astype(
+            np.uint8)
+        out.append((to8(o["render"]), to8(o["rend_alpha"][..., 0])))
+    return out
+
+
+def write_colmap_dataset(root, params, aux, n_views, res, offset):
+    """A COLMAP folder of the sphere: `n_views` ring views rendered at
+    res² as PNG frames through a PINHOLE camera whose principal point sits
+    `offset` pixels right of and below the centre; points3D.bin holds the
+    live surfels' centres."""
+    import numpy as np
+    from irgs_tpu_torch.scene import colmap
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.scene.cameras import Camera
+    from irgs_tpu_torch.utils import png
+
+    ring = toy.make_ring_cameras(n_views, width=res, height_px=res)
+    f = res / (2 * math.tan(ring[0].fovx / 2))
+    K = np.array([[f, 0, res / 2 + offset], [0, f, res / 2 + offset],
+                  [0, 0, 1]], np.float32)
+    cams = [Camera(c.uid, c.R, c.T, fovx=c.fovx, fovy=c.fovy, width=res,
+                   height=res, K=K) for c in ring]
+    os.makedirs(os.path.join(root, "images"))
+    images = []
+    for i, (cam, (rgb, _)) in enumerate(zip(cams, _render_frames(
+            params, aux, cams, spp=8))):
+        name = f"view_{i:03d}.png"
+        png.write_png(os.path.join(root, "images", name), rgb)
+        images.append(dict(id=i + 1, qvec=colmap.rotmat2qvec(cam.R.T),
+                           tvec=cam.T, camera_id=1, name=name))
+    alive = aux.alive.cpu().numpy()
+    xyz = params.xyz.detach().cpu().numpy()[alive]
+    colmap.write_model(os.path.join(root, "sparse", "0"),
+                       [dict(id=1, model="PINHOLE", width=res, height=res,
+                             params=[f, f, res / 2 + offset,
+                                     res / 2 + offset])],
+                       images, xyz, np.full((len(xyz), 3), 128, np.uint8))
+
+
+def write_orb_dataset(root, params, aux, n_views, res, up):
+    """A Stanford-ORB folder of the sphere: `n_views` ring views rendered at
+    res² and stored at (up·res)² (each pixel repeated up x up) as RGB PNG
+    frames, with their alpha as separate grey PNG masks; the same views as
+    the test split; the live surfels' centres as points3d.ply."""
+    import numpy as np
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.utils import png
+    from irgs_tpu_torch.utils.ply import write_ply
+
+    cams = toy.make_ring_cameras(n_views, width=res, height_px=res)
+    for split in ("train", "test", "train_mask", "test_mask"):
+        os.makedirs(os.path.join(root, split))
+    frames = []
+    for i, (cam, (rgb, a)) in enumerate(zip(cams, _render_frames(
+            params, aux, cams, spp=8))):
+        big = lambda x: np.repeat(np.repeat(x, up, 0), up, 1)
+        for split in ("train", "test"):
+            png.write_png(os.path.join(root, split, f"{i:04d}.png"), big(rgb))
+            png.write_png(os.path.join(root, f"{split}_mask", f"{i:04d}.png"),
+                          big(a))
+        c2w = np.eye(4)
+        c2w[:3, :3], c2w[:3, 3] = cam.R, cam.cam_pos
+        c2w[:3, 1:3] *= -1                  # COLMAP -> Blender axes
+        frames.append(c2w)
+    for split in ("train", "test"):
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": cams[0].fovx, "frames": [
+                {"file_path": f"./{split}/{i:04d}",
+                 "transform_matrix": m.tolist()}
+                for i, m in enumerate(frames)]}, f)
+    xyz = params.xyz.detach().cpu().numpy()[aux.alive.cpu().numpy()]
+    v = np.zeros(len(xyz), [("x", "f4"), ("y", "f4"), ("z", "f4")])
+    v["x"], v["y"], v["z"] = xyz.T
+    write_ply(os.path.join(root, "points3d.ply"), v)
+
+
+def _run_checks(log, launches, need=("blend_fwd", "blend_bwd", "gather_rows",
+                                     "segment_sum")):
+    return {"loss_finite": all(math.isfinite(m["loss"]) for m in log
+                               if "loss" in m),
+            "raster_overflow_zero": all(m.get("raster_overflow", 0) == 0
+                                        for m in log),
+            "grid_overflow_zero": all(m.get("grid_overflow", 0) == 0
+                                      for m in log),
+            "kernels_launched": all(launches.get(k, 0) > 0 for k in need)}
+
+
+# the stage-1 CLI's 20-iteration schedule on the Stanford-ORB folder:
+# initial to 4, volume to 10, surfel after, indirect from 15 on a 128³ TSDF
+# refreshed every 7 iterations, densifications at 5 and 10
+ORB_STAGE1 = ["--iterations", "20", "--init_until_iter", "4",
+              "--volume_render_until_iter", "10", "--indirect_from_iter", "14",
+              "--densify_from_iter", "3", "--densification_interval", "5",
+              "--opacity_reset_interval", "15", "--normal_prop_interval", "8",
+              "--mesh_interval", "7", "--mesh_res", "128",
+              "--dup_capacity", str(2 ** 21), "--max_gaussians", str(2 ** 17)]
+
+
+def phase_datasets(results, tmp):
+    """The dataset readers on the card's machine (no PIL, no cv2): the
+    committed JPEG fixtures bit for bit; a COLMAP folder (8 ring views of
+    the BENCH sphere at 600², PINHOLE with the principal point 7 px off
+    centre, its 100k surfel centres as points3D.bin) through python -m
+    irgs_tpu_torch.train at --resolution 400 (a fractional INTER_AREA) for
+    20 iterations at BENCH's budgets; a Stanford-ORB folder (8 views of
+    2048² PNG frames and masks, resized to 512, the surfel centres as
+    points3d.ply: from the reader's random init, 20 stage-1 steps leave
+    surfels that overflow the tracer's pair table in stage 2, an open
+    fault, ROADMAP.md C) through python -m
+    irgs_tpu_torch.train_refgaussian for 20 iterations and 3 stage-2
+    iterations from its checkpoint."""
+    import glob
+
+    import numpy as np
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.scene import datasets as ds
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.train_refgaussian.__main__ import main as s1_main
+    from irgs_tpu_torch.utils import jpeg
+
+    dev = torch.device("cuda")
+    # 1. the JPEG fixtures, bit for bit (the first decode builds the
+    # entropy decoder with g++)
+    a = time.perf_counter()
+    jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, "s420_q95_opt_1x1.jpg"))
+    build_s = time.perf_counter() - a
+    exact = {}
+    for path in sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg"))):
+        name = os.path.basename(path)[:-4]
+        want = np.load(path[:-4] + ".npy")
+        got = jpeg.read_jpeg(path)
+        exact[name] = got.shape == want.shape and bool(np.array_equal(got,
+                                                                      want))
+    large = os.path.join(JPEG_FIXTURES, "large_1297x840_q95.jpg")
+    decode_ms = []
+    for _ in range(5):
+        a = time.perf_counter()
+        jpeg.read_jpeg(large)
+        decode_ms.append((time.perf_counter() - a) * 1e3)
+
+    # 2-3. COLMAP at 600², trained at 400²
+    b = workload.BENCH
+    params, aux = toy.make_sphere_scene(n_surface=b["n_surface"],
+                                        n_capacity=b["n_capacity"],
+                                        env_resolution=128, device=dev)
+    a = time.perf_counter()
+    colmap_dir = os.path.join(tmp, "colmap_sphere")
+    write_colmap_dataset(colmap_dir, params, aux, 8, 600, 7.0)
+    colmap_data_s = time.perf_counter() - a
+    a = time.perf_counter()
+    info = ds.load_scene(colmap_dir, eval_split=False, resolution=400)
+    colmap_load_s = time.perf_counter() - a
+    cam0 = info.train_cameras[0]
+    colmap_cam = {"width": cam0.width, "height": cam0.height,
+                  "cx": cam0.cx, "cy": cam0.cy, "fx": cam0.fx,
+                  "n_points": int(len(info.points))}
+    del info
+    run = os.path.join(tmp, "colmap_run")
+    with StepMeter() as meter, FirstCalls(
+            {"blend": (rb, "blend_tiles"),
+             "gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec, \
+            LargestScatter() as scat:
+        launches, colmap_s = run_cli(
+            ["-s", colmap_dir, "-m", run, "--resolution", "400",
+             "--iterations", "20", "--checkpoint_interval", "0",
+             "--vis_interval", "0", *CLI_BENCH])
+    log = list(read_log(run).values())
+    colmap_steps = [st["ms"] for st in meter.steps[1:]]
+    colmap_line = {
+        "cli_s": colmap_s, "data_s": colmap_data_s, "load_s": colmap_load_s,
+        "camera": colmap_cam, "ms_per_step_median": statistics.median(
+            colmap_steps),
+        "step_max_memory_allocated": max(st["peak"] for st in meter.steps),
+        "run_max_memory_allocated": meter.run_peak, "launches": launches,
+        "log": log}
+    colmap_checks = _run_checks(log, launches)
+    colmap_checks["fractional_400"] = (colmap_cam["width"],
+                                       colmap_cam["height"]) == (400, 400)
+    colmap_checks["k_off_centre"] = abs(colmap_cam["cx"] - 200 - 7 / 1.5) \
+        < 1e-3
+    check_recorded(results, rec, "colmap_400px_100k")
+    check_scatter(results, scat, "colmap_largest")
+    del rec, scat, params, aux
+
+    # 4. Stanford-ORB at 2048², read at 512
+    params, aux = toy.make_sphere_scene(n_surface=b["n_surface"],
+                                        n_capacity=b["n_capacity"],
+                                        env_resolution=128, device=dev)
+    a = time.perf_counter()
+    orb_dir = os.path.join(tmp, "StanfordORB", "sphere")
+    write_orb_dataset(orb_dir, params, aux, 8, 512, 4)
+    orb_data_s = time.perf_counter() - a
+    del params, aux
+    a = time.perf_counter()
+    info = ds.load_scene(orb_dir, eval_split=True)
+    orb_load_s = time.perf_counter() - a
+    orb_shape = list(info.train_cameras[0].image.shape)
+    orb_mask = float(info.train_cameras[0].mask.mean())
+    del info
+    run1 = os.path.join(tmp, "orb_stage1")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    a = time.perf_counter()
+    with Stage1StepMeter() as s1meter, FirstCalls(
+            {"blend": (rb, "blend_tiles")}) as rec1, \
+            LargestScatter() as scat1:
+        s1_main(["-s", orb_dir, "-m", run1, "--eval", *ORB_STAGE1])
+    torch.cuda.synchronize()
+    orb_s1_s = time.perf_counter() - a
+    s1_launches = launch_counts()
+    s1_peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(run1, "train_log.jsonl")) as f:
+        log1 = [json.loads(x) for x in f]
+    check_recorded(results, rec1, "orb_512px_100k")
+    check_scatter(results, scat1, "orb_stage1_largest")
+    del rec1, scat1
+    run2 = os.path.join(tmp, "orb_stage2")
+    with StepMeter() as meter2, FirstCalls(
+            {"gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec2:
+        s2_launches, orb_s2_s = run_cli(
+            ["-s", orb_dir, "-m", run2, "--start_checkpoint_refgs", run1,
+             "--iterations", "3", "--vis_interval", "0", "--eval",
+             *CLI_BENCH, "--dup_capacity", str(2 ** 21)])
+    log2 = list(read_log(run2).values())
+    check_recorded(results, rec2, "orb_stage2_512px")
+    del rec2
+    orb_launches = {k: s1_launches.get(k, 0) + s2_launches.get(k, 0)
+                    for k in set(s1_launches) | set(s2_launches)}
+    by_phase = {}
+    for stp in s1meter.steps[1:]:
+        by_phase.setdefault(stp["phase"], []).append(stp["ms"])
+    orb_line = {
+        "stage1_s": orb_s1_s, "stage2_s": orb_s2_s, "data_s": orb_data_s,
+        "load_s": orb_load_s, "image_shape": orb_shape,
+        "mask_mean": orb_mask,
+        "stage1_ms_per_step_by_phase": {k: statistics.median(v)
+                                        for k, v in by_phase.items()},
+        "stage1_max_memory_allocated": s1_peak,
+        "stage2_ms_per_step": [st["ms"] for st in meter2.steps],
+        "stage2_max_memory_allocated": meter2.run_peak,
+        "stage1_launches": s1_launches, "stage2_launches": s2_launches,
+        "stage1_log_final": log1[-1], "stage2_log": log2}
+    orb_checks = _run_checks(log1 + log2, orb_launches)
+    orb_checks["resized_512"] = orb_shape == [512, 512, 3]
+    orb_checks["every_phase"] = set(by_phase) == {
+        "initial", "volume", "surfel", "surfel_indirect"}
+    orb_checks["stage2_bridged"] = os.path.exists(
+        os.path.join(run2, "chkpnt3.ckpt"))
+
+    launches_all = {k: launches.get(k, 0) + orb_launches.get(k, 0)
+                    for k in set(launches) | set(orb_launches)}
+    results.setdefault("launches", {})["datasets"] = launches_all
+    train_cli = results.get("train_cli_line", {})
+    line = {"phase": "datasets",
+            "jpeg": {"fixtures": len(exact), "build_and_first_s": build_s,
+                     "large_1297x840_ms": decode_ms,
+                     "large_ms_median": statistics.median(decode_ms)},
+            "colmap": colmap_line, "stanford_orb": orb_line,
+            "launches": launches_all,
+            "train_cli_ms_per_step_median_51_100": train_cli.get(
+                "ms_per_step_median_51_100"),
+            "train_cli_step_max_memory_allocated": train_cli.get(
+                "step_max_memory_allocated")}
+    checks = {"jpeg_bit_for_bit": bool(exact) and all(exact.values()),
+              **{f"colmap_{k}": v for k, v in colmap_checks.items()},
+              **{f"orb_{k}": v for k, v in orb_checks.items()}}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("datasets", f"checks failed: {checks} "
+             f"(jpeg: {[k for k, v in exact.items() if not v]})")
+
+
+# run_e2e at the dataset's full width (400², 256 + 128 GT samples), cut in
+# depth to stay near 250 s on the card: 8 + 2 views, radiosity textures
+# 128² / 64 x 128 at 128 + 64 samples, a 20k-point cloud on the analytic
+# surfaces as the init (from the readers' 100k random points this short
+# stage 1 leaves surfels whose cell pairs overflow the tracer's 2^21 pair
+# table in stage 2: an open fault, ROADMAP.md C), 200 stage-1 iterations
+# (the indirect phase for the last 20, its TSDF at 128³), 50 stage-2
+# iterations at dup 2^21, the evals at 32 + 16 samples on one view each
+E2E_SMOKE = ["--img", "400", "--ds_spp", "256", "128", "--n_train", "8",
+             "--n_test", "2", "--ds_grid", "128", "64", "--ds_rad_spp", "128",
+             "64", "--s1_iters", "200", "--s1_indirect_tail", "20",
+             "--s2_iters", "50", "--eval_spp", "32", "16",
+             "--max_eval_images", "1", "--relight_images", "1",
+             "--stage_args", "dataset=--points 20000",
+             "--stage_args", "stage1=--mesh_res 128",
+             "--stage_args", f"stage2=--dup_capacity {2 ** 21}"]
+# the kernels whose first inputs each training stage records (FirstCalls)
+# and holds against their plain versions
+E2E_HELD = {"stage1": ("blend",), "stage2": ("blend", "gather")}
+
+
+def phase_e2e(results, tmp):
+    """tools/run_e2e on the card (E2E_SMOKE): the analytic dataset, stage 1,
+    stage 2 from its checkpoint and the NVS, material and relighting evals,
+    each stage's CLI main(argv) run in this process (run_e2e.run_in_process)
+    from launch counts at 0. After each training stage, its first blend and
+    gather inputs and its largest scatter-add are held against the plain
+    versions (cases e2e_stage1_400px, e2e_stage2_400px)."""
+    import torch
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
+    from irgs_tpu_torch.tools import run_e2e
+
+    targets = {"blend": (rb, "blend_tiles"),
+               "gather": (gt, "gather_rows_kernel")}
+    by_stage, peak = {}, {}
+
+    def run_stage(tag, module, argv, timeout):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        held = E2E_HELD.get(tag, ())
+        with FirstCalls({k: targets[k] for k in held}, clone=(1,)) as rec, \
+                LargestScatter() as scat:
+            rc = run_e2e.run_in_process(tag, module, argv, timeout)
+        torch.cuda.synchronize()
+        by_stage[tag] = launch_counts()
+        peak[tag] = torch.cuda.max_memory_allocated()
+        if held and rc == 0:
+            check_recorded(results, rec, f"e2e_{tag}_400px")
+            check_scatter(results, scat, f"e2e_{tag}_largest")
+        return rc
+
+    root = os.path.join(tmp, "e2e")
+    res = os.path.join(tmp, "e2e_results")
+    a = time.perf_counter()
+    try:
+        run_e2e.main(["--root", root, "--results", res, "--device", "cuda",
+                      *E2E_SMOKE], run_stage=run_stage)
+        stopped = None
+    except SystemExit as e:
+        stopped = str(e)
+    wall = time.perf_counter() - a
+    sp = os.path.join(res, "summary.json")
+    summary = json.load(open(sp)) if os.path.exists(sp) else {}
+    launches = {}
+    for counts in by_stage.values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    results.setdefault("launches", {})["e2e"] = launches
+    log = summary.get("stage2_log", [])
+    psnr = {}
+    for name in ("nvs_results", "material_results", "relighting_results"):
+        psnr[name] = {k: v for k, v in summary.get(name, {}).items()
+                      if "psnr" in k and isinstance(v, (int, float))}
+    meta = summary.get("dataset_meta", {})
+    line = {"phase": "e2e", "wall_s": wall, "stopped": stopped,
+            "stage_s": summary.get("timings_s"),
+            "stage_rc": summary.get("rc"), "psnr": psnr,
+            "stage2_ray_psnr": {m["iter"]: m.get("ray_psnr") for m in log},
+            "stage2_loss": {m["iter"]: m.get("loss") for m in log},
+            "dataset_timings_s": meta.get("timings_s"),
+            "dataset_peak_mem_bytes": meta.get("peak_mem_bytes"),
+            "stage_max_memory_allocated": peak,
+            "launches": launches, "launches_by_stage": by_stage}
+    checks = {
+        "every_stage_rc_0": stopped is None and summary.get("rc") == {
+            k: 0 for k in run_e2e.STAGES},
+        "eval_psnr_finite": all(v and all(math.isfinite(x)
+                                          for x in v.values())
+                                for v in psnr.values()),
+        "ray_psnr_rises": len(log) >= 2 and log[-1]["ray_psnr"]
+        > log[0]["ray_psnr"],
+        "loss_finite": bool(log) and all(math.isfinite(m["loss"])
+                                         for m in log),
+        "raster_overflow_zero": bool(log) and all(
+            m.get("raster_overflow", 0) == 0 for m in log),
+        "grid_overflow_zero": bool(log) and all(
+            m.get("grid_overflow", 0) == 0 for m in log),
+        "kernels_launched": all(launches.get(k, 0) > 0 for k in (
+            "blend_fwd", "blend_bwd", "gather_rows", "segment_sum"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("e2e", f"checks failed: {checks}")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -3072,7 +3502,9 @@ KERNELS = {
                "stage2_full": "bench_400px_100k",
                "extract_mesh": "extract_mesh_400px",
                "tracer_options": "bench_400px_100k",
-               "parallel": "bench_400px_100k"}),
+               "parallel": "bench_400px_100k",
+               "datasets": "colmap_400px_100k",
+               "e2e": "e2e_stage1_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -3083,7 +3515,9 @@ KERNELS = {
                "train_stage1_cli": "stage1_400px_100k_S11",
                "stage2_full": "bench_400px_100k",
                "tracer_options": "bench_400px_100k",
-               "parallel": "bench_400px_100k"}),
+               "parallel": "bench_400px_100k",
+               "datasets": "colmap_400px_100k",
+               "e2e": "e2e_stage1_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -3097,7 +3531,9 @@ KERNELS = {
                "stage2_full": "stage2_full_first_pass",
                # the bf16 pair table's rows, viewed as int32 words
                "tracer_options": "tracer_options_bf16_first_pass",
-               "parallel": "stage2_first_pass"}),
+               "parallel": "stage2_first_pass",
+               "datasets": "colmap_400px_100k_first_pass",
+               "e2e": "e2e_stage2_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -3112,7 +3548,8 @@ KERNELS = {
                "train_stage1_cli": "stage1_largest",
                "stage2_full": "stage2_full_largest",
                "tracer_options": "stage2_largest",
-               "parallel": "stage2_largest"}),
+               "parallel": "stage2_largest",
+               "datasets": "colmap_largest", "e2e": "e2e_stage2_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -3149,7 +3586,7 @@ def kernels_line(results):
 PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "eval_small", "mis_small", "eval", "train_cli", "train_cli_oversize",
           "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
-          "extract_mesh", "tracer_options", "parallel")
+          "extract_mesh", "tracer_options", "parallel", "datasets", "e2e")
 
 
 def nvidia_smi_line():
@@ -3203,6 +3640,8 @@ def main():
             "extract_mesh": lambda: phase_extract_mesh(results, tmp),
             "tracer_options": lambda: phase_tracer_options(results),
             "parallel": lambda: phase_parallel(results, tmp),
+            "datasets": lambda: phase_datasets(results, tmp),
+            "e2e": lambda: phase_e2e(results, tmp),
         }
         for name in PHASES:
             if name in phases:

@@ -1,13 +1,14 @@
-"""Dataset readers (≙ irgs_tpu/scene/datasets.py): Blender/TensoIR and
-Synthetic4Relight folders, the path sniffing of `load_scene` and the
-`-r/--resolution` downscale. Host-side numpy; frames stay in host RAM until
-the trainer moves them to the device.
+"""Dataset readers (≙ irgs_tpu/scene/datasets.py): Blender/TensoIR,
+Synthetic4Relight and Stanford-ORB folders, COLMAP captures (scene/
+colmap.py), the path sniffing of `load_scene` and the `-r/--resolution`
+rescale. Host-side numpy; frames stay in host RAM until the trainer moves
+them to the device.
 
 Images are read by the port's own codecs: EXR through utils/exr.py, PNG
-through utils/png.py, decoded to the arrays PIL gives the JAX package, and
-Radiance .hdr through utils/hdr.py, as cv2 gives it.
-COLMAP and Stanford-ORB scenes, other image formats and downscales that are
-not an integer box average raise NotImplementedError (ROADMAP.md A6).
+through utils/png.py and JPEG through utils/jpeg.py, decoded to the arrays
+PIL gives the JAX package, and Radiance .hdr through utils/hdr.py, as cv2
+gives it. Resizes are utils/resize.py's ports of cv2.resize. Other image
+formats raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from ..utils.math3d import focal2fov, fov2focal
+from ..utils.resize import INTER_AREA, INTER_LINEAR, resize
 from .cameras import Camera
 
 
@@ -45,8 +47,8 @@ def _nerfpp_norm(cams: list[Camera]):
 
 def _load_image_any(path: str):
     """RGB(A) image -> float [H, W, C]: EXR and HDR as stored (HDR as RGB,
-    as the JAX package flips cv2's BGR), PNG in [0, 1] (the JAX package's
-    np.asarray(PIL.Image.open(path), float32) / 255)."""
+    as the JAX package flips cv2's BGR), PNG and JPEG as the JAX package's
+    np.asarray(PIL.Image.open(path), float32) / 255 (grey as [H, W])."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         from ..utils import exr
@@ -57,9 +59,11 @@ def _load_image_any(path: str):
     if ext == ".png":
         from ..utils import png
         return np.asarray(png.read_png_as_pil(path), np.float32) / 255.0
+    if ext in (".jpg", ".jpeg"):
+        from ..utils import jpeg
+        return np.asarray(jpeg.read_jpeg(path), np.float32) / 255.0
     raise NotImplementedError(
-        f"{path}: only PNG, EXR and HDR images are read (ROADMAP.md A6: "
-        "JPEG frames of COLMAP scenes)")
+        f"{path}: only PNG, JPEG, EXR and HDR images are read")
 
 
 def _blender_frame_to_camera(frame, path, fovx, white_background, extension,
@@ -162,13 +166,78 @@ def read_synthetic4relight_scene(path, white_background, eval_split) -> SceneInf
                      light_rotate=True, ply_path=ply_path)
 
 
+def read_stanford_orb_scene(path, white_background, eval_split,
+                            benchmark_size: int = 512,
+                            num_init_points: int = 100_000,
+                            seed: int = 0) -> SceneInfo:
+    """≙ readStanfordORBInfo + readCamerasFromTransforms2
+    (dataset_readers.py:476-573): per-frame PNG/EXR images with separate
+    `{train,test}_mask` alpha images, resized to `benchmark_size` (cv2's
+    INTER_AREA) and composited onto the background colour in float64."""
+
+    def find(base):
+        return next((os.path.join(path, base + e) for e in (".png", ".exr")
+                     if os.path.exists(os.path.join(path, base + e))), None)
+
+    def read_split(transformsfile):
+        with open(os.path.join(path, transformsfile)) as f:
+            contents = json.load(f)
+        fovx = contents["camera_angle_x"]
+        cams = []
+        for uid, frame in enumerate(contents["frames"]):
+            base = frame["file_path"]
+            image_path = find(base)
+            mask_path = find(base.replace("test", "test_mask")
+                             .replace("train", "train_mask"))
+            if image_path is None:
+                raise FileNotFoundError(f"{base}.png/.exr not found under {path}")
+
+            c2w = np.array(frame["transform_matrix"], dtype=np.float64)
+            c2w[:3, 1:3] *= -1
+            w2c = np.linalg.inv(c2w)
+            R = w2c[:3, :3].T
+            T = w2c[:3, 3]
+
+            im = _load_image_any(image_path)[..., :3]
+            mask = (_load_image_any(mask_path) if mask_path
+                    else np.ones(im.shape[:2], np.float32))
+            if mask.ndim == 3:
+                mask = mask[..., 0]
+            sz = (benchmark_size, benchmark_size)
+            im = resize(im, sz, INTER_AREA)
+            mask = resize(mask.astype(np.float32), sz, INTER_AREA)
+            bg = np.ones(3) if white_background else np.zeros(3)
+            im = im * mask[..., None] + bg * (1 - mask[..., None])
+
+            h, w = im.shape[:2]
+            fovy = focal2fov(fov2focal(fovx, w), h)
+            cams.append(Camera(uid, R, T, fovx=fovx, fovy=fovy,
+                               image=im.astype(np.float32), mask=mask > 0.5,
+                               image_name=os.path.basename(base),
+                               image_path=image_path))
+        return cams
+
+    train = read_split("transforms_train.json")
+    test = read_split("transforms_test.json") if eval_split else []
+    translate, radius = _nerfpp_norm(train)
+    ply_path = os.path.join(path, "points3d.ply")
+    if os.path.exists(ply_path):
+        points, colors = _read_points(ply_path, with_colors=False)
+    else:
+        rng = np.random.RandomState(seed)
+        points = (rng.random((num_init_points, 3)) * 2.6 - 1.3).astype(np.float32)
+        colors = np.full_like(points, 0.5)
+    return SceneInfo(train, test, points, colors, translate, radius,
+                     light_rotate=False, ply_path=ply_path)
+
+
 def _downscale_camera(cam: Camera, resolution, resolution_scale: float) -> Camera:
     """Resolution-scaled reload of one view (≙ loadCam,
     utils/camera_utils.py:21-71): -r ∈ {1,2,4,8} divides, -r -1 caps width
     at 1600, any other value is a target width; intrinsics K are divided by
-    the same scalar scale. Ported where the result is an integer box average
-    (what cv2's INTER_AREA computes for an integer factor); other sizes
-    raise."""
+    the same scalar scale. Images and masks go through cv2.resize's
+    INTER_AREA when shrinking and INTER_LINEAR when enlarging
+    (utils/resize.py); masks are thresholded at 0.5 after."""
     orig_w, orig_h = cam.width, cam.height
     if resolution in (1, 2, 4, 8):
         scale = float(resolution_scale * resolution)
@@ -182,20 +251,15 @@ def _downscale_camera(cam: Camera, resolution, resolution_scale: float) -> Camer
         new_w, new_h = int(orig_w / scale), int(orig_h / scale)
     if (new_w, new_h) == (orig_w, orig_h):
         return cam
-    f = orig_w // new_w if new_w else 0
-    if not (f > 1 and new_w * f == orig_w and new_h * f == orig_h):
-        raise NotImplementedError(
-            f"-r {resolution}: {orig_w}x{orig_h} -> {new_w}x{new_h} is not an "
-            "integer downscale; only integer box averages are ported "
-            "(ROADMAP.md A6)")
 
-    def box(x):
-        x = np.asarray(x, np.float32)
-        x = x.reshape((new_h, f, new_w, f) + x.shape[2:]).sum(axis=(1, 3))
-        return x * np.float32(1.0 / (f * f))
-
-    image = None if cam.image is None else box(cam.image)
-    mask = None if cam.mask is None else box(cam.mask) > 0.5
+    interp = INTER_AREA if new_w < orig_w else INTER_LINEAR
+    image = None
+    if cam.image is not None:
+        image = resize(cam.image, (new_w, new_h), interp)
+    mask = None
+    if cam.mask is not None:
+        mask = resize(cam.mask.astype(np.float32), (new_w, new_h),
+                      interp) > 0.5
     K = None
     if cam.K is not None:
         K = cam.K.copy()
@@ -229,17 +293,15 @@ def load_scene(source_path: str, white_background: bool = False,
             info = read_synthetic4relight_scene(source_path, white_background,
                                                 eval_split)
         elif "StanfordORB" in source_path or "stanford_orb" in source_path:
-            raise NotImplementedError(
-                "Stanford-ORB scenes are not ported yet (ROADMAP.md A6: they "
-                "resize every frame to 512 with cv2)")
+            info = read_stanford_orb_scene(source_path, white_background,
+                                           eval_split)
         else:
             info = read_blender_scene(source_path, white_background, eval_split)
             if "TensoIR" in source_path:
                 info.light_rotate = True
     elif os.path.exists(os.path.join(source_path, "sparse")):
-        raise NotImplementedError(
-            "COLMAP scenes are not ported yet (ROADMAP.md A6: colmap.py and "
-            "JPEG frames)")
+        from .colmap import read_colmap_scene
+        info = read_colmap_scene(source_path, eval_split=eval_split)
     else:
         raise ValueError(f"Could not recognize scene type at {source_path}")
     return apply_resolution(info, resolution, resolution_scale)

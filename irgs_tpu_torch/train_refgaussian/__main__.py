@@ -7,7 +7,9 @@
 Every option of the stage-1 configuration (config.py) and train_refgaussian.py's
 own flags, plus `--device` (default cuda; without a card the run raises, it
 does not fall back to the CPU), `--checkpoint_interval` and
-`--start_checkpoint` (resume a stage-1 run of this package in place). The
+`--start_checkpoint` (resume a stage-1 run of this package in place). Reads
+every dataset layout of scene/datasets.py: Blender/TensoIR,
+Synthetic4Relight, Stanford-ORB and COLMAP folders. The
 schedule is the reference's: initial 2DGS, volume shading, surfel shading
 with a material reset at the switch; densification, opacity resets and
 normal-propagation events; from `indirect_from_iter` reflection visibility

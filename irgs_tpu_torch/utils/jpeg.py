@@ -1,0 +1,439 @@
+"""Baseline JPEG decode, bit for bit as PIL gives it.
+
+The JAX package reads JPEG frames with ``PIL.Image.open`` (COLMAP scenes,
+irgs_tpu/scene/colmap.py; any other LDR frame, irgs_tpu/scene/datasets.py:
+59-60). PIL decodes with libjpeg-turbo at libjpeg's defaults, and this
+module follows that library's decoder step by step so that its arrays
+equal PIL's:
+
+  markers    SOI, APPn (JFIF, and Adobe APP14's transform flag), DQT (8-
+             and 16-bit tables), SOF0/SOF1, DHT, DRI and RSTn, SOS, COM, EOI;
+  entropy    Huffman decoding with byte stuffing and restart intervals
+             (csrc/jpeg_huffman.cpp, built with g++ at first use);
+  IDCT       dequantisation and the accurate integer IDCT
+             (jidctint.c jpeg_idct_islow: 13-bit constants, PASS1_BITS 2,
+             the two DESCALE roundings and the post-IDCT range-limit table);
+  upsampling libjpeg-turbo's "fancy" triangle filters (jdsample.c:
+             h2v1 and h2v2 with their 1/2 and 8/7 biases, h1v2 with 1 and 2)
+             over rows and columns clamped at the component's edge, plain
+             replication for chroma 2 samples wide or less and for other
+             integer factors (int_upsample);
+  colour     the fixed-point YCbCr -> RGB tables of jdcolor.c (ONE_HALF
+             rounding, 16 fraction bits); grey stays one channel, and
+             `read_jpeg_rgb` replicates it as ``.convert("RGB")`` does.
+
+Progressive (SOF2), lossless (SOF3), hierarchical (SOF5-7) and arithmetic
+(SOF9-15, DAC) streams, 12-bit samples and CMYK/YCCK (four components)
+raise NotImplementedError (ROADMAP.md A6).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import struct
+from pathlib import Path
+
+import numpy as np
+
+from . import native
+
+SRC = Path(__file__).resolve().parents[1] / "csrc" / "jpeg_huffman.cpp"
+
+# zig-zag position -> natural (row-major) position in the 8x8 block
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+
+_UNSUPPORTED = {
+    0xC2: "SOF2 (progressive)", 0xC3: "SOF3 (lossless)",
+    0xC5: "SOF5 (hierarchical)", 0xC6: "SOF6 (hierarchical progressive)",
+    0xC7: "SOF7 (hierarchical lossless)", 0xC9: "SOF9 (arithmetic)",
+    0xCA: "SOF10 (arithmetic progressive)", 0xCB: "SOF11 (arithmetic "
+    "lossless)", 0xCC: "DAC (arithmetic conditioning)", 0xCD: "SOF13 "
+    "(arithmetic hierarchical)", 0xCE: "SOF14 (arithmetic hierarchical "
+    "progressive)", 0xCF: "SOF15 (arithmetic hierarchical lossless)",
+}
+
+_LIB = None
+
+
+class JpegError(ValueError):
+    pass
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"JPEG {what} is not decoded by the port; only baseline and extended "
+        "sequential Huffman 8-bit grey and YCbCr/RGB streams are "
+        "(ROADMAP.md A6)")
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(native.build_library(SRC, "jpeg_huffman")))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.jpeg_decode_scan.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32), u8p, u8p, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.POINTER(ctypes.c_int16))]
+        lib.jpeg_decode_scan.restype = ctypes.c_int64
+        _LIB = lib
+    return _LIB
+
+
+# --- accurate integer IDCT (jidctint.c) -----------------------------------
+
+CONST_BITS, PASS1_BITS = 13, 2
+FIX_0_298631336, FIX_0_390180644, FIX_0_541196100 = 2446, 3196, 4433
+FIX_0_765366865, FIX_0_899976223, FIX_1_175875602 = 6270, 7373, 9633
+FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
+FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
+
+
+def _descale(x, n):
+    return (x + (1 << (n - 1))) >> n
+
+
+def _idct_1d(x, shift):
+    """One pass of jpeg_idct_islow over the last axis of int64 `x` (8 wide),
+    descaled by `shift` bits."""
+    z2, z3 = x[..., 2], x[..., 6]
+    z1 = (z2 + z3) * FIX_0_541196100
+    tmp2 = z1 + z3 * -FIX_1_847759065
+    tmp3 = z1 + z2 * FIX_0_765366865
+    tmp0 = (x[..., 0] + x[..., 4]) << CONST_BITS
+    tmp1 = (x[..., 0] - x[..., 4]) << CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+
+    tmp0, tmp1, tmp2, tmp3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
+    z1, z2 = tmp0 + tmp3, tmp1 + tmp2
+    z3, z4 = tmp0 + tmp2, tmp1 + tmp3
+    z5 = (z3 + z4) * FIX_1_175875602
+    tmp0 = tmp0 * FIX_0_298631336
+    tmp1 = tmp1 * FIX_2_053119869
+    tmp2 = tmp2 * FIX_3_072711026
+    tmp3 = tmp3 * FIX_1_501321110
+    z1 = z1 * -FIX_0_899976223
+    z2 = z2 * -FIX_2_562915447
+    z3 = z3 * -FIX_1_961570560 + z5
+    z4 = z4 * -FIX_0_390180644 + z5
+    tmp0 = tmp0 + z1 + z3
+    tmp1 = tmp1 + z2 + z4
+    tmp2 = tmp2 + z2 + z3
+    tmp3 = tmp3 + z1 + z4
+    return np.stack([
+        _descale(tmp10 + tmp3, shift), _descale(tmp11 + tmp2, shift),
+        _descale(tmp12 + tmp1, shift), _descale(tmp13 + tmp0, shift),
+        _descale(tmp13 - tmp0, shift), _descale(tmp12 - tmp1, shift),
+        _descale(tmp11 - tmp2, shift), _descale(tmp10 - tmp3, shift)], -1)
+
+
+def _range_limit_table():
+    """jdmaster.c prepare_range_limit_table, post-IDCT part, indexed by the
+    descaled sample (centred on 0) & 1023."""
+    t = np.zeros(1024, np.uint8)
+    t[:128] = np.arange(128, 256)      # 0..127 -> 128..255
+    t[128:512] = 255
+    t[896:] = np.arange(128)           # -128..-1 -> 0..127
+    return t
+
+
+_RANGE_LIMIT = _range_limit_table()
+
+
+def idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """int16 [..., 64] coefficients (natural order) and a [64] quantisation
+    table -> uint8 [..., 8, 8] samples."""
+    x = coef.astype(np.int64) * qt.astype(np.int64)
+    x = x.reshape(x.shape[:-1] + (8, 8))
+    # pass 1: columns (the vertical frequencies are the block's rows)
+    ws = _idct_1d(np.swapaxes(x, -1, -2), CONST_BITS - PASS1_BITS)
+    ws = np.swapaxes(ws, -1, -2)       # [..., row, col] workspace
+    # pass 2: rows
+    out = _idct_1d(ws, CONST_BITS + PASS1_BITS + 3)
+    return _RANGE_LIMIT[out & 1023]
+
+
+# --- upsampling (jdsample.c) ----------------------------------------------
+
+def _rows_fancy(x):
+    """Each row -> two rows, 3/4 nearer + 1/4 further, rows clamped at the
+    edges: the vertical half of h2v2/h1v2 (int32 column sums, not yet
+    rounded). Returns [2H, W] of 3*near + far."""
+    x = x.astype(np.int32)
+    above = np.concatenate([x[:1], x[:-1]], 0)
+    below = np.concatenate([x[1:], x[-1:]], 0)
+    out = np.empty((2 * x.shape[0],) + x.shape[1:], np.int32)
+    out[0::2] = 3 * x + above
+    out[1::2] = 3 * x + below
+    return out
+
+
+def _upsample(plane, dw, dh, hx, vx):
+    """One component's samples (uint8 [>= dh, >= dw]) -> the full grid, as
+    libjpeg-turbo's upsampler picks its method for the expansion hx x vx."""
+    p = plane[:dh, :dw]
+    if hx == 1 and vx == 1:
+        return p
+    if hx == 2 and vx == 1 and dw > 2:       # h2v1_fancy_upsample
+        x = p.astype(np.int32)
+        left = np.concatenate([x[:, :1], x[:, :-1]], 1)
+        right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
+        out = np.empty((dh, 2 * dw), np.int32)
+        out[:, 0::2] = (3 * x + left + 1) >> 2
+        out[:, 1::2] = (3 * x + right + 2) >> 2
+        return out.astype(np.uint8)
+    if hx == 1 and vx == 2:                   # h1v2_fancy_upsample
+        s = _rows_fancy(p)
+        s[0::2] += 1
+        s[1::2] += 2
+        return (s >> 2).astype(np.uint8)
+    if hx == 2 and vx == 2 and dw > 2:       # h2v2_fancy_upsample
+        s = _rows_fancy(p)
+        left = np.concatenate([s[:, :1], s[:, :-1]], 1)
+        right = np.concatenate([s[:, 1:], s[:, -1:]], 1)
+        out = np.empty((2 * dh, 2 * dw), np.int32)
+        out[:, 0::2] = (3 * s + left + 8) >> 4
+        out[:, 1::2] = (3 * s + right + 7) >> 4
+        return out.astype(np.uint8)
+    # h2v1_upsample, h2v2_upsample, int_upsample: replication
+    return np.repeat(np.repeat(p, vx, 0), hx, 1)
+
+
+# --- colour (jdcolor.c) ---------------------------------------------------
+
+def _ycc_tables():
+    one_half = 1 << 15
+    fix = lambda v: int(v * 65536 + 0.5)
+    x = np.arange(256, dtype=np.int64) - 128
+    cr_r = (fix(1.40200) * x + one_half) >> 16
+    cb_b = (fix(1.77200) * x + one_half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + one_half
+    return cr_r, cb_b, cr_g, cb_g
+
+
+_CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
+
+
+def ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """uint8 planes -> uint8 [H, W, 3] (ycc_rgb_convert)."""
+    y = y.astype(np.int64)
+    r = y + _CR_R[cr]
+    g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
+    b = y + _CB_B[cb]
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+# --- stream ---------------------------------------------------------------
+
+def _segment(buf, pos):
+    """The payload of the length-prefixed segment whose length is at pos."""
+    if pos + 2 > len(buf):
+        raise JpegError("truncated segment")
+    (n,) = struct.unpack_from(">H", buf, pos)
+    if n < 2 or pos + n > len(buf):
+        raise JpegError("bad segment length")
+    return buf[pos + 2:pos + n], pos + n
+
+
+def decode_jpeg(buf: bytes) -> np.ndarray:
+    """A JPEG stream -> uint8 [H, W] (grey) or [H, W, 3] (RGB), what
+    ``np.asarray(PIL.Image.open(...))`` gives for it."""
+    if buf[:2] != b"\xff\xd8":
+        raise JpegError("not a JPEG stream (no SOI)")
+    qtables = [None] * 4
+    huff_bits = np.zeros((8, 16), np.uint8)
+    huff_vals = np.zeros((8, 256), np.uint8)
+    restart = 0
+    frame = None
+    saw_jfif = saw_adobe = False
+    adobe_transform = None
+    pos = 2
+    while True:
+        # next marker, past any fill bytes
+        while pos < len(buf) and buf[pos] != 0xFF:
+            pos += 1
+        while pos < len(buf) and buf[pos] == 0xFF:
+            pos += 1
+        if pos >= len(buf):
+            raise JpegError("no EOI marker")
+        m = buf[pos]
+        pos += 1
+        if m == 0xD9:                                        # EOI
+            break
+        if 0xD0 <= m <= 0xD7 or m == 0x01:                   # RSTn, TEM
+            continue
+        if m in _UNSUPPORTED:
+            raise _not_ported(_UNSUPPORTED[m])
+        seg, nxt = _segment(buf, pos)
+        if m == 0xE0 and seg[:5] == b"JFIF\x00":
+            saw_jfif = True
+        elif m == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            saw_adobe, adobe_transform = True, seg[11]
+        elif m == 0xDB:                                      # DQT
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                n = 128 if pq else 64
+                raw = np.frombuffer(seg[i + 1:i + 1 + n],
+                                    ">u2" if pq else np.uint8)
+                if tq > 3 or raw.size != 64:
+                    raise JpegError("bad DQT segment")
+                q = np.zeros(64, np.int64)
+                q[ZIGZAG] = raw
+                qtables[tq] = q
+                i += 1 + n
+        elif m in (0xC0, 0xC1):                              # SOF0, SOF1
+            prec, h, w, nf = struct.unpack_from(">BHHB", seg, 0)
+            if prec != 8:
+                raise _not_ported(f"{prec}-bit precision")
+            if h == 0:
+                raise _not_ported("height given by a DNL marker")
+            if nf == 4:
+                raise _not_ported("CMYK/YCCK (four components)")
+            if nf not in (1, 3):
+                raise _not_ported(f"with {nf} components")
+            comps = []
+            for c in range(nf):
+                cid, hv, tq = struct.unpack_from(">BBB", seg, 6 + 3 * c)
+                comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
+            frame = _new_frame(w, h, comps)
+        elif m == 0xC4:                                      # DHT
+            i = 0
+            while i < len(seg):
+                tc, th = seg[i] >> 4, seg[i] & 15
+                counts = np.frombuffer(seg[i + 1:i + 17], np.uint8)
+                n = int(counts.sum())
+                if tc > 1 or th > 3 or counts.size != 16 or n > 256:
+                    raise JpegError("bad DHT segment")
+                t = 4 * tc + th
+                huff_bits[t] = counts
+                huff_vals[t] = 0
+                huff_vals[t, :n] = np.frombuffer(seg[i + 17:i + 17 + n],
+                                                 np.uint8)
+                i += 17 + n
+        elif m == 0xDD:                                      # DRI
+            (restart,) = struct.unpack_from(">H", seg, 0)
+        elif m == 0xDA:                                      # SOS
+            if frame is None:
+                raise JpegError("SOS before SOF")
+            nxt = _decode_scan(buf, seg, nxt, frame, qtables, huff_bits,
+                               huff_vals, restart)
+        pos = nxt
+    if frame is None:
+        raise JpegError("no frame")
+    return _output(frame, saw_jfif, saw_adobe, adobe_transform)
+
+
+def _new_frame(w, h, comps):
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    mcus_x = -(-w // (8 * hmax))
+    mcus_y = -(-h // (8 * vmax))
+    for c in comps:
+        if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
+            raise JpegError("bad sampling factors")
+        c["dw"] = -(-w * c["h"] // hmax)          # downsampled width
+        c["dh"] = -(-h * c["v"] // vmax)
+        c["bw"] = -(-c["dw"] // 8)                # blocks of real samples
+        c["bh"] = -(-c["dh"] // 8)
+        c["coef"] = np.zeros((mcus_y * c["v"], mcus_x * c["h"], 64),
+                             np.int16)
+        c["qt"] = None
+    return dict(w=w, h=h, comps=comps, hmax=hmax, vmax=vmax, mcus_x=mcus_x,
+                mcus_y=mcus_y)
+
+
+def _decode_scan(buf, seg, pos, frame, qtables, huff_bits, huff_vals,
+                 restart):
+    ns = seg[0]
+    by_id = {c["id"]: c for c in frame["comps"]}
+    comps, params = [], []
+    for i in range(ns):
+        cid, tt = seg[1 + 2 * i], seg[2 + 2 * i]
+        if cid not in by_id:
+            raise JpegError(f"scan names unknown component {cid}")
+        c = by_id[cid]
+        if c["qt"] is None:            # latched at the component's first scan
+            if qtables[c["tq"]] is None:
+                raise JpegError(f"quantisation table {c['tq']} undefined")
+            c["qt"] = qtables[c["tq"]]
+        td, ta = tt >> 4, tt & 15
+        if td > 3 or ta > 3:
+            raise JpegError("bad table selector")
+        comps.append(c)
+        h, v = (c["h"], c["v"]) if ns > 1 else (1, 1)
+        params += [td, ta, h, v, c["coef"].shape[1], c["coef"].shape[0]]
+    ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+    if (ss, se, ahal) != (0, 63, 0):
+        raise JpegError("baseline scan with a spectral selection")
+    if ns > 1:
+        mx, my = frame["mcus_x"], frame["mcus_y"]
+    else:   # a non-interleaved scan: one block per MCU, real blocks only
+        mx, my = comps[0]["bw"], comps[0]["bh"]
+    data = np.frombuffer(buf, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i16p = ctypes.POINTER(ctypes.c_int16)
+    ptrs = (i16p * ns)(*[c["coef"].ctypes.data_as(i16p) for c in comps])
+    cp = np.asarray(params, np.int32)
+    hb = np.ascontiguousarray(huff_bits)
+    hv = np.ascontiguousarray(huff_vals)
+    end = _lib().jpeg_decode_scan(
+        data.ctypes.data_as(u8p), len(buf), pos, ns,
+        cp.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        hb.ctypes.data_as(u8p), hv.ctypes.data_as(u8p), mx, my, restart,
+        ptrs)
+    if end < 0:
+        raise JpegError({-1: "scan uses an undefined Huffman table",
+                         -2: "corrupt Huffman data",
+                         -3: "missing restart marker"}[int(end)])
+    return int(end)
+
+
+def _output(frame, saw_jfif, saw_adobe, adobe_transform):
+    w, h = frame["w"], frame["h"]
+    planes = []
+    for c in frame["comps"]:
+        if c["qt"] is None:
+            raise JpegError(f"component {c['id']} has no scan")
+        blocks = idct_islow(c["coef"], c["qt"])          # [by, bx, 8, 8]
+        by, bx = blocks.shape[:2]
+        plane = blocks.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
+        hx, rem_x = divmod(frame["hmax"], c["h"])
+        vx, rem_y = divmod(frame["vmax"], c["v"])
+        if rem_x or rem_y:
+            raise _not_ported("fractional sampling factors")
+        planes.append(_upsample(plane, c["dw"], c["dh"], hx, vx)[:h, :w])
+    if len(planes) == 1:
+        return planes[0]
+    # jdapimin.c default_decompress_parms: the colour space of 3 components
+    ids = tuple(c["id"] for c in frame["comps"])
+    if saw_jfif:
+        rgb = False
+    elif saw_adobe:
+        rgb = adobe_transform == 0
+    else:
+        rgb = ids == (82, 71, 66)                  # 'R', 'G', 'B'
+    if rgb:
+        return np.stack(planes, -1)
+    return ycc_to_rgb(*planes)
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """``np.asarray(PIL.Image.open(path))`` of a JPEG file: uint8 [H, W]
+    for grey, [H, W, 3] for colour."""
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read())
+
+
+def read_jpeg_rgb(path: str) -> np.ndarray:
+    """``np.asarray(PIL.Image.open(path).convert("RGB"))``: uint8
+    [H, W, 3], grey replicated."""
+    img = read_jpeg(path)
+    return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img

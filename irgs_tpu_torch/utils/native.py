@@ -5,7 +5,8 @@ The port uses one of them: the Morton-window k-nearest-neighbour search
 (≙ simple-knn's distCUDA2), which `create_from_pcd` takes above 50k points.
 The shared object is built with g++ at first use into
 ``build/irgs_tpu_torch/`` at the repository root, named by a hash of the
-source, beside the CUDA libraries. A failed build raises where the search
+source, beside the CUDA libraries; `build_library` builds the port's own
+host sources (``irgs_tpu_torch/csrc/*.cpp``) the same way. A failed build raises where the search
 is needed: the JAX loader falls back to the brute force, which gives other
 scales above 50k points, and the port does not.
 """
@@ -27,23 +28,30 @@ BUILD_DIR = ROOT / "build" / "irgs_tpu_torch"
 _LIB = None
 
 
-def build() -> Path:
-    """Compile native/irgs_native.cpp unless the library for this source
-    exists; returns its path."""
-    tag = hashlib.sha256(SRC.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libirgs_native_{tag}.so"
+def build_library(src: Path, stem: str) -> Path:
+    """Compile the C++ source `src` into ``build/irgs_tpu_torch/lib<stem>_
+    <hash>.so`` unless the library for this source exists; returns its
+    path. A failed build raises."""
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    lib = BUILD_DIR / f"lib{stem}_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     res = subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                          "-o", str(tmp), str(SRC), "-lpthread"],
+                          "-o", str(tmp), str(src), "-lpthread"],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SRC.name} ({res.returncode}):\n"
+        raise RuntimeError(f"g++ failed on {src.name} ({res.returncode}):\n"
                            f"{res.stderr}")
     os.replace(tmp, lib)
     return lib
+
+
+def build() -> Path:
+    """Compile native/irgs_native.cpp unless the library for this source
+    exists; returns its path."""
+    return build_library(SRC, "irgs_native")
 
 
 def _lib():

@@ -1,7 +1,9 @@
 """The port's dataset readers (irgs_tpu_torch.scene.datasets) against the JAX
 package's, on folders written here: a 4-view 32x32 Blender scene (RGBA PNG
 frames through PIL, points3d.ply), a Synthetic4Relight scene (EXR train and
-PNG test frames) and a TensoIR one."""
+PNG test frames), a TensoIR one, and Stanford-ORB scenes (PNG or EXR frames,
+grey 8- and 16-bit, RGB and EXR masks or none, resized by cv2's INTER_AREA
+to the benchmark size)."""
 
 import json
 import os
@@ -148,17 +150,114 @@ def test_downscale_r2_matches_cv2_inter_area(scenes):
                                        atol=1e-6, rtol=0, err_msg=name)
 
 
-def test_unported_scenes_and_sizes_raise(scenes, tmp_path):
-    with pytest.raises(NotImplementedError, match="integer"):
-        tds.load_scene(scenes["blender"], False, resolution=24)
-    colmap = tmp_path / "garden"
-    (colmap / "sparse").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="COLMAP"):
-        tds.load_scene(str(colmap))
-    orb = tmp_path / "StanfordORB" / "cactus"
-    orb.mkdir(parents=True)
-    (orb / "transforms_train.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="Stanford-ORB"):
-        tds.load_scene(str(orb))
+def test_unported_inputs_raise(scenes, tmp_path):
+    """What the port still does not read raises: a folder of no known
+    layout, a progressive JPEG frame (ROADMAP.md A6) and an image format
+    the port has no codec for."""
     with pytest.raises(ValueError, match="recognize"):
         tds.load_scene(str(tmp_path))
+    img = np.zeros((8, 8, 3), np.uint8)
+    Image.fromarray(img).save(tmp_path / "p.jpg", progressive=True)
+    with pytest.raises(NotImplementedError, match="SOF2.*ROADMAP.md A6"):
+        tds._load_image_any(str(tmp_path / "p.jpg"))
+    Image.fromarray(img).save(tmp_path / "f.bmp")
+    with pytest.raises(NotImplementedError, match="PNG, JPEG, EXR and HDR"):
+        tds._load_image_any(str(tmp_path / "f.bmp"))
+
+
+# --- Stanford-ORB ---------------------------------------------------------
+
+ORB_RES = 32
+
+
+def _write_orb(root, frame_ext=".png", mask="grey8", seed=0, n=(3, 2),
+               res=ORB_RES, points=False):
+    """A Stanford-ORB layout: transforms_{train,test}.json naming frames
+    without extension, frames under {split}/ and masks under
+    {split}_mask/ (mask: grey8, grey16, rgb, exr or None)."""
+    os.makedirs(root)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:res, :res]
+    soft = np.clip(1.4 - np.hypot(xx - res / 2 + 0.3, yy - res / 2) /
+                   (0.3 * res), 0, 1)
+    for split, count in zip(("train", "test"), n):
+        frames = [{"file_path": f"./{split}/{i:04d}",
+                   "transform_matrix": _c2w(i, rng).tolist()}
+                  for i in range(count)]
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.55, "frames": frames}, f)
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        os.makedirs(os.path.join(root, split + "_mask"), exist_ok=True)
+        for fr in frames:
+            base = os.path.join(root, fr["file_path"])
+            rgb = rng.uniform(size=(res, res, 3))
+            if frame_ext == ".exr":
+                jexr.write_exr(base + ".exr", (3 * rgb).astype(np.float32))
+            else:
+                Image.fromarray((rgb * 255).round().astype(np.uint8)).save(
+                    base + ".png")
+            mbase = os.path.join(root, fr["file_path"].replace(
+                split, split + "_mask"))
+            if mask == "grey8":
+                Image.fromarray((soft * 255).round().astype(np.uint8)).save(
+                    mbase + ".png")
+            elif mask == "grey16":
+                Image.fromarray((soft * 65535).round().astype(np.uint16)
+                                ).save(mbase + ".png")
+            elif mask == "rgb":
+                m8 = (soft * 255).round().astype(np.uint8)
+                Image.fromarray(np.stack([m8, m8 // 2, m8], -1)).save(
+                    mbase + ".png")
+            elif mask == "exr":
+                jexr.write_exr(mbase + ".exr", np.repeat(
+                    soft[..., None], 3, -1).astype(np.float32))
+    if points:
+        v = np.zeros(20, [("x", "f4"), ("y", "f4"), ("z", "f4")])
+        for k in ("x", "y", "z"):
+            v[k] = rng.standard_normal(20)
+        jply.write_ply(os.path.join(root, "points3d.ply"), v)
+    return root
+
+
+ORB_KINDS = {
+    "png_grey8": dict(frame_ext=".png", mask="grey8"),
+    "png_grey16": dict(frame_ext=".png", mask="grey16"),
+    "png_rgb_mask": dict(frame_ext=".png", mask="rgb"),
+    "png_no_mask": dict(frame_ext=".png", mask=None),
+    "exr_grey8": dict(frame_ext=".exr", mask="grey8"),
+    "exr_exr_mask": dict(frame_ext=".exr", mask="exr", points=True),
+}
+ORB_SIZES = {"int_2x": 16, "frac": 20, "enlarge": 48}
+
+
+@pytest.mark.parametrize("size", sorted(ORB_SIZES))
+@pytest.mark.parametrize("kind", sorted(ORB_KINDS))
+def test_stanford_orb_matches_jax(tmp_path, kind, size):
+    """read_stanford_orb_scene at a small benchmark_size reached by an
+    integer, a fractional and an enlarging INTER_AREA resize: images, masks,
+    cameras, points, translate and radius equal the JAX package's."""
+    root = _write_orb(str(tmp_path / "StanfordORB" / "cactus"),
+                      seed=len(kind), **ORB_KINDS[kind])
+    bs = ORB_SIZES[size]
+    for white in (False, True):
+        j = jds.read_stanford_orb_scene(root, white, True, benchmark_size=bs,
+                                        num_init_points=64, seed=3)
+        t = tds.read_stanford_orb_scene(root, white, True, benchmark_size=bs,
+                                        num_init_points=64, seed=3)
+        _assert_scene_equal(j, t)
+        assert t.train_cameras[0].image.shape == (bs, bs, 3)
+        assert t.points.shape == ((20, 3) if "points" in ORB_KINDS[kind]
+                                  else (64, 3))
+        if ORB_KINDS[kind]["mask"] is not None:
+            assert 0 < t.train_cameras[0].mask.mean() < 1
+
+
+def test_stanford_orb_load_scene_matches_jax(tmp_path):
+    """load_scene sends a stanford_orb folder to the reader at its 512²
+    benchmark size."""
+    root = _write_orb(str(tmp_path / "stanford_orb" / "gnome"), n=(2, 1))
+    j = jds.load_scene(root, True, eval_split=True)
+    t = tds.load_scene(root, True, eval_split=True)
+    _assert_scene_equal(j, t)
+    assert t.train_cameras[0].image.shape == (512, 512, 3)
+    assert len(t.test_cameras) == 1
