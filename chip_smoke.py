@@ -128,7 +128,33 @@ Phases (JSON lines; any failure exits non-zero):
                 stage's rc, seconds and peak memory, finite eval PSNR,
                 stage 2's ray_psnr rising, each stage's kernel launches,
                 and the training stages' first blend and gather inputs and
-                largest scatter-add held against the plain versions.
+                largest scatter-add held against the plain versions;
+  bench         python -m irgs_tpu_torch.bench at its defaults (BENCH): its
+                JSON line with bench.py's keys (the cost fields null),
+                ms/step beside the stage2 phase's;
+  bench_stage1  python -m irgs_tpu_torch.tools.bench_stage1 at full width,
+                --iters 3: its JSON line with the JAX script's keys;
+  bench_frame   python -m irgs_tpu_torch.tools.bench_frame at 800², its
+                samples cut to 16 + 8: the grid's overflow, a cold and a
+                warm frame, its JSON line;
+  raster_oracle the whole rasterizer (binning, the per-tile sort, both blend
+                kernels) on tests/test_raster.py's tiny scene against the
+                brute-force oracle, values and gradients, and preprocess
+                against the independent preprocess_reference;
+  drives        drive_parity at its defaults but one view, on 1024 of its
+                foreground pixels (gated at 40 dB), audit_train_budget's
+                rows, trace_fidelity's two densities, 41 of drive_stage2's
+                161 steps (ray PSNR rising, the envmap error below its
+                initial value); each tool's launches counted apart;
+  load_reproducer
+                the stage-2 CLI's toy with a NaN injected at step 2 (exit 3
+                and a reproducer), then its replay, which must raise;
+  run_grid      python -m irgs_tpu_torch.tools.run_grid (its in-process
+                runner) on e2e's dataset (made here when e2e did not run):
+                every step done, collect_results' output, and a second
+                invocation that skips every step by its markers.
+Each of the last seven runs its tool's main in this process and holds the
+kernels at the path's first inputs (the scatter-add at its largest).
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -2425,6 +2451,11 @@ def phase_train_stage1_cli(results, tmp):
             "max_memory_allocated": peak, "launches": launches,
             "log_final": log[-1], "files": files,
             "stage2_s": s2_s, "stage2_launches": s2_launches,
+            # the pairs the tracer's table drops in the stage-2 steps, as
+            # the JAX package drops them (C3_SHARED_CAP): reported, not a
+            # check
+            "stage2_grid_overflow": max(
+                (m.get("grid_overflow", 0) for m in log2), default=None),
             "stage2_log": log2, "stage2_files": files2}
     checks = {
         "every_phase": set(by_phase) == {"initial", "volume", "surfel",
@@ -3356,7 +3387,7 @@ def phase_datasets(results, tmp):
                     for k in set(launches) | set(orb_launches)}
     results.setdefault("launches", {})["datasets"] = launches_all
     train_cli = results.get("train_cli_line", {})
-    line = {"phase": "datasets",
+    line = {"phase": "datasets", "c3_shared_cap": C3_SHARED_CAP,
             "jpeg": {"fixtures": len(exact), "build_and_first_s": build_s,
                      "large_1297x840_ms": decode_ms,
                      "large_ms_median": statistics.median(decode_ms)},
@@ -3380,11 +3411,25 @@ def phase_datasets(results, tmp):
 # run_e2e at the dataset's full width (400², 256 + 128 GT samples), cut in
 # depth to stay near 250 s on the card: 8 + 2 views, radiosity textures
 # 128² / 64 x 128 at 128 + 64 samples, a 20k-point cloud on the analytic
-# surfaces as the init (from the readers' 100k random points this short
-# stage 1 leaves surfels whose cell pairs overflow the tracer's 2^21 pair
-# table in stage 2: an open fault, ROADMAP.md C), 200 stage-1 iterations
-# (the indirect phase for the last 20, its TSDF at 128³), 50 stage-2
-# iterations at dup 2^21, the evals at 32 + 16 samples on one view each
+# surfaces as the init (C3_SHARED_CAP), 200 stage-1 iterations (the
+# indirect phase for the last 20, its TSDF at 128³), 50 stage-2 iterations
+# at dup 2^21 (the first
+# and the last are logged), the evals at 32 + 16 samples on one view each.
+#
+# Why the datasets and e2e phases start from surface clouds: a short stage 1
+# from the readers' 100k random points leaves surfels whose cell pairs
+# overflow the tracer's 2^21 pair table in stage 2, in the JAX package as in
+# the port (the same 21-bit CSR start in cell_meta, the same pair_capacity,
+# the same dropped pairs and grid_overflow count): ROADMAP.md C3, shared,
+# with the counts of earlier chip runs
+C3_SHARED_CAP = {
+    "shared_with_jax_package": True,
+    "pair_capacity": 2 ** 21,
+    "overflow_from_random_100k_init": {
+        "C1_datasets_stanford_orb_stage2": 1_935_831,
+        "C2_e2e_stage2_200_stage1_steps": 283_095,
+        "R2_train_stage1_cli_stage2_60_stage1_steps": 1_923_179},
+    "source": "PERF.md section 6 (chip runs C1, C2, R2)"}
 E2E_SMOKE = ["--img", "400", "--ds_spp", "256", "128", "--n_train", "8",
              "--n_test", "2", "--ds_grid", "128", "64", "--ds_rad_spp", "128",
              "64", "--s1_iters", "200", "--s1_indirect_tail", "20",
@@ -3453,7 +3498,8 @@ def phase_e2e(results, tmp):
         psnr[name] = {k: v for k, v in summary.get(name, {}).items()
                       if "psnr" in k and isinstance(v, (int, float))}
     meta = summary.get("dataset_meta", {})
-    line = {"phase": "e2e", "wall_s": wall, "stopped": stopped,
+    line = {"phase": "e2e", "c3_shared_cap": C3_SHARED_CAP,
+            "wall_s": wall, "stopped": stopped,
             "stage_s": summary.get("timings_s"),
             "stage_rc": summary.get("rc"), "psnr": psnr,
             "stage2_ray_psnr": {m["iter"]: m.get("ray_psnr") for m in log},
@@ -3485,6 +3531,487 @@ def phase_e2e(results, tmp):
         fail("e2e", f"checks failed: {checks}")
 
 
+# ---------------------------------------------------------------------------
+# the bench, oracle and drive tools (each run in this process through its
+# main, so that the launch counters and the kernels' first inputs are read)
+
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mfu", "hbm_util",
+              "flops_per_step", "bytes_per_step"}
+BENCH_STAGE1_KEYS = {"stage1_initial_iters_per_sec",
+                     "stage1_volume_iters_per_sec",
+                     "stage1_surfel_iters_per_sec", "stage1_densify_ms",
+                     "stage1_tsdf_refresh_s"}
+BENCH_FRAME_KEYS = {"frame_img", "fg_pixels", "rays_per_frame", "cold_s",
+                    "warm_s", "mrays_per_sec"}
+# bench_frame at its full width, its samples cut (a cut of depth): the
+# defaults' 512 + 256 take ~290 s a frame (PERF.md records one such run),
+# 64 + 32 ~35 s and 32 + 16 ~20 s: the cold and the warm frame at 16 + 8
+# keep the whole smoke within its time
+BENCH_FRAME_SMOKE = ["--img", "800", "--spp", "16", "8"]
+PARITY_MIN_PSNR = 40.0     # the JAX drive's figure is 54.5-55.5 dB
+# drive_parity at its defaults but one view compared on 1024 of its
+# foreground pixels (the JAX tool's --subsample; cuts of depth: its oracle
+# trace takes ~40-55 s for a whole 64² view), drive_stage2 for 41 of its
+# 161 steps
+DRIVE_PARITY_SMOKE = ["--views", "1", "--subsample", "1024"]
+DRIVE_STAGE2_STEPS = dict(iters=41, log_at=(0, 20, 40))
+
+
+def run_tool(main, argv, **kw):
+    """A tool's main(argv, **kw) in this process, its standard output
+    captured -> (its return value, its output lines, seconds)."""
+    import contextlib
+    import io
+
+    import torch
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ret = main(argv, **kw)
+    torch.cuda.synchronize()
+    return ret, buf.getvalue().splitlines(), time.perf_counter() - a
+
+
+def _held(kernels=("blend", "gather")):
+    from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
+    targets = {"blend": (rb, "blend_tiles"),
+               "gather": (gt, "gather_rows_kernel")}
+    return FirstCalls({k: targets[k] for k in kernels}, clone=(1,))
+
+
+def _finite_json(line, keys, nullable=()):
+    """The tool's JSON line has exactly `keys`, numbers finite (the
+    `nullable` keys null)."""
+    return (set(line) == keys
+            and all(line[k] is None for k in nullable)
+            and all(isinstance(v, str) or (isinstance(v, (int, float))
+                                           and math.isfinite(v))
+                    for k, v in line.items() if k not in nullable))
+
+
+def phase_bench(results):
+    """python -m irgs_tpu_torch.bench at its defaults (workload.BENCH): its
+    JSON line with bench.py's keys, the cost fields null, ms/step beside the
+    stage2 phase's; the kernels held at the path's first inputs and the
+    scatter-add at its largest."""
+    from irgs_tpu_torch import bench
+
+    reset_launch_counts()
+    with _held() as rec, LargestScatter() as scat:
+        _, lines, wall = run_tool(bench.main, ["--device", "cuda"])
+    launches = launch_counts()
+    results.setdefault("launches", {})["bench"] = launches
+    check_recorded(results, rec, "bench_tool_400px")
+    check_scatter(results, scat, "bench_tool_largest")
+    out = json.loads(lines[-1])
+    stage2 = results.get("stage2", {})
+    line = {"phase": "bench", "wall_s": wall, "json": out,
+            "ms_per_step": 1e3 / out["value"] if out.get("value") else None,
+            "stage2_phase_ms_per_step": stage2.get("ms_per_step"),
+            "launches": launches}
+    checks = {
+        "keys_and_values": _finite_json(out, BENCH_KEYS, nullable=(
+            "vs_baseline", "mfu", "hbm_util", "flops_per_step",
+            "bytes_per_step")) and out["value"] > 0,
+        "kernels_launched": all(launches.get(k, 0) > 0 for k in (
+            "blend_fwd", "blend_bwd", "gather_rows", "segment_sum"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("bench", f"checks failed: {checks}")
+
+
+def phase_bench_stage1(results):
+    """python -m irgs_tpu_torch.tools.bench_stage1 at full width with
+    --iters 3: its JSON line with the JAX script's keys, beside the stage1
+    phase's ms/step (the same workload at dup 2^21, 10 timed steps)."""
+    from irgs_tpu_torch.tools import bench_stage1
+
+    reset_launch_counts()
+    with _held(("blend",)) as rec, LargestScatter() as scat:
+        _, lines, wall = run_tool(bench_stage1.main,
+                                  ["--device", "cuda", "--iters", "3"])
+    launches = launch_counts()
+    results.setdefault("launches", {})["bench_stage1"] = launches
+    check_recorded(results, rec, "bench_stage1_tool_400px")
+    check_scatter(results, scat, "bench_stage1_tool_largest")
+    out = json.loads(lines[-1])
+    phases = results.get("stage1", {}).get("phases", {})
+    line = {"phase": "bench_stage1", "wall_s": wall, "json": out,
+            "ms_per_step": {p: 1e3 / out[f"stage1_{p}_iters_per_sec"]
+                            for p in ("initial", "volume", "surfel")
+                            if out.get(f"stage1_{p}_iters_per_sec")},
+            "stage1_phase_ms_per_step": {p: phases[p]["ms_per_step"]
+                                         for p in ("initial", "volume",
+                                                   "surfel") if p in phases},
+            "lines": lines[:-1], "launches": launches}
+    checks = {"keys_and_values": _finite_json(out, BENCH_STAGE1_KEYS),
+              "kernels_launched": all(launches.get(k, 0) > 0 for k in (
+                  "blend_fwd", "blend_bwd", "segment_sum"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("bench_stage1", f"checks failed: {checks}")
+
+
+def phase_bench_frame(results):
+    """python -m irgs_tpu_torch.tools.bench_frame at 800² with its samples
+    cut (BENCH_FRAME_SMOKE): the grid's overflow, a cold and a warm frame,
+    its JSON line with the JAX script's keys."""
+    from irgs_tpu_torch.tools import bench_frame
+
+    reset_launch_counts()
+    with _held() as rec:
+        _, lines, wall = run_tool(bench_frame.main,
+                                  ["--device", "cuda", *BENCH_FRAME_SMOKE])
+    launches = launch_counts()
+    results.setdefault("launches", {})["bench_frame"] = launches
+    check_recorded(results, rec, "bench_frame_800px")
+    out = json.loads(lines[-1])
+    line = {"phase": "bench_frame",
+            "cut": {"spp": [int(x) for x in BENCH_FRAME_SMOKE[3:5]],
+                    "defaults": [512, 256]},
+            "wall_s": wall, "json": out,
+            "grid_line": next((x for x in lines if x.startswith("grid")),
+                              None),
+            "launches": launches}
+    checks = {"keys_and_values": _finite_json(out, BENCH_FRAME_KEYS),
+              "frame_800": out.get("frame_img") == 800,
+              "grid_overflow_zero": "grid built, overflow: 0" in lines,
+              "kernels_launched": all(launches.get(k, 0) > 0 for k in (
+                  "blend_fwd", "gather_rows"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("bench_frame", f"checks failed: {checks}")
+
+
+# tests/test_raster.py's tiny scene (64 surfels uniform in ±1, log-scales
+# uniform in [-3, -1.5], sigmoid(N(0,1) + 1) opacities, 0.3·N(0,1) SH, 4
+# uniform features; a 64x64 camera at z = -4), here from a numpy seed, and
+# its tolerances against the oracle. The card's values are held within
+# those plus the forward kernel's own bound against its plain version
+# (FWD_ATOL + FWD_RTOL·|x|: its transmittance is a sequential sum of log1p,
+# the plain version's a cumsum), since the CPU tests hold the plain version
+# within test_raster.py's; the line also says which fields stay within
+# test_raster.py's alone
+RASTER_ORACLE_TOL = {"color": (2e-5, 0), "feature": (2e-5, 0),
+                     "alpha": (2e-5, 0), "depth": (1e-4, 0),
+                     "depth2": (5e-4, 0), "depth_median": (1e-5, 0),
+                     "normal": (2e-5, 0), "distortion": (1e-4, 1e-3)}
+RASTER_ORACLE_GRAD = (2e-4, 1e-3)   # x max|g| absolute, relative
+
+
+def _oracle_scene(dev, n=64, s=4, seed=0):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    arrs = (rng.uniform(-1.0, 1.0, (n, 3)),
+            np.exp(rng.uniform(-3.0, -1.5, (n, 2))),
+            rng.standard_normal((n, 4)),
+            1.0 / (1.0 + np.exp(-(rng.standard_normal((n, 1)) + 1.0))),
+            0.3 * rng.standard_normal((n, 16, 3)), rng.uniform(size=(n, s)))
+    return [torch.tensor(a, dtype=torch.float32, device=dev) for a in arrs]
+
+
+def phase_raster_oracle(results):
+    """The whole rasterizer on the card (preprocess, binning, the per-tile
+    sort, both blend kernels) against the brute-force oracle
+    (ops/surfel_raster_ref.rasterize_reference, every surfel at every pixel
+    in global depth order, plain PyTorch on the card), values and
+    gradients; and preprocess against the independent preprocess_reference,
+    with tests/test_raster.py's tolerances."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.ops import surfel_raster as sr
+    from irgs_tpu_torch.ops import surfel_raster_ref as ref
+    from irgs_tpu_torch.scene.cameras import Camera
+
+    dev = torch.device("cuda")
+    W = H = 64
+    cam = Camera(0, np.eye(3), np.array([0.0, 0.0, 4.0]), fovx=0.8,
+                 fovy=0.8, width=W, height=H).params(dev)
+    scene = _oracle_scene(dev)
+    n = scene[0].shape[0]
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    tgt = torch.tensor(np.random.default_rng(7).uniform(
+        size=(H, W, 3)).astype(np.float32), device=dev)
+    kw = dict(img_w=W, img_h=H, active_sh_degree=3)
+    reset_launch_counts()
+    with _held(("blend",)) as rec, LargestScatter() as scat:
+        leaves = [x.clone().requires_grad_(True) for x in scene] + [
+            torch.zeros((n, 2), device=dev, requires_grad=True)]
+        out = sr.rasterize(*leaves[:6], leaves[6], cam, bg,
+                           dup_capacity=2 ** 14, **kw)
+        loss = lambda o: ((o.color - tgt).abs().mean() + o.feature.mean()
+                          + 0.1 * o.distortion.mean() + o.normal.mean()
+                          + 0.01 * o.depth.mean())
+        g_k = torch.autograd.grad(loss(out), leaves)
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    results.setdefault("launches", {})["raster_oracle"] = launches
+    leaves_r = [x.clone().requires_grad_(True) for x in scene] + [
+        torch.zeros((n, 2), device=dev, requires_grad=True)]
+    out_r = ref.rasterize_reference(*leaves_r[:6], cam, bg,
+                                    means2d_offset=leaves_r[6], **kw)
+    g_r = torch.autograd.grad(loss(out_r), leaves_r)
+    errs, strict, ok_v = {}, {}, True
+    for name, (atol, rtol) in RASTER_ORACLE_TOL.items():
+        a, b = getattr(out, name).detach(), getattr(out_r, name).detach()
+        d = (a - b).abs()
+        errs[name] = float(d.max())
+        strict[name] = bool((d <= atol + rtol * b.abs()).all())
+        ok_v &= bool((d <= atol + FWD_ATOL
+                      + (rtol + FWD_RTOL) * b.abs()).all())
+    g_errs, ok_g = {}, True
+    for nm, a, b in zip(("means", "scales", "quats", "opacity", "shs",
+                         "features", "means2d"), g_k, g_r):
+        scale = float(b.abs().max().clamp_min(1e-8))
+        d = (a - b).abs()
+        g_errs[nm] = float(d.max()) / scale
+        ok_g &= bool((d <= RASTER_ORACLE_GRAD[0] * scale
+                      + RASTER_ORACLE_GRAD[1] * b.abs()).all())
+    with torch.no_grad():
+        prep = sr.preprocess(*scene[:5], cam, W, H, 3)
+    orc = ref.preprocess_reference(*scene[:5], cam, W, H, 3)
+    valid = prep.valid.cpu().numpy()
+    p_errs = {k: float(np.abs(getattr(prep, k).cpu().numpy()[valid]
+                              - orc[k][valid]).max())
+              for k in ("M", "depth", "normal", "rgb")}
+    c_err = float(np.abs(prep.center.cpu().numpy()[valid]
+                         - orc["center"][valid]).max())
+    ext = orc["extent"][valid].max(axis=1)
+    rad = prep.radius.cpu().numpy()[valid]
+    check_recorded(results, rec, "raster_oracle_64px")
+    check_scatter(results, scat, "raster_oracle_largest")
+    line = {"phase": "raster_oracle", "surfels": n, "img": W,
+            "max_abs_err": errs, "within_test_raster_tol": strict,
+            "kernel_tol": [FWD_ATOL, FWD_RTOL],
+            "grad_max_err_over_max": g_errs,
+            "preprocess_max_abs_err": p_errs, "center_err": c_err,
+            "tolerances": RASTER_ORACLE_TOL,
+            "grad_tolerance": RASTER_ORACLE_GRAD, "launches": launches}
+    checks = {
+        "values": ok_v, "gradients": ok_g,
+        "overflow_zero": int(out.overflow) == 0,
+        "renders": float(out.alpha.detach().max()) > 0.3
+        and float(out_r.depth_median.detach().abs().max()) > 0.1,
+        "preprocess": int(valid.sum()) > 10
+        and p_errs["M"] <= 2e-4 * (1 + np.abs(orc["M"][valid]).max())
+        and p_errs["depth"] <= 1e-5 * (1 + np.abs(orc["depth"]).max())
+        and p_errs["normal"] <= 2e-4 and p_errs["rgb"] <= 2e-4
+        and c_err < 1.0 and bool(np.all(rad >= ext - 1e-3))
+        and bool(np.all(rad <= np.ceil(ext) + 1.0)),
+        "kernels_launched": launches.get("blend_fwd", 0) > 0
+        and launches.get("blend_bwd", 0) > 0}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("raster_oracle", f"checks failed: {checks}")
+
+
+def phase_drives(results):
+    """The tracer-bias drives, each a path of its own (its launches counted
+    from 0 and its kernels held at its first inputs): drive_parity
+    (DRIVE_PARITY_SMOKE: the shadow scene at 64², 512 + 256 samples, the
+    production shading against the oracle trace's; gated at
+    PARITY_MIN_PSNR), audit_train_budget at its defaults (its rows on the
+    100k dense stress scene), trace_fidelity (both densities; its variants
+    select per candidate, so no pair table and no kernel of ours) and
+    drive_stage2 (DRIVE_STAGE2_STEPS: the ray PSNR rises, the envmap error
+    falls below its initial value)."""
+    from irgs_tpu_torch.tools import (audit_train_budget, drive_parity,
+                                      drive_stage2, trace_fidelity)
+
+    def run(path, main, argv, kernels, case, scatter=False, **kw):
+        reset_launch_counts()
+        with _held(kernels) as rec, LargestScatter() as scat:
+            out = run_tool(main, argv, **kw)
+        launches = results.setdefault("launches", {})[path] = launch_counts()
+        if kernels:
+            check_recorded(results, rec, case)
+        if scatter:
+            check_scatter(results, scat, f"{path}_largest")
+        return (*out, launches)
+
+    parity, p_lines, p_s, p_n = run(
+        "drive_parity", drive_parity.main,
+        ["--device", "cuda", *DRIVE_PARITY_SMOKE], ("blend", "gather"),
+        "drive_parity_64px")
+    rows, a_lines, a_s, a_n = run(
+        "audit_train_budget", audit_train_budget.main, ["--device", "cuda"],
+        ("gather",), "audit_train_budget_100k")
+    fid, f_lines, f_s, f_n = run(
+        "trace_fidelity", trace_fidelity.main, ["--device", "cuda"], (),
+        None)
+    s2, s_lines, s_s, s_n = run(
+        "drive_stage2", drive_stage2.main, ["--device", "cuda"],
+        ("blend", "gather"), "drive_stage2_128px", scatter=True,
+        **DRIVE_STAGE2_STEPS)
+    logged = s2["logged"]
+    steps = sorted(logged)
+    launches = {"drive_parity": p_n, "audit_train_budget": a_n,
+                "trace_fidelity": f_n, "drive_stage2": s_n}
+    line = {"phase": "drives", "parity_cut": DRIVE_PARITY_SMOKE,
+            "drive_stage2_cut": DRIVE_STAGE2_STEPS,
+            "parity_psnr": parity,
+            "parity_s": p_s, "parity_lines": p_lines,
+            "audit_rows": dict(rows), "audit_s": a_s, "audit_lines": a_lines,
+            "trace_fidelity": fid, "trace_fidelity_s": f_s,
+            "drive_stage2": s2, "drive_stage2_s": s_s,
+            "drive_stage2_lines": s_lines, "launches": launches}
+    checks = {
+        "parity_psnr_gate": bool(parity) and all(
+            v >= PARITY_MIN_PSNR for v in parity.values()),
+        "audit_rows": len(rows) == 2 and all(
+            all(math.isfinite(v) for v in r.values()) for _, r in rows),
+        "trace_fidelity_rows": set(fid) == {"bench", "dense"} and all(
+            math.isfinite(v["dalpha"]) and math.isfinite(v["dcolor"])
+            for r in fid.values() for k, v in r.items()
+            if k != "oracle_ms"),
+        "stage2_ray_psnr_rises": logged[steps[-1]]["ray_psnr"]
+        > logged[steps[0]]["ray_psnr"],
+        "stage2_envmap_recovers": s2["env_err"] < s2["env_err_init"],
+        "kernels_launched": all(p_n.get(k, 0) > 0 for k in (
+            "blend_fwd", "gather_rows")) and a_n.get("gather_rows", 0) > 0
+        and all(s_n.get(k, 0) > 0 for k in (
+            "blend_fwd", "blend_bwd", "gather_rows", "segment_sum"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("drives", f"checks failed: {checks}")
+
+
+def phase_load_reproducer(results, tmp):
+    """python -m irgs_tpu_torch.train --toy with --inject_nan_at 2 under
+    --detect_anomaly: exit 3 and a reproducer of step 2; then
+    python -m irgs_tpu_torch.tools.load_reproducer replays that step under
+    anomaly detection, which must raise on the NaN."""
+    from irgs_tpu_torch.tools import load_reproducer
+    from irgs_tpu_torch.train.__main__ import main as train_main
+
+    run = os.path.join(tmp, "nan_toy")
+    reset_launch_counts()
+    a = time.perf_counter()
+    with _held() as rec, LargestScatter() as scat:
+        try:
+            train_main(["--toy", "-m", run, "--iterations", "3",
+                        "--inject_nan_at", "2", "--detect_anomaly",
+                        "--vis_interval", "0"])
+            code = 0
+        except SystemExit as e:
+            code = e.code
+    train_s = time.perf_counter() - a
+    rp = os.path.join(run, "reproducer_000002.ckpt")
+    raised, lines = None, []
+    a = time.perf_counter()
+    try:
+        _, lines, _ = run_tool(load_reproducer.main, [rp, "--toy"])
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0]
+    replay_s = time.perf_counter() - a
+    launches = launch_counts()
+    results.setdefault("launches", {})["load_reproducer"] = launches
+    check_recorded(results, rec, "reproducer_toy_256px")
+    check_scatter(results, scat, "reproducer_largest")
+    line = {"phase": "load_reproducer", "train_exit_code": code,
+            "train_s": train_s, "replay_s": replay_s, "raised": raised,
+            "replay_lines": lines, "launches": launches}
+    checks = {"train_exit_3": code == 3, "reproducer": os.path.exists(rp),
+              "replay_raises_on_nan": raised is not None
+              and "nan" in raised.lower(),
+              "kernels_launched": all(launches.get(k, 0) > 0 for k in (
+                  "blend_fwd", "blend_bwd", "gather_rows", "segment_sum"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("load_reproducer", f"checks failed: {checks}")
+
+
+# run_grid on the e2e phase's analytic dataset, one scene, cut in depth: 20
+# stage-1 and 10 stage-2 iterations, 16 diffuse samples in stage 2 and the
+# NVS eval; its frames at -r 8 (50²: the relighting eval's samples, 512 +
+# 256, have no run_grid flag), 2048 pixels a stage-2 step
+RUN_GRID_SMOKE = ["--scenes", "dataset", "--s1_iterations", "20",
+                  "--s2_iterations", "10", "--resolution", "8",
+                  "--diffuse_sample_num", "16",
+                  "--nvs_diffuse_sample_num", "16",
+                  "--s2_args=--trace_num_rays 32768 --vis_interval 0"]
+
+
+def phase_run_grid(results, tmp):
+    """python -m irgs_tpu_torch.tools.run_grid through its in-process
+    runner on the e2e phase's dataset (made here with E2E_SMOKE's dataset
+    arguments when e2e did not run): every step's .done marker and log,
+    collect_results' output for the three kinds, and a second invocation
+    that skips every step by its marker."""
+    import contextlib
+    import io
+
+    from irgs_tpu_torch.tools import collect_results, run_grid
+
+    root = os.path.join(tmp, "e2e")
+    ds = os.path.join(root, "dataset")
+    if not os.path.exists(os.path.join(ds, "transforms_train.json")):
+        from irgs_tpu_torch.tools import run_e2e
+        run_e2e.main(["--root", root, "--results",
+                      os.path.join(tmp, "e2e_results"), "--device", "cuda",
+                      *E2E_SMOKE, "--skip_stage1", "--skip_stage2",
+                      "--skip_eval"], run_stage=run_e2e.run_in_process)
+    out = os.path.join(tmp, "grid")
+    argv = ["--data_root", root, "--out", out, *RUN_GRID_SMOKE,
+            "--relight_envmaps", os.path.join(ds, "sunset.exr"),
+            "--device", "cuda"]
+    reset_launch_counts()
+    with _held() as rec, LargestScatter() as scat:
+        _, lines, wall = run_tool(run_grid.main, argv,
+                                  run_cmd=run_grid.run_in_process)
+    launches = launch_counts()
+    results.setdefault("launches", {})["run_grid"] = launches
+    check_recorded(results, rec, "run_grid_50px")
+    check_scatter(results, scat, "run_grid_largest")
+    _, lines2, wall2 = run_tool(run_grid.main, argv,
+                                run_cmd=run_grid.run_in_process)
+    logs = os.path.join(out, "dataset", "logs")
+    model = os.path.join(out, "dataset", "irgs")
+    collected = {}
+    for kind in ("nvs", "material", "relight"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            collect_results.main([model, "--kind", kind])
+        collected[kind] = buf.getvalue().splitlines()
+    line = {"phase": "run_grid", "wall_s": wall, "second_wall_s": wall2,
+            "lines": lines, "second_lines": lines2,
+            "logs": sorted(os.listdir(logs)) if os.path.isdir(logs) else [],
+            "collect_results": collected, "launches": launches}
+    checks = {
+        "every_step_done": all(os.path.exists(os.path.join(
+            logs, f"{s}.done")) for s in run_grid.ALL_STEPS),
+        "grid_ok": json.loads(lines[-1]) == {"grid": "ok", "cells": 1},
+        "second_run_skips_every_step": sum(
+            "[skip]" in x for x in lines2) == len(run_grid.ALL_STEPS)
+        and not any("[run ]" in x for x in lines2),
+        # the grid's material step is the --compute_scale pass alone (as
+        # in run_grid.py), which writes no material_results.json
+        "collect_results": all(any("(n=1)" in x for x in collected[k])
+                               for k in ("nvs", "relight")),
+        "kernels_launched": all(launches.get(k, 0) > 0 for k in (
+            "blend_fwd", "blend_bwd", "gather_rows", "segment_sum"))}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("run_grid", f"checks failed: {checks}")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -3504,7 +4031,15 @@ KERNELS = {
                "tracer_options": "bench_400px_100k",
                "parallel": "bench_400px_100k",
                "datasets": "colmap_400px_100k",
-               "e2e": "e2e_stage1_400px"}),
+               "e2e": "e2e_stage1_400px",
+               "bench": "bench_tool_400px",
+               "bench_stage1": "bench_stage1_tool_400px",
+               "bench_frame": "bench_frame_800px",
+               "raster_oracle": "raster_oracle_64px",
+               "drive_parity": "drive_parity_64px",
+               "drive_stage2": "drive_stage2_128px",
+               "load_reproducer": "reproducer_toy_256px",
+               "run_grid": "run_grid_50px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -3517,7 +4052,13 @@ KERNELS = {
                "tracer_options": "bench_400px_100k",
                "parallel": "bench_400px_100k",
                "datasets": "colmap_400px_100k",
-               "e2e": "e2e_stage1_400px"}),
+               "e2e": "e2e_stage1_400px",
+               "bench": "bench_tool_400px",
+               "bench_stage1": "bench_stage1_tool_400px",
+               "raster_oracle": "raster_oracle_64px",
+               "drive_stage2": "drive_stage2_128px",
+               "load_reproducer": "reproducer_toy_256px",
+               "run_grid": "run_grid_50px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -3533,7 +4074,14 @@ KERNELS = {
                "tracer_options": "tracer_options_bf16_first_pass",
                "parallel": "stage2_first_pass",
                "datasets": "colmap_400px_100k_first_pass",
-               "e2e": "e2e_stage2_400px_first_pass"}),
+               "e2e": "e2e_stage2_400px_first_pass",
+               "bench": "bench_tool_400px_first_pass",
+               "bench_frame": "bench_frame_800px_first_pass",
+               "drive_parity": "drive_parity_64px_first_pass",
+               "audit_train_budget": "audit_train_budget_100k_first_pass",
+               "drive_stage2": "drive_stage2_128px_first_pass",
+               "load_reproducer": "reproducer_toy_256px_first_pass",
+               "run_grid": "run_grid_50px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -3549,7 +4097,13 @@ KERNELS = {
                "stage2_full": "stage2_full_largest",
                "tracer_options": "stage2_largest",
                "parallel": "stage2_largest",
-               "datasets": "colmap_largest", "e2e": "e2e_stage2_largest"}),
+               "datasets": "colmap_largest", "e2e": "e2e_stage2_largest",
+               "bench": "bench_tool_largest",
+               "bench_stage1": "bench_stage1_tool_largest",
+               "raster_oracle": "raster_oracle_largest",
+               "drive_stage2": "drive_stage2_largest",
+               "load_reproducer": "reproducer_largest",
+               "run_grid": "run_grid_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -3586,7 +4140,9 @@ def kernels_line(results):
 PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "eval_small", "mis_small", "eval", "train_cli", "train_cli_oversize",
           "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
-          "extract_mesh", "tracer_options", "parallel", "datasets", "e2e")
+          "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
+          "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
+          "load_reproducer", "run_grid")
 
 
 def nvidia_smi_line():
@@ -3642,6 +4198,13 @@ def main():
             "parallel": lambda: phase_parallel(results, tmp),
             "datasets": lambda: phase_datasets(results, tmp),
             "e2e": lambda: phase_e2e(results, tmp),
+            "bench": lambda: phase_bench(results),
+            "bench_stage1": lambda: phase_bench_stage1(results),
+            "bench_frame": lambda: phase_bench_frame(results),
+            "raster_oracle": lambda: phase_raster_oracle(results),
+            "drives": lambda: phase_drives(results),
+            "load_reproducer": lambda: phase_load_reproducer(results, tmp),
+            "run_grid": lambda: phase_run_grid(results, tmp),
         }
         for name in PHASES:
             if name in phases:

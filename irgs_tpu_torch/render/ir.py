@@ -171,14 +171,10 @@ def rendering_equation(base_color, roughness, normals, position, viewdirs,
     return results
 
 
-def make_trace_fn(params, aux, grid, tracer_cfg: gt.TracerConfig, cam_pos,
-                  sh_deg: int, with_materials: bool = False,
-                  ray_chunk: int = 65536, stats_out: dict | None = None):
-    """Bind the Gaussian state into a trace closure (≙ make_trace_fn,
-    :181-336). More than `ray_chunk` rays take the chunked path: coherence
-    sort, one collect+select over all rays (in memory-bounded groups),
-    blends per chunk, re-trace rounds, and the `trace_trunc_frac` /
-    `trace_more_frac` stats in `stats_out`. Fewer rays take trace_segments."""
+def trace_inputs(params, aux, cam_pos,
+                 with_materials: bool = False) -> gt.TraceInputs:
+    """The tracer's view of the Gaussians (dead ones at opacity 0), with
+    base colour and roughness as features or none."""
     s = params.get_scaling()
     R = math3d.quat_to_rotmat(params.rotation)
     opacity = torch.where(aux.alive, params.get_opacity()[:, 0],
@@ -188,10 +184,21 @@ def make_trace_fn(params, aux, grid, tracer_cfg: gt.TracerConfig, cam_pos,
     else:
         features = torch.zeros((params.n_capacity, 0), dtype=torch.float32,
                                device=params.xyz.device)
-    inputs = gt.TraceInputs(
+    return gt.TraceInputs(
         means3d=params.xyz, opacity=opacity, ru=R[:, :, 0] / s[:, 0:1],
         rv=R[:, :, 1] / s[:, 1:2], normals=params.world_normals(cam_pos=cam_pos),
         shs=params.get_features(), features=features)
+
+
+def make_trace_fn(params, aux, grid, tracer_cfg: gt.TracerConfig, cam_pos,
+                  sh_deg: int, with_materials: bool = False,
+                  ray_chunk: int = 65536, stats_out: dict | None = None):
+    """Bind the Gaussian state into a trace closure (≙ make_trace_fn,
+    :181-336). More than `ray_chunk` rays take the chunked path: coherence
+    sort, one collect+select over all rays (in memory-bounded groups),
+    blends per chunk, re-trace rounds, and the `trace_trunc_frac` /
+    `trace_more_frac` stats in `stats_out`. Fewer rays take trace_segments."""
+    inputs = trace_inputs(params, aux, cam_pos, with_materials)
     g = tracer_cfg.grid_res
     tmin = tracer_cfg.transmittance_min
 

@@ -1,1 +1,3 @@
-"""Dataset and end-to-end tools of the port (≙ the repository's tools/)."""
+"""The port's tools (≙ the repository's tools/ and root scripts): the analytic
+dataset, the end-to-end and grid drivers, the benches, the tracer-bias
+drives and the reproducer replay."""

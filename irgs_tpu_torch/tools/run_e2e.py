@@ -37,7 +37,6 @@ samples (512 + 256) are the reference's values.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import shlex
@@ -45,7 +44,6 @@ import shutil
 import subprocess
 import sys
 import time
-import traceback
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -138,18 +136,8 @@ def run_subprocess(tag, module, argv, timeout):
 def run_in_process(tag, module, argv, timeout):
     """The stage's main(argv) in this process -> its exit code (1 on an
     exception, whose traceback is printed; `timeout` is not enforced)."""
-    name = f"irgs_tpu_torch.{module}"
-    mod = importlib.import_module(name)
-    if hasattr(mod, "__path__"):            # a package run by its __main__
-        mod = importlib.import_module(name + ".__main__")
-    try:
-        mod.main(argv)
-    except SystemExit as e:
-        return e.code if isinstance(e.code, int) else int(e.code is not None)
-    except Exception:
-        traceback.print_exc()
-        return 1
-    return 0
+    from .common import run_module_main
+    return run_module_main(module, argv)
 
 
 def main(argv=None, run_stage=run_subprocess):

@@ -121,10 +121,11 @@ def _from_stage1(path, cfg, dev):
     return params, aux
 
 
-def _toy_scene(cfg, dev, s1_ckpt=None):
+def _toy_scene(cfg, dev, s1_ckpt=None, views=None):
     """The procedural toy run: GT frames of the true sphere scene rendered by
     render_ir_eval, then materials and env reset (≙ train.py:118-194). On
-    the CPU every budget shrinks as train.py's does on a CPU mesh."""
+    the CPU every budget shrinks as train.py's does on a CPU mesh. `views`
+    (indices) renders only those cameras' frames, the others None."""
     import dataclasses
 
     import numpy as np
@@ -164,7 +165,9 @@ def _toy_scene(cfg, dev, s1_ckpt=None):
                           pair_capacity=2 ** 16 if on_cpu else 2 ** 21))
     grid = gt.build_grid_from_gaussians(params, aux, ecfg.tracer)
     gt_images = [render_ir_eval(params, aux, grid, c.params(dev),
-                                ecfg)["render"].cpu().numpy() for c in cams]
+                                ecfg)["render"].cpu().numpy()
+                 if views is None or i in views else None
+                 for i, c in enumerate(cams)]
     if s1_ckpt:
         # the stage-1 toy reconstruction as the start
         params, aux = _from_stage1(s1_ckpt, cfg, dev)

@@ -397,6 +397,35 @@ def latest_checkpoint(path: str) -> str | None:
     return ckpts[-1] if ckpts else None
 
 
+def state_from_tensors(tensors: dict, opt_cfg, device,
+                       spatial_lr_scale: float = 1.0, shapes=None,
+                       where: str = "checkpoint") -> TrainState:
+    """A TrainState on `device` from the tensors `state_tensors` gave (a
+    checkpoint's or a reproducer's). `shapes` (n_capacity, sh_degree,
+    env_shape), a manifest's, is checked against the tensors; by default
+    the tensors' own shapes are taken."""
+    from ..scene.gaussians import PARAM_FIELDS, empty_params
+
+    p = tensors["params"]
+    if shapes is None:
+        k = p["features_rest"].shape[1] + 1
+        shapes = (p["xyz"].shape[0], int(round(k ** 0.5)) - 1,
+                  tuple(p["env"].shape))
+    params, aux = empty_params(*shapes, device)
+    for f in PARAM_FIELDS:
+        dst, src = getattr(params, f), p[f]
+        if dst.shape != src.shape:
+            raise ValueError(f"{where}: {f} has shape {tuple(src.shape)}, the "
+                             f"manifest gives {tuple(dst.shape)}")
+        dst.copy_(src)
+    aux.alive.copy_(tensors["alive"])
+    aux.active_sh_degree = int(tensors["active_sh_degree"])
+    state = init_state(params, aux, opt_cfg, spatial_lr_scale)
+    state.optimizer.load_state_dict(tensors["optimizer"])
+    state.step = int(tensors["step"])
+    return state
+
+
 def load_stage2_checkpoint(path: str, opt_cfg, device=None,
                            spatial_lr_scale: float = 1.0):
     """Restore a full stage-2 TrainState for in-place resume on `device`
@@ -404,7 +433,6 @@ def load_stage2_checkpoint(path: str, opt_cfg, device=None,
     chkpnt*.ckpt file or a stage-2 model dir (latest taken). Returns
     (state, iteration)."""
     from .. import resolve_device
-    from ..scene.gaussians import PARAM_FIELDS, empty_params
     from ..utils.checkpoint import load_checkpoint
 
     device = resolve_device(device)
@@ -417,18 +445,8 @@ def load_stage2_checkpoint(path: str, opt_cfg, device=None,
         raise ValueError(f"{ckpt} is not a stage-2 checkpoint "
                          f"(kind={manifest.get('kind')!r})")
     tensors, _ = load_checkpoint(ckpt, device)
-    params, aux = empty_params(int(manifest["n_capacity"]),
-                               int(manifest["sh_degree"]),
-                               tuple(manifest["env_shape"]), device)
-    for f in PARAM_FIELDS:
-        dst, src = getattr(params, f), tensors["params"][f]
-        if dst.shape != src.shape:
-            raise ValueError(f"{ckpt}: {f} has shape {tuple(src.shape)}, the "
-                             f"manifest gives {tuple(dst.shape)}")
-        dst.copy_(src)
-    aux.alive.copy_(tensors["alive"])
-    aux.active_sh_degree = int(tensors["active_sh_degree"])
-    state = init_state(params, aux, opt_cfg, spatial_lr_scale)
-    state.optimizer.load_state_dict(tensors["optimizer"])
-    state.step = int(tensors["step"])
+    shapes = (int(manifest["n_capacity"]), int(manifest["sh_degree"]),
+              tuple(manifest["env_shape"]))
+    state = state_from_tensors(tensors, opt_cfg, device, spatial_lr_scale,
+                               shapes, where=ckpt)
     return state, int(manifest["iteration"])

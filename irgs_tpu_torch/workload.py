@@ -99,18 +99,14 @@ def eval_setup(n_surface: int, n_capacity: int, img: int, diffuse: int,
     return params, aux, grid, cam, ecfg
 
 
-def stage1_setup(n_points: int, n_capacity: int, img: int, n_cams: int,
-                 env_res: int, dup: int, cameras_extent: float, device):
-    """-> (Stage1State, ring cameras, grey target, FG table, static kwargs)
-    of STAGE1_BENCH on `device`: init_ref_from_pcd of the bench's random
-    cloud (the Morton-window kNN above 50k points)."""
+def stage1_state(n_points: int, n_capacity: int, env_res: int,
+                 cameras_extent: float, device):
+    """STAGE1_BENCH's initial Stage1State on `device`: init_ref_from_pcd of
+    the bench's random cloud (the Morton-window kNN above 50k points)."""
     import numpy as np
-    import torch
 
     from .config import stage1_config
-    from .scene import cubemap as cm
     from .scene import ref_gaussians as rgs
-    from .scene import toy
     from .train import stage1_full as s1
 
     opt = stage1_config().opt
@@ -121,10 +117,27 @@ def stage1_setup(n_points: int, n_capacity: int, img: int, n_cams: int,
         pts, colors, n_capacity, 3, env_res=env_res,
         init_metallic=opt.init_metallic_value,
         init_roughness=opt.init_roughness_value, device=device)
-    state = s1.init_state(params, aux, opt, cameras_extent)
+    return s1.init_state(params, aux, opt, cameras_extent)
+
+
+def stage1_setup(n_points: int, n_capacity: int, img: int, n_cams: int,
+                 env_res: int, dup: int, cameras_extent: float, device,
+                 fg_lut: dict | None = None):
+    """-> (Stage1State, ring cameras, grey target, FG table, static kwargs)
+    of STAGE1_BENCH on `device`. `fg_lut` holds compute_fg_lut's sizes
+    (default its own, 256 x 8192 samples)."""
+    import torch
+
+    from .config import stage1_config
+    from .scene import cubemap as cm
+    from .scene import toy
+
+    opt = stage1_config().opt
+    state = stage1_state(n_points, n_capacity, env_res, cameras_extent,
+                         device)
     cams = toy.make_ring_cameras(n_cams, width=img, height_px=img)
     gt = torch.full((img, img, 3), 0.5, device=device)
-    lut = cm.compute_fg_lut(device=device)
+    lut = cm.compute_fg_lut(device=device, **(fg_lut or {}))
     static = dict(img_w=img, img_h=img, active_sh_degree=3,
                   white_background=False, dup_capacity=dup,
                   lambda_dssim=opt.lambda_dssim,

@@ -29,6 +29,7 @@ from irgs_tpu_torch.scene import colmap as tcolmap
 from irgs_tpu_torch.scene import datasets as tds
 from irgs_tpu_torch.scene import gaussians as tgs
 from irgs_tpu_torch.train import stage2 as ts2
+from test_torch_mis import one_torch_thread  # noqa: F401
 
 # one camera per model, its parameters [f..., cx, cy, distortion...]
 MODELS = {

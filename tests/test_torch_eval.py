@@ -32,6 +32,7 @@ from irgs_tpu_torch.ops import grid_tracer as tgt
 from irgs_tpu_torch.render import eval as tev
 from irgs_tpu_torch.scene import gaussians as tgs
 from irgs_tpu_torch.scene import toy as ttoy
+from test_torch_mis import one_torch_thread  # noqa: F401
 
 IMG, SPP = 32, 16
 TRACER = dict(grid_res=16, pair_capacity=2 ** 15, max_cells=8, max_hits=24,

@@ -21,6 +21,7 @@ from irgs_tpu_torch.scene import gaussians as tgs
 from irgs_tpu_torch.scene import toy as ttoy
 
 from test_a_oversize import _floor_scene
+from test_torch_mis import one_torch_thread  # noqa: F401
 
 FIELDS = ("means3d", "opacity", "ru", "rv", "normals", "shs", "features")
 # the floor scene's configs of test_oversize_merge_exact: one pass with wide

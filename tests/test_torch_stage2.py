@@ -19,6 +19,7 @@ from irgs_tpu_torch.ops import grid_tracer as tgt
 from irgs_tpu_torch.scene import gaussians as tgs
 from irgs_tpu_torch.scene import toy as ttoy
 from irgs_tpu_torch.train import stage2 as ts2
+from test_torch_mis import one_torch_thread  # noqa: F401
 
 TRACER = dict(grid_res=12, pair_capacity=2 ** 14, max_cells=8, max_hits=24,
               hit_budget=16, max_crossings=10, select_tiles=4, tile=32,

@@ -14,6 +14,7 @@ import torch
 
 from irgs_tpu.ops import grid_tracer as gt
 from irgs_tpu_torch.ops import grid_tracer as tgt
+from test_torch_mis import one_torch_thread  # noqa: F401
 
 CFG = dict(grid_res=12, pair_capacity=2 ** 15, max_cells=8, max_hits=24,
            hit_budget=16, max_crossings=10, span_cap=6, select_tiles=4,
@@ -278,6 +279,41 @@ def test_chunked_trace_fn_matches_jax():
     for k in ("trace_trunc_frac", "trace_more_frac"):
         assert float(t_stats[k]) == pytest.approx(float(j_stats[k]), abs=1e-6), k
     for name in jo._fields:
+        np.testing.assert_allclose(np.asarray(getattr(jo, name)),
+                                   getattr(to, name).detach().numpy(),
+                                   atol=1e-5, err_msg=name)
+
+
+def test_pair_table_overflow_matches_jax(setup):
+    """A pair table too small for the scene (ROADMAP.md C3, shared with the
+    JAX package): the port drops the same pairs and counts the same
+    grid_overflow, and traces the same colours and alphas with them
+    dropped (within the trace tests' 1e-5)."""
+    arrs, alive, j_in, t_in, j_grid, t_grid, ro, rd = setup
+    cap = 256
+    scales = make_inputs()[1]
+    rad = gt.bounding_radius(j_in.opacity, jnp.asarray(scales), JCFG.alpha_min)
+    kw = dict(grid_res=JCFG.grid_res, pair_capacity=cap,
+              span_cap=JCFG.span_cap)
+    jg = gt.build_grid(j_in.means3d, rad, jnp.asarray(alive),
+                       normals=j_in.normals, **kw)
+    tg = tgt.build_grid(t_in.means3d, torch.tensor(np.asarray(rad)),
+                        torch.tensor(alive), normals=t_in.normals, **kw)
+    assert int(jg.overflow) > 0
+    assert int(tg.overflow) == int(jg.overflow)
+    for name in ("sorted_gauss", "sorted_cell", "cell_meta", "coarse_occ"):
+        np.testing.assert_array_equal(np.asarray(getattr(jg, name)),
+                                      getattr(tg, name).numpy(), err_msg=name)
+    jcfg, tcfg = _cfgs(pair_capacity=cap)
+    jo = gt.trace(jnp.asarray(ro), jnp.asarray(rd), jg, j_in, cfg=jcfg,
+                  sh_deg=3)
+    to = tgt.trace(torch.tensor(ro), torch.tensor(rd), tg, t_in, cfg=tcfg,
+                   sh_deg=3)
+    full = gt.trace(jnp.asarray(ro), jnp.asarray(rd), j_grid, j_in, cfg=JCFG,
+                    sh_deg=3)
+    # the dropped pairs change what the rays see
+    assert float(jnp.abs(jo.alpha - full.alpha).max()) > 1e-3
+    for name in ("color", "alpha"):
         np.testing.assert_allclose(np.asarray(getattr(jo, name)),
                                    getattr(to, name).detach().numpy(),
                                    atol=1e-5, err_msg=name)

@@ -23,6 +23,7 @@ from irgs_tpu_torch.scene import gaussians as tgs
 from irgs_tpu_torch.scene import toy as ttoy
 from irgs_tpu_torch.train import stage2 as ts2
 from irgs_tpu_torch.train.__main__ import main
+from test_torch_mis import one_torch_thread  # noqa: F401
 
 RES = 32
 # train.py's CPU shrink (:126-133), at 8 samples per pixel and 128 pixels
