@@ -112,8 +112,9 @@ Phases (JSON lines; any failure exits non-zero):
   datasets      the readers on the card's machine (no PIL, no cv2): the
                 committed JPEG fixtures of tests/data/jpeg decoded bit for
                 bit (ms per 1297x840 frame); a COLMAP folder of the BENCH
-                sphere (8 views at 600², PINHOLE with the principal point
-                7 px off centre, points3D.bin of its 100k surfel centres)
+                sphere (8 views at 600², saved as JPEG by the port's
+                encoder, PINHOLE with the principal point 7 px off centre,
+                points3D.bin of its 100k surfel centres)
                 through python -m irgs_tpu_torch.train at --resolution 400
                 (a fractional INTER_AREA) for 20 iterations; a Stanford-ORB
                 folder (8 views of 2048² PNG frames and masks, read at 512,
@@ -152,9 +153,27 @@ Phases (JSON lines; any failure exits non-zero):
   run_grid      python -m irgs_tpu_torch.tools.run_grid (its in-process
                 runner) on e2e's dataset (made here when e2e did not run):
                 every step done, collect_results' output, and a second
-                invocation that skips every step by its markers.
-Each of the last seven runs its tool's main in this process and holds the
-kernels at the path's first inputs (the scatter-add at its largest).
+                invocation that skips every step by its markers;
+  overfit       python -m irgs_tpu_torch.tools.drive_overfit at the JAX
+                script's size (2048 surfels, 128², 200 steps + 50 timed):
+                PSNR from ~7 dB to above 45 dB, no overflow, its probes;
+                then 5 stage-1-lite steps (train/stage1.py) on the BENCH
+                sphere at 400²; each a path of its own, the blends held at
+                its first inputs and the scatter-add at its largest;
+  images        the image codecs without PIL: every committed JPEG and PNG
+                fixture (tests/data/jpeg, tests/data/png) decoded bit for
+                bit with its mode and palette, every PIL-refused stream
+                refused; ms per 1297x840 frame (baseline, progressive and
+                arithmetic re-saves), Lanczos 1600² -> 400² and JPEG encode
+                of that frame; python -m irgs_tpu_torch.process_images on the
+                committed inputs against the root script's committed
+                outputs (JPEG bytes equal, PNG arrays, modes and palettes
+                equal), split-grid on train_cli's vis/iter_000001.png and
+                crop --downscale 4 on eval_cli's render folder (sizes).
+                Needs train_cli and eval_cli.
+Each of the tool phases from bench on runs its tool's main in this process
+and holds the kernels at the path's first inputs (the scatter-add at its
+largest).
 Then a `kernels` summary line, a `done` line with each phase's wall time,
 the card's name and power limit, and the last line {"ok": true, "device":
 {...}}.
@@ -1031,14 +1050,19 @@ def stage2_full_cli(tmp):
     return line, ok
 
 
+# the full-image step's frame: the bench scene and budgets, cut in depth
+# from 400² (157 chunks, ~100 s on an H100 80GB HBM3 at 700 W) to 160² (25
+# chunks)
+STAGE2_FULL_IMG = 160
+
+
 def phase_stage2_full(results, tmp):
-    """One stage-2 step with train_ray off at the bench workload: every
-    pixel of the 400x400 frame shaded in 157 chunks of 1024 (2^18 rays a
-    chunk, as a train_ray step traces), each chunk recomputed in the
-    backward pass; the forward and the backward timed apart. The step also
-    records the gather's first inputs and the largest scatter-add, held
-    against their plain versions after it (the blend's slab is the kernels
-    phase's bench_400px_100k: the same scene and camera). Before it, the
+    """One stage-2 step with train_ray off at the bench workload's scene
+    and budgets on a STAGE2_FULL_IMG² frame: every pixel shaded in chunks
+    of 1024 (2^18 rays a chunk, as a train_ray step traces), each chunk
+    recomputed in the backward pass; the forward and the backward timed
+    apart. The step also records the gather's first inputs and the largest
+    scatter-add, held against their plain versions after it. Before it, the
     test-scale full-image step on the card against the CPU, two of its
     backward passes on the card bit for bit, and the CLI with
     --no-train_ray at that scale (stage2_full_cli)."""
@@ -1047,14 +1071,15 @@ def phase_stage2_full(results, tmp):
     import torch
     from irgs_tpu_torch import workload
     from irgs_tpu_torch.ops import grid_tracer as gt
+    from irgs_tpu_torch.ops import raster_blend as rb
     from irgs_tpu_torch.train import stage2 as s2
 
     small, small_ok = stage2_card_vs_cpu(train_ray=False)
     det, differ = stage2_grads_deterministic(train_ray=False)
     cli, cli_ok = stage2_full_cli(tmp)
     dev = torch.device("cuda")
-    state, grid, cams, st = workload.stage2_setup(**workload.BENCH,
-                                                  device=dev)
+    state, grid, cams, st = workload.stage2_setup(
+        **{**workload.BENCH, "img": STAGE2_FULL_IMG}, device=dev)
     st = dataclasses.replace(st, train_ray=False)
     cam = cams[0].params(dev)
     gt_img = torch.full((st.img_h, st.img_w, 3), 0.5, device=dev)
@@ -1063,7 +1088,8 @@ def phase_stage2_full(results, tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    with FirstCalls({"gather": (gt, "gather_rows_kernel")},
+    with FirstCalls({"blend": (rb, "blend_tiles"),
+                     "gather": (gt, "gather_rows_kernel")},
                     clone=(1,)) as rec, LargestScatter() as scat:
         t0 = time.perf_counter()
         state.optimizer.zero_grad()
@@ -1080,7 +1106,7 @@ def phase_stage2_full(results, tmp):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     results.setdefault("launches", {})["stage2_full"] = launches
-    check_recorded(results, rec, "stage2_full")
+    check_recorded(results, rec, f"stage2_full_{STAGE2_FULL_IMG}px")
     check_scatter(results, scat, "stage2_full_largest")
     m = {k: float(v.detach()) for k, v in m.items()}
     n = st.n_chunks
@@ -1832,15 +1858,22 @@ def _finite_metrics(res):
     return all(v is None or math.isfinite(v) for v in vals)
 
 
+# the eval CLIs' samples (diffuse, light), cut in depth from render's 256 +
+# 256 and relighting's default 512 + 256; the relit GT's
+EVAL_CLI_RENDER_SPP = (64, 64)
+EVAL_CLI_RELIGHT_SPP = (128, 64)
+EVAL_CLI_GT_SPP = (32, 32)
+
+
 def phase_eval_cli(results, tmp):
     """The three eval CLIs, in-process, on the run that train_cli leaves
     (the 100k-surfel sphere at 400x400, iteration 100): first the dataset
     gets GT albedo/roughness maps of view r_0 (the model's own G-buffer), two
     256x512 EXR envmaps (a sun and sky, the toy blob env) and relit GT of
-    r_0 under the first, rendered by the port at 64 + 64 samples; then
-    render (one view, 256 + 256 samples), eval.material (--compute_scale,
-    then the eval pass) and eval.relighting (one view, both envmaps, its
-    default 512 + 256 samples)."""
+    r_0 under the first, rendered by the port at EVAL_CLI_GT_SPP; then
+    render (one view, EVAL_CLI_RENDER_SPP), eval.material (--compute_scale,
+    then the eval pass) and eval.relighting (one view, both envmaps,
+    EVAL_CLI_RELIGHT_SPP)."""
     import numpy as np
     import torch
     from irgs_tpu_torch.config import load_config
@@ -1882,7 +1915,8 @@ def phase_eval_cli(results, tmp):
     grid = gt.build_grid_from_gaussians(params, aux, tracer)
     env0 = relight.build_relight_env(
         torch.tensor(exr.read_exr_rgb(envs[0]), device=dev))
-    gt_cfg = ir.ShadeConfig(diffuse_sample_num=64, light_sample_num=64,
+    gt_cfg = ir.ShadeConfig(diffuse_sample_num=EVAL_CLI_GT_SPP[0],
+                            light_sample_num=EVAL_CLI_GT_SPP[1],
                             light_t_min=cfg.pipe.light_t_min, training=False)
     with FirstCalls({"blend": (rb, "blend_tiles"),
                      "gather": (gt, "gather_rows_kernel")}, clone=(1,)) as rec:
@@ -1915,15 +1949,17 @@ def phase_eval_cli(results, tmp):
         line[name] = entry
         return entry
 
-    # 1. render, the MIS branch: 256 + 256 samples on view r_0
+    # 1. render, the MIS branch, on view r_0
     with PerView(reval, "render_ir_eval", stats_kw=True) as pv:
         sec, peak, lc = run_eval_cli(render_cli.main, [
-            "-m", run, "--max_images", "1", "--light_sample_num", "256"])
+            "-m", run, "--max_images", "1",
+            "--diffuse_sample_num", str(EVAL_CLI_RENDER_SPP[0]),
+            "--light_sample_num", str(EVAL_CLI_RENDER_SPP[1])])
     with open(os.path.join(run, "test", "nvs_results.json")) as f:
         nvs = json.load(f)
     v = pv.calls
     record("render", sec, peak, lc, v, {
-        "samples": [cfg.pipe.diffuse_sample_num, 256],
+        "samples": list(EVAL_CLI_RENDER_SPP),
         "fg_pixels": v[0]["shaded_pixels"], "shaded_rays": v[0]["shaded_rays"],
         "traced_rays": v[0]["traced_rays"],
         "mrays_per_s": v[0]["shaded_rays"] / v[0]["seconds"] / 1e6,
@@ -1941,14 +1977,15 @@ def phase_eval_cli(results, tmp):
             mat[name] = json.load(f)
         record(name, sec, peak, lc, pv.calls, {"result": mat[name]})
 
-    # 3. relighting at its defaults (512 + 256), one view, both envmaps
-    n_env, s_d, s_l = len(envs), 512, 256
+    # 3. relighting, one view, both envmaps
+    n_env, (s_d, s_l) = len(envs), EVAL_CLI_RELIGHT_SPP
     info = lambda out: dict(out[2])
     with PerView(relighting, "relight_view", info=info) as pv, \
             Timed({"fg_lut": (cm, "compute_fg_lut"),
                    "relight_env": (relight, "build_relight_env")}) as timed:
         sec, peak, lc = run_eval_cli(relighting.main, [
-            "-m", run, "--envmaps", *envs, "--max_images", "1"])
+            "-m", run, "--envmaps", *envs, "--max_images", "1",
+            "--diffuse_sample_num", str(s_d), "--light_sample_num", str(s_l)])
     with open(os.path.join(run, "relighting_results.json")) as f:
         rel = json.load(f)
     v = pv.calls[0]
@@ -3108,6 +3145,36 @@ def phase_parallel(results, tmp):
 
 
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
+PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
+PI_FIXTURES = os.path.join(ROOT, "tests", "data", "process_images")
+# re-saves that carry another fixture's coefficients, and so its array
+# (tests/make_jpeg_fixtures.py ARRAY_OF)
+JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
+                 "large_1297x840_q95_arith": "large_1297x840_q95"}
+# the root process_images.py crop arguments of the committed outputs
+# (tests/make_png_fixtures.py CROP_ARGS)
+PI_CROP_ARGS = ["--downscale", "2", "--crop", "-2", "1", "3", "-2"]
+
+
+def jpeg_fixtures_exact():
+    """name -> (decoded bit for bit with its .npy, mode) for every committed
+    JPEG fixture; the mode must agree with the array's channels."""
+    import glob
+
+    import numpy as np
+    from irgs_tpu_torch.utils import jpeg
+    out = {}
+    for path in sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg"))):
+        name = os.path.basename(path)[:-4]
+        want = np.load(os.path.join(JPEG_FIXTURES, JPEG_ARRAY_OF.get(
+            name, name) + ".npy"))
+        got, mode, _ = jpeg.read_jpeg_like_pil(path)
+        chans = {"L": 2, "RGB": 3, "CMYK": 4}[mode]
+        out[name] = (got.shape == want.shape
+                     and bool(np.array_equal(got, want))
+                     and (got.ndim if mode == "L" else got.shape[-1])
+                     == chans, mode)
+    return out
 
 
 def _render_frames(params, aux, cams, spp):
@@ -3137,14 +3204,16 @@ def _render_frames(params, aux, cams, spp):
 
 def write_colmap_dataset(root, params, aux, n_views, res, offset):
     """A COLMAP folder of the sphere: `n_views` ring views rendered at
-    res² as PNG frames through a PINHOLE camera whose principal point sits
+    res² and saved as captures are, JPEG at PIL's defaults (the port's
+    encoder, utils/jpeg_encode.py), through a PINHOLE camera whose principal
+    point sits
     `offset` pixels right of and below the centre; points3D.bin holds the
     live surfels' centres."""
     import numpy as np
     from irgs_tpu_torch.scene import colmap
     from irgs_tpu_torch.scene import toy
     from irgs_tpu_torch.scene.cameras import Camera
-    from irgs_tpu_torch.utils import png
+    from irgs_tpu_torch.utils import jpeg_encode
 
     ring = toy.make_ring_cameras(n_views, width=res, height_px=res)
     f = res / (2 * math.tan(ring[0].fovx / 2))
@@ -3156,8 +3225,8 @@ def write_colmap_dataset(root, params, aux, n_views, res, offset):
     images = []
     for i, (cam, (rgb, _)) in enumerate(zip(cams, _render_frames(
             params, aux, cams, spp=8))):
-        name = f"view_{i:03d}.png"
-        png.write_png(os.path.join(root, "images", name), rgb)
+        name = f"view_{i:03d}.jpg"
+        jpeg_encode.write_jpeg(os.path.join(root, "images", name), rgb)
         images.append(dict(id=i + 1, qvec=colmap.rotmat2qvec(cam.R.T),
                            tvec=cam.T, camera_id=1, name=name))
     alive = aux.alive.cpu().numpy()
@@ -3228,22 +3297,23 @@ ORB_STAGE1 = ["--iterations", "20", "--init_until_iter", "4",
               "--dup_capacity", str(2 ** 21), "--max_gaussians", str(2 ** 17)]
 
 
+# the ring views of the datasets phase's COLMAP and Stanford-ORB folders
+# (cut in depth from 8)
+DATASET_VIEWS = 4
+
+
 def phase_datasets(results, tmp):
     """The dataset readers on the card's machine (no PIL, no cv2): the
-    committed JPEG fixtures bit for bit; a COLMAP folder (8 ring views of
-    the BENCH sphere at 600², PINHOLE with the principal point 7 px off
-    centre, its 100k surfel centres as points3D.bin) through python -m
+    committed JPEG fixtures bit for bit; a COLMAP folder (DATASET_VIEWS ring
+    views of the BENCH sphere at 600², PINHOLE with the principal point 7 px
+    off centre, its 100k surfel centres as points3D.bin) through python -m
     irgs_tpu_torch.train at --resolution 400 (a fractional INTER_AREA) for
-    20 iterations at BENCH's budgets; a Stanford-ORB folder (8 views of
-    2048² PNG frames and masks, resized to 512, the surfel centres as
-    points3d.ply: from the reader's random init, 20 stage-1 steps leave
+    20 iterations at BENCH's budgets; a Stanford-ORB folder (DATASET_VIEWS
+    views of 2048² PNG frames and masks, resized to 512, the surfel centres
+    as points3d.ply: from the reader's random init, 20 stage-1 steps leave
     surfels that overflow the tracer's pair table in stage 2, an open
-    fault, ROADMAP.md C) through python -m
-    irgs_tpu_torch.train_refgaussian for 20 iterations and 3 stage-2
-    iterations from its checkpoint."""
-    import glob
-
-    import numpy as np
+    fault, ROADMAP.md C) through python -m irgs_tpu_torch.train_refgaussian
+    for 20 iterations and 3 stage-2 iterations from its checkpoint."""
     import torch
     from irgs_tpu_torch import workload
     from irgs_tpu_torch.ops import grid_tracer as gt
@@ -3259,13 +3329,7 @@ def phase_datasets(results, tmp):
     a = time.perf_counter()
     jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, "s420_q95_opt_1x1.jpg"))
     build_s = time.perf_counter() - a
-    exact = {}
-    for path in sorted(glob.glob(os.path.join(JPEG_FIXTURES, "*.jpg"))):
-        name = os.path.basename(path)[:-4]
-        want = np.load(path[:-4] + ".npy")
-        got = jpeg.read_jpeg(path)
-        exact[name] = got.shape == want.shape and bool(np.array_equal(got,
-                                                                      want))
+    exact = {name: ok for name, (ok, _) in jpeg_fixtures_exact().items()}
     large = os.path.join(JPEG_FIXTURES, "large_1297x840_q95.jpg")
     decode_ms = []
     for _ in range(5):
@@ -3280,7 +3344,7 @@ def phase_datasets(results, tmp):
                                         env_resolution=128, device=dev)
     a = time.perf_counter()
     colmap_dir = os.path.join(tmp, "colmap_sphere")
-    write_colmap_dataset(colmap_dir, params, aux, 8, 600, 7.0)
+    write_colmap_dataset(colmap_dir, params, aux, DATASET_VIEWS, 600, 7.0)
     colmap_data_s = time.perf_counter() - a
     a = time.perf_counter()
     info = ds.load_scene(colmap_dir, eval_split=False, resolution=400)
@@ -3313,6 +3377,9 @@ def phase_datasets(results, tmp):
                                        colmap_cam["height"]) == (400, 400)
     colmap_checks["k_off_centre"] = abs(colmap_cam["cx"] - 200 - 7 / 1.5) \
         < 1e-3
+    colmap_checks["frames_port_jpeg"] = sorted(os.listdir(os.path.join(
+        colmap_dir, "images"))) == [f"view_{i:03d}.jpg"
+                                    for i in range(DATASET_VIEWS)]
     check_recorded(results, rec, "colmap_400px_100k")
     check_scatter(results, scat, "colmap_largest")
     del rec, scat, params, aux
@@ -3323,7 +3390,7 @@ def phase_datasets(results, tmp):
                                         env_resolution=128, device=dev)
     a = time.perf_counter()
     orb_dir = os.path.join(tmp, "StanfordORB", "sphere")
-    write_orb_dataset(orb_dir, params, aux, 8, 512, 4)
+    write_orb_dataset(orb_dir, params, aux, DATASET_VIEWS, 512, 4)
     orb_data_s = time.perf_counter() - a
     del params, aux
     a = time.perf_counter()
@@ -3409,12 +3476,12 @@ def phase_datasets(results, tmp):
 
 
 # run_e2e at the dataset's full width (400², 256 + 128 GT samples), cut in
-# depth to stay near 250 s on the card: 8 + 2 views, radiosity textures
+# depth to stay near 100 s on the card: 8 + 2 views, radiosity textures
 # 128² / 64 x 128 at 128 + 64 samples, a 20k-point cloud on the analytic
-# surfaces as the init (C3_SHARED_CAP), 200 stage-1 iterations (the
+# surfaces as the init (C3_SHARED_CAP), 50 stage-1 iterations (the
 # indirect phase for the last 20, its TSDF at 128³), 50 stage-2 iterations
-# at dup 2^21 (the first
-# and the last are logged), the evals at 32 + 16 samples on one view each.
+# at dup 2^21 (the first and the last are logged: the CLI logs iteration 1
+# and every 50th), the evals at 32 + 16 samples on one view each.
 #
 # Why the datasets and e2e phases start from surface clouds: a short stage 1
 # from the readers' 100k random points leaves surfels whose cell pairs
@@ -3432,7 +3499,7 @@ C3_SHARED_CAP = {
     "source": "PERF.md section 6 (chip runs C1, C2, R2)"}
 E2E_SMOKE = ["--img", "400", "--ds_spp", "256", "128", "--n_train", "8",
              "--n_test", "2", "--ds_grid", "128", "64", "--ds_rad_spp", "128",
-             "64", "--s1_iters", "200", "--s1_indirect_tail", "20",
+             "64", "--s1_iters", "50", "--s1_indirect_tail", "20",
              "--s2_iters", "50", "--eval_spp", "32", "16",
              "--max_eval_images", "1", "--relight_images", "1",
              "--stage_args", "dataset=--points 20000",
@@ -3889,14 +3956,29 @@ def phase_drives(results):
         fail("drives", f"checks failed: {checks}")
 
 
+# the toy's GT frames in load_reproducer, cut in depth from the card's
+# 16 views of 256² at 64 samples (train/__main__.py:CUDA_TOY)
+REPRODUCER_TOY = dict(res=128, spp=16, cams=4)
+
+
 def phase_load_reproducer(results, tmp):
     """python -m irgs_tpu_torch.train --toy with --inject_nan_at 2 under
     --detect_anomaly: exit 3 and a reproducer of step 2; then
     python -m irgs_tpu_torch.tools.load_reproducer replays that step under
-    anomaly detection, which must raise on the NaN."""
+    anomaly detection, which must raise on the NaN. Both render the toy's
+    GT frames at REPRODUCER_TOY."""
     from irgs_tpu_torch.tools import load_reproducer
-    from irgs_tpu_torch.train.__main__ import main as train_main
+    from irgs_tpu_torch.train import __main__ as train_cli
 
+    saved = dict(train_cli.CUDA_TOY)
+    train_cli.CUDA_TOY.update(REPRODUCER_TOY)
+    try:
+        _load_reproducer(results, tmp, load_reproducer, train_cli.main)
+    finally:
+        train_cli.CUDA_TOY.update(saved)
+
+
+def _load_reproducer(results, tmp, load_reproducer, train_main):
     run = os.path.join(tmp, "nan_toy")
     reset_launch_counts()
     a = time.perf_counter()
@@ -3919,11 +4001,12 @@ def phase_load_reproducer(results, tmp):
     replay_s = time.perf_counter() - a
     launches = launch_counts()
     results.setdefault("launches", {})["load_reproducer"] = launches
-    check_recorded(results, rec, "reproducer_toy_256px")
+    check_recorded(results, rec, "reproducer_toy_128px")
     check_scatter(results, scat, "reproducer_largest")
-    line = {"phase": "load_reproducer", "train_exit_code": code,
-            "train_s": train_s, "replay_s": replay_s, "raised": raised,
-            "replay_lines": lines, "launches": launches}
+    line = {"phase": "load_reproducer", "toy": REPRODUCER_TOY,
+            "train_exit_code": code, "train_s": train_s,
+            "replay_s": replay_s, "raised": raised, "replay_lines": lines,
+            "launches": launches}
     checks = {"train_exit_3": code == 3, "reproducer": os.path.exists(rp),
               "replay_raises_on_nan": raised is not None
               and "nan" in raised.lower(),
@@ -4012,6 +4095,250 @@ def phase_run_grid(results, tmp):
         fail("run_grid", f"checks failed: {checks}")
 
 
+OVERFIT_MIN_PSNR = 45.0     # the JAX drive's expected figure
+STAGE1_LITE_STEPS = 5
+
+
+def phase_overfit(results):
+    """tools/drive_overfit at the JAX script's size (its own path), then
+    STAGE1_LITE_STEPS stage-1-lite steps (train/stage1.py: render_initial's
+    losses, the densification statistics, Adam) on the BENCH sphere at 400²
+    against a grey target (a path of its own); the blends held at each
+    path's first inputs and the scatter-add at its largest."""
+    import torch
+    from irgs_tpu_torch import workload
+    from irgs_tpu_torch.config import Config
+    from irgs_tpu_torch.scene import toy
+    from irgs_tpu_torch.tools import drive_overfit
+    from irgs_tpu_torch.train import stage1
+
+    dev = torch.device("cuda")
+    reset_launch_counts()
+    with _held(("blend",)) as rec, LargestScatter() as scat:
+        drive, d_lines, d_s = run_tool(drive_overfit.main,
+                                       ["--device", "cuda"])
+    d_n = results.setdefault("launches", {})["drive_overfit"] = \
+        launch_counts()
+    check_recorded(results, rec, "drive_overfit_128px")
+    check_scatter(results, scat, "drive_overfit_largest")
+    del rec, scat
+
+    b = workload.BENCH
+    params, aux = toy.make_sphere_scene(n_surface=b["n_surface"],
+                                        n_capacity=b["n_capacity"],
+                                        env_resolution=128, device=dev)
+    cams = toy.make_ring_cameras(8, width=b["img"], height_px=b["img"])
+    st = stage1.Stage1Static(img_w=b["img"], img_h=b["img"],
+                             active_sh_degree=3, white_background=False,
+                             dup_capacity=b["dup"])
+    state = stage1.init_state(params, aux, Config().opt, 3.3)
+    target = torch.full((b["img"], b["img"], 3), 0.5, device=dev)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    a = time.perf_counter()
+    logs = []
+    with _held(("blend",)) as rec, LargestScatter() as scat:
+        for i in range(STAGE1_LITE_STEPS):
+            state, m = stage1.stage1_step(state, cams[i % 8].params(dev),
+                                          target, None, st=st)
+            logs.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    lite_s = time.perf_counter() - a
+    l_n = results["launches"]["stage1_lite"] = launch_counts()
+    check_recorded(results, rec, "stage1_lite_400px_100k")
+    check_scatter(results, scat, "stage1_lite_largest")
+    del rec, scat, state, params, aux
+
+    rows = drive["rows"]
+    line = {"phase": "overfit", "drive_overfit": drive, "drive_s": d_s,
+            "drive_lines": d_lines, "stage1_lite_steps": logs,
+            "stage1_lite_s": lite_s,
+            "launches": {"drive_overfit": d_n, "stage1_lite": l_n}}
+    checks = {
+        "psnr_starts_low": rows[0]["psnr"] < 12.0,
+        "psnr_above_45": rows[-1]["psnr"] > OVERFIT_MIN_PSNR,
+        "overflow_zero": all(r["overflow"] == 0 for r in rows),
+        "probes": drive["probe_overflow"] > 0 and drive["probe_finite"]
+        and drive["probe_dead_err"] == 0.0,
+        "stage1_lite_finite": all(math.isfinite(m["loss"]) for m in logs),
+        "stage1_lite_no_overflow": all(m["raster_overflow"] == 0
+                                       for m in logs),
+        "stage1_lite_loss_falls": logs[-1]["loss_l1"] < logs[0]["loss_l1"],
+        "kernels_launched": all(n.get(k, 0) > 0 for n in (d_n, l_n)
+                                for k in ("blend_fwd", "blend_bwd",
+                                          "segment_sum"))}
+    line["checks"] = checks = {k: bool(v) for k, v in checks.items()}
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("overfit", f"checks failed: {checks}")
+
+
+def _median_ms(fn, reps=5):
+    out = []
+    for _ in range(reps):
+        a = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - a) * 1e3)
+    return statistics.median(out), out
+
+
+def _png_same(a, b):
+    """Two PNG files decode (the port's reader) to the same array, mode,
+    palette, transparency and ICC profile."""
+    import numpy as np
+    from irgs_tpu_torch.utils import png
+    (x, mx, ix), (y, my, iy) = png.read_png_like_pil(a), \
+        png.read_png_like_pil(b)
+    pal = lambda i: None if i.get("palette") is None else i[
+        "palette"].tolist()
+    return (mx == my and x.dtype == y.dtype and x.shape == y.shape
+            and bool(np.array_equal(x, y)) and pal(ix) == pal(iy)
+            and ix.get("transparency") == iy.get("transparency")
+            and ix.get("icc_profile") == iy.get("icc_profile"))
+
+
+def phase_images(results, tmp):
+    """The image codecs on the card's machine (no PIL): the committed JPEG
+    and PNG fixtures bit for bit (with mode, palette, transparency), the
+    PIL-refused streams refused, the decode, Lanczos and encode times, and
+    python -m irgs_tpu_torch.process_images on committed inputs (against
+    the root script's committed outputs) and on the outputs of the
+    train_cli and eval_cli phases (sizes)."""
+    import contextlib
+    import glob
+    import io
+    import shutil
+
+    import numpy as np
+    from irgs_tpu_torch import process_images
+    from irgs_tpu_torch.utils import jpeg, jpeg_encode, png
+    from irgs_tpu_torch.utils.resize import resize_lanczos_like_pil
+
+    run = os.path.join(tmp, "run")
+    renders = sorted(glob.glob(os.path.join(run, "test", "ours_*")))
+    vis = os.path.join(run, "vis", "iter_000001.png")
+    if not (os.path.exists(vis) and renders):
+        fail("images", "needs the runs that train_cli and eval_cli leave")
+
+    a = time.perf_counter()
+    jpeg_exact = jpeg_fixtures_exact()
+    with open(os.path.join(PNG_FIXTURES, "modes.json")) as f:
+        modes = json.load(f)
+    png_exact = {}
+    for name, want_info in modes.items():
+        arr, mode, info = png.read_png_like_pil(
+            os.path.join(PNG_FIXTURES, name + ".png"))
+        want = np.load(os.path.join(PNG_FIXTURES, name + ".npy"))
+        t = info.get("transparency")
+        got_info = {"mode": mode, "palette": None if info.get("palette")
+                    is None else info["palette"].tolist(),
+                    "transparency": list(t) if isinstance(t, bytes) else t}
+        png_exact[name] = (arr.dtype == want.dtype and arr.shape == want.shape
+                           and bool(np.array_equal(arr, want))
+                           and got_info == want_info)
+    refused = {}
+    for path in sorted(glob.glob(os.path.join(JPEG_FIXTURES, "refused",
+                                              "*.jpg"))):
+        try:
+            jpeg.read_jpeg(path)
+            refused[os.path.basename(path)] = False
+        except jpeg.JpegError:
+            refused[os.path.basename(path)] = True
+    fixtures_s = time.perf_counter() - a
+
+    decode_ms = {}
+    for kind in ("", "_progressive", "_arith"):
+        path = os.path.join(JPEG_FIXTURES, f"large_1297x840_q95{kind}.jpg")
+        decode_ms[kind.strip("_") or "baseline"] = _median_ms(
+            lambda: jpeg.read_jpeg(path))
+    # a photo-like 1600² frame: gradients, rings and a little noise
+    y, x = np.mgrid[0:1600, 0:1600].astype(np.float64)
+    frame = np.stack([128 + 100 * np.sin(x / 53.0 + y / 91.0),
+                      128 + 90 * np.cos(np.hypot(x - 700, y - 800) / 37.0),
+                      128 + 110 * np.sin(x * y / 90000.0)], -1)
+    frame += np.random.default_rng(0).normal(0, 4, frame.shape)
+    frame = np.clip(frame, 0, 255).astype(np.uint8)
+    lanczos_ms = _median_ms(lambda: resize_lanczos_like_pil(frame, "RGB",
+                                                            (400, 400)))
+    encode_ms = _median_ms(lambda: jpeg_encode.encode_jpeg(frame, "RGB"))
+    data = jpeg_encode.encode_jpeg(frame, "RGB")
+    back = jpeg.decode_jpeg(data).astype(np.float64)
+    psnr = 10 * math.log10(255.0 ** 2 / float(((back - frame) ** 2).mean()))
+
+    # process_images on the committed inputs: the root script's outputs
+    out_dir = os.path.join(tmp, "pi_out")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        process_images.main(["crop", os.path.join(PI_FIXTURES, "in"),
+                             out_dir, *PI_CROP_ARGS])
+        shutil.copy(os.path.join(PI_FIXTURES, "in", "grid.png"),
+                    os.path.join(tmp, "grid.png"))
+        process_images.main(["split-grid", os.path.join(tmp, "grid.png")])
+    committed = {}
+    for name in sorted(os.listdir(os.path.join(PI_FIXTURES, "out"))):
+        want, got = (os.path.join(PI_FIXTURES, "out", name),
+                     os.path.join(out_dir, name))
+        if name.lower().endswith((".jpg", ".jpeg")):
+            committed[name] = (os.path.exists(got) and open(got, "rb").read()
+                               == open(want, "rb").read())
+        else:
+            committed[name] = os.path.exists(got) and _png_same(want, got)
+    for r in range(2):
+        committed[f"grid_panel{r}.png"] = _png_same(
+            os.path.join(PI_FIXTURES, f"grid_panel{r}.png"),
+            os.path.join(tmp, f"grid_panel{r}.png"))
+
+    # ... and on this run's outputs
+    a = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        process_images.main(["split-grid", vis])
+        process_images.main(["crop", renders[-1], os.path.join(tmp, "crop4"),
+                             "--downscale", "4"])
+    pi_s = time.perf_counter() - a
+    grid_shape = list(png.read_png(vis).shape)
+    h_each = (grid_shape[0] - 3 * 10) // 2
+    panels = [list(png.read_png(os.path.join(
+        run, "vis", f"iter_000001_panel{r}.png")).shape) for r in range(2)]
+    srcs = sorted(f for f in os.listdir(renders[-1]) if f.endswith(".png"))
+    crops = {f: list(png.read_png(os.path.join(tmp, "crop4", f)).shape)
+             for f in sorted(os.listdir(os.path.join(tmp, "crop4")))}
+    want_crop = {f: [s // 4 for s in png.read_png(
+        os.path.join(renders[-1], f)).shape[:2]] for f in srcs}
+
+    line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
+            "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
+            "png_fixtures": len(png_exact), "refused": refused,
+            "fixtures_s": fixtures_s,
+            "decode_1297x840_ms": {k: v[0] for k, v in decode_ms.items()},
+            "decode_1297x840_ms_all": {k: v[1] for k, v in decode_ms.items()},
+            "lanczos_1600_to_400_ms": lanczos_ms[0],
+            "encode_1600_ms": encode_ms[0], "encode_bytes": len(data),
+            "encode_psnr_db": psnr, "process_images_committed": committed,
+            "process_images_run_s": pi_s, "vis_grid_shape": grid_shape,
+            "panels": panels, "crops": crops}
+    checks = {
+        "jpeg_bit_for_bit": bool(jpeg_exact) and all(
+            ok for ok, _ in jpeg_exact.values()),
+        "png_bit_for_bit": bool(png_exact) and all(png_exact.values()),
+        "refused_raise": bool(refused) and all(refused.values()),
+        "encode_decodes": psnr > 30.0,
+        "process_images_equals_root_script": len(committed) >= 9 and all(
+            committed.values()),
+        "split_grid_sizes": all(p == [h_each, grid_shape[1] - 20, 3]
+                                for p in panels),
+        "crop_sizes": sorted(crops) == srcs and all(
+            crops[f][:2] == want_crop[f] for f in srcs)}
+    line["checks"] = checks
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("images", f"checks failed: {checks} (jpeg: "
+             f"{[k for k, v in jpeg_exact.items() if not v[0]]}, png: "
+             f"{[k for k, v in png_exact.items() if not v]}, process_images: "
+             f"{[k for k, v in committed.items() if not v]})")
+
+
 # each kernel: its source, the Pallas functions it replaces, and for each
 # main path it runs on, the case held at the shape that path gives it (the
 # summary's top-level numbers are those of the first path's case)
@@ -4026,7 +4353,7 @@ KERNELS = {
                "stage1": "stage1_400px_100k_S11",
                "stage1_indirect": "stage1_400px_100k_S18",
                "train_stage1_cli": "stage1_400px_100k_S11",
-               "stage2_full": "bench_400px_100k",
+               "stage2_full": "stage2_full_160px",
                "extract_mesh": "extract_mesh_400px",
                "tracer_options": "bench_400px_100k",
                "parallel": "bench_400px_100k",
@@ -4038,8 +4365,10 @@ KERNELS = {
                "raster_oracle": "raster_oracle_64px",
                "drive_parity": "drive_parity_64px",
                "drive_stage2": "drive_stage2_128px",
-               "load_reproducer": "reproducer_toy_256px",
-               "run_grid": "run_grid_50px"}),
+               "load_reproducer": "reproducer_toy_128px",
+               "run_grid": "run_grid_50px",
+               "drive_overfit": "drive_overfit_128px",
+               "stage1_lite": "stage1_lite_400px_100k"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4048,7 +4377,7 @@ KERNELS = {
                "stage1": "stage1_400px_100k_S11",
                "stage1_indirect": "stage1_400px_100k_S18",
                "train_stage1_cli": "stage1_400px_100k_S11",
-               "stage2_full": "bench_400px_100k",
+               "stage2_full": "stage2_full_160px",
                "tracer_options": "bench_400px_100k",
                "parallel": "bench_400px_100k",
                "datasets": "colmap_400px_100k",
@@ -4057,8 +4386,10 @@ KERNELS = {
                "bench_stage1": "bench_stage1_tool_400px",
                "raster_oracle": "raster_oracle_64px",
                "drive_stage2": "drive_stage2_128px",
-               "load_reproducer": "reproducer_toy_256px",
-               "run_grid": "run_grid_50px"}),
+               "load_reproducer": "reproducer_toy_128px",
+               "run_grid": "run_grid_50px",
+               "drive_overfit": "drive_overfit_128px",
+               "stage1_lite": "stage1_lite_400px_100k"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -4069,7 +4400,7 @@ KERNELS = {
                "train_cli": "stage2_first_pass",
                "train_cli_oversize": "shadow_400px_12k_first_pass",
                "eval_cli": "relight_400px_100k_first_pass",
-               "stage2_full": "stage2_full_first_pass",
+               "stage2_full": "stage2_full_160px_first_pass",
                # the bf16 pair table's rows, viewed as int32 words
                "tracer_options": "tracer_options_bf16_first_pass",
                "parallel": "stage2_first_pass",
@@ -4080,7 +4411,7 @@ KERNELS = {
                "drive_parity": "drive_parity_64px_first_pass",
                "audit_train_budget": "audit_train_budget_100k_first_pass",
                "drive_stage2": "drive_stage2_128px_first_pass",
-               "load_reproducer": "reproducer_toy_256px_first_pass",
+               "load_reproducer": "reproducer_toy_128px_first_pass",
                "run_grid": "run_grid_50px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
@@ -4103,7 +4434,9 @@ KERNELS = {
                "raster_oracle": "raster_oracle_largest",
                "drive_stage2": "drive_stage2_largest",
                "load_reproducer": "reproducer_largest",
-               "run_grid": "run_grid_largest"}),
+               "run_grid": "run_grid_largest",
+               "drive_overfit": "drive_overfit_largest",
+               "stage1_lite": "stage1_lite_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -4142,7 +4475,7 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
           "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
-          "load_reproducer", "run_grid")
+          "load_reproducer", "run_grid", "overfit", "images")
 
 
 def nvidia_smi_line():
@@ -4205,6 +4538,8 @@ def main():
             "drives": lambda: phase_drives(results),
             "load_reproducer": lambda: phase_load_reproducer(results, tmp),
             "run_grid": lambda: phase_run_grid(results, tmp),
+            "overfit": lambda: phase_overfit(results),
+            "images": lambda: phase_images(results, tmp),
         }
         for name in PHASES:
             if name in phases:

@@ -1,9 +1,9 @@
 """COLMAP binary model parser and scene reader (≙ irgs_tpu/scene/colmap.py).
 
 cameras.bin, images.bin and points3D.bin as the COLMAP model format
-specifies them; the frames are read through datasets._load_image_any (JPEG
-through utils/jpeg.py, PNG through utils/png.py) and replicated to RGB as
-the JAX package's ``PIL.Image.open(path).convert("RGB")`` does.
+specifies them; the frames are read through utils/image.py (JPEG through
+utils/jpeg.py, PNG through utils/png.py) and converted to RGB as the JAX
+package's ``PIL.Image.open(path).convert("RGB")`` does for each PIL mode.
 """
 
 from __future__ import annotations
@@ -13,9 +13,10 @@ import struct
 
 import numpy as np
 
+from ..utils.image import read_rgb_like_pil
 from ..utils.math3d import focal2fov
 from .cameras import Camera
-from .datasets import SceneInfo, _load_image_any, _nerfpp_norm
+from .datasets import SceneInfo, _nerfpp_norm
 
 # camera_model_id -> (name, num_params)
 _CAMERA_MODELS = {
@@ -94,16 +95,8 @@ def _qvec2rotmat(q):
 
 
 def _read_rgb(path):
-    img = _load_image_any(path)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, -1)
-    if img.shape[-1] == 3:
-        return img
-    if img.shape[-1] == 2:                  # grey + alpha: the grey
-        return np.repeat(img[..., :1], 3, -1)
-    if img.shape[-1] == 4:                  # RGBA: alpha dropped
-        return img[..., :3]
-    raise NotImplementedError(f"{path}: {img.shape[-1]}-channel frames")
+    """≙ np.asarray(Image.open(path).convert("RGB"), np.float32) / 255."""
+    return read_rgb_like_pil(path).astype(np.float32) / 255.0
 
 
 def read_colmap_scene(path, images_dir="images", eval_split=False,

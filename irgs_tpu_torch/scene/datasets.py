@@ -56,12 +56,9 @@ def _load_image_any(path: str):
     if ext == ".hdr":
         from ..utils import hdr
         return hdr.read_hdr(path)
-    if ext == ".png":
-        from ..utils import png
-        return np.asarray(png.read_png_as_pil(path), np.float32) / 255.0
-    if ext in (".jpg", ".jpeg"):
-        from ..utils import jpeg
-        return np.asarray(jpeg.read_jpeg(path), np.float32) / 255.0
+    if ext in (".png", ".jpg", ".jpeg"):
+        from ..utils.image import read_image_like_pil
+        return np.asarray(read_image_like_pil(path)[0], np.float32) / 255.0
     raise NotImplementedError(
         f"{path}: only PNG, JPEG, EXR and HDR images are read")
 

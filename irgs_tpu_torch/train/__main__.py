@@ -121,6 +121,13 @@ def _from_stage1(path, cfg, dev):
     return params, aux
 
 
+# the CPU toy's GT frames: resolution, diffuse samples, ring views (as
+# train.py shrinks them on a CPU mesh)
+CPU_TOY = dict(res=64, spp=8, cams=6)
+# the card's toy GT frames (train.py's own sizes)
+CUDA_TOY = dict(res=256, spp=64, cams=16)
+
+
 def _toy_scene(cfg, dev, s1_ckpt=None, views=None):
     """The procedural toy run: GT frames of the true sphere scene rendered by
     render_ir_eval, then materials and env reset (≙ train.py:118-194). On
@@ -136,7 +143,8 @@ def _toy_scene(cfg, dev, s1_ckpt=None, views=None):
 
     on_cpu = dev.type == "cpu"
     if on_cpu:
-        toy_res, toy_spp, toy_cams = 64, 8, 6
+        toy_res, toy_spp, toy_cams = (CPU_TOY[k] for k in ("res", "spp",
+                                                           "cams"))
         cfg.pipe.diffuse_sample_num = min(cfg.pipe.diffuse_sample_num, 16)
         cfg.opt.trace_num_rays = min(cfg.opt.trace_num_rays, 2 ** 12)
         cfg.pipe.tracer_grid_res = 16
@@ -151,7 +159,8 @@ def _toy_scene(cfg, dev, s1_ckpt=None, views=None):
             n_surface=1024, n_capacity=2048,
             env_resolution=cfg.model.envmap_resolution, device=dev)
     else:
-        toy_res, toy_spp, toy_cams = 256, 64, 16
+        toy_res, toy_spp, toy_cams = (CUDA_TOY[k] for k in ("res", "spp",
+                                                            "cams"))
         params, aux = toy.make_sphere_scene(
             n_surface=8192, n_capacity=16384,
             env_resolution=cfg.model.envmap_resolution, device=dev)

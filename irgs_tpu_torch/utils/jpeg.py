@@ -1,4 +1,4 @@
-"""Baseline JPEG decode, bit for bit as PIL gives it.
+"""JPEG decode, bit for bit as PIL gives it.
 
 The JAX package reads JPEG frames with ``PIL.Image.open`` (COLMAP scenes,
 irgs_tpu/scene/colmap.py; any other LDR frame, irgs_tpu/scene/datasets.py:
@@ -7,24 +7,41 @@ module follows that library's decoder step by step so that its arrays
 equal PIL's:
 
   markers    SOI, APPn (JFIF, and Adobe APP14's transform flag), DQT (8-
-             and 16-bit tables), SOF0/SOF1, DHT, DRI and RSTn, SOS, COM, EOI;
-  entropy    Huffman decoding with byte stuffing and restart intervals
-             (csrc/jpeg_huffman.cpp, built with g++ at first use);
+             and 16-bit tables), SOF0/1 (sequential), SOF2 (progressive),
+             SOF3 (lossless), SOF9/10 (arithmetic sequential and
+             progressive), DHT, DAC, DRI and RSTn, SOS, COM, EOI;
+  entropy    Huffman decoding with byte stuffing and restart intervals, the
+             progressive scans (DC first and refine, AC first and refine,
+             EOB runs), the QM arithmetic decoder with its conditioning
+             tables, and lossless differences (csrc/jpeg_decode.cpp, built
+             with g++ at first use);
+  smoothing  the block smoothing libjpeg-turbo applies to a progressive
+             file whose scans leave coefficient bits unsent (jdcoefct.c
+             decompress_smooth_data, in jpeg_decode.cpp);
   IDCT       dequantisation and the accurate integer IDCT
              (jidctint.c jpeg_idct_islow: 13-bit constants, PASS1_BITS 2,
              the two DESCALE roundings and the post-IDCT range-limit table);
+  lossless   the predictors 1-7 modulo 2^16, restarted at each restart
+             interval, and the point transform (jdpred.c, jdlossls.c);
   upsampling libjpeg-turbo's "fancy" triangle filters (jdsample.c:
              h2v1 and h2v2 with their 1/2 and 8/7 biases, h1v2 with 1 and 2)
              over rows and columns clamped at the component's edge, plain
              replication for chroma 2 samples wide or less and for other
              integer factors (int_upsample);
   colour     the fixed-point YCbCr -> RGB tables of jdcolor.c (ONE_HALF
-             rounding, 16 fraction bits); grey stays one channel, and
-             `read_jpeg_rgb` replicates it as ``.convert("RGB")`` does.
+             rounding, 16 fraction bits); grey stays one channel; four
+             components are CMYK, or YCCK under an Adobe transform other
+             than 0 (ycck_cmyk_convert), and PIL's "CMYK;I" raw mode then
+             inverts all four samples.
 
-Progressive (SOF2), lossless (SOF3), hierarchical (SOF5-7) and arithmetic
-(SOF9-15, DAC) streams, 12-bit samples and CMYK/YCCK (four components)
-raise NotImplementedError (ROADMAP.md A6).
+Streams PIL refuses raise JpegError here too: samples of other than 8 bits,
+a frame height given by DNL, hierarchical frames (SOF5-7, SOF13-15),
+arithmetic lossless (SOF11), component counts other than 1, 3 and 4, and
+an arithmetic-coded scan whose data runs past the end of one of the 64 KiB
+reads in which PIL hands the file to libjpeg-turbo (whose arithmetic
+decoder cannot suspend there).
+A lossless frame with subsampled components raises NotImplementedError
+(ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -37,7 +54,7 @@ import numpy as np
 
 from . import native
 
-SRC = Path(__file__).resolve().parents[1] / "csrc" / "jpeg_huffman.cpp"
+SRC = Path(__file__).resolve().parents[1] / "csrc" / "jpeg_decode.cpp"
 
 # zig-zag position -> natural (row-major) position in the 8x8 block
 ZIGZAG = np.array([
@@ -46,15 +63,19 @@ ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_UNSUPPORTED = {
-    0xC2: "SOF2 (progressive)", 0xC3: "SOF3 (lossless)",
+# SOF marker -> (entropy coding, process)
+_FRAMES = {0xC0: ("huffman", "sequential"), 0xC1: ("huffman", "sequential"),
+           0xC2: ("huffman", "progressive"), 0xC3: ("huffman", "lossless"),
+           0xC9: ("arith", "sequential"), 0xCA: ("arith", "progressive")}
+# frames libjpeg-turbo does not decode, so PIL cannot read them either
+_REFUSED = {
     0xC5: "SOF5 (hierarchical)", 0xC6: "SOF6 (hierarchical progressive)",
-    0xC7: "SOF7 (hierarchical lossless)", 0xC9: "SOF9 (arithmetic)",
-    0xCA: "SOF10 (arithmetic progressive)", 0xCB: "SOF11 (arithmetic "
-    "lossless)", 0xCC: "DAC (arithmetic conditioning)", 0xCD: "SOF13 "
-    "(arithmetic hierarchical)", 0xCE: "SOF14 (arithmetic hierarchical "
-    "progressive)", 0xCF: "SOF15 (arithmetic hierarchical lossless)",
+    0xC7: "SOF7 (hierarchical lossless)", 0xCB: "SOF11 (arithmetic "
+    "lossless)", 0xCD: "SOF13 (arithmetic hierarchical)", 0xCE: "SOF14 "
+    "(arithmetic hierarchical progressive)", 0xCF: "SOF15 (arithmetic "
+    "hierarchical lossless)",
 }
+_MODES = {1: "L", 3: "RGB", 4: "CMYK"}
 
 _LIB = None
 
@@ -63,26 +84,43 @@ class JpegError(ValueError):
     pass
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"JPEG {what} is not decoded by the port; only baseline and extended "
-        "sequential Huffman 8-bit grey and YCbCr/RGB streams are "
-        "(ROADMAP.md A6)")
+def _refused(what: str):
+    return JpegError(f"JPEG {what}: PIL does not read such a stream either")
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(native.build_library(SRC, "jpeg_huffman")))
+        lib = ctypes.CDLL(str(native.build_library(SRC, "jpeg_decode")))
         u8p = ctypes.POINTER(ctypes.c_uint8)
-        lib.jpeg_decode_scan.argtypes = [
-            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int32), u8p, u8p, ctypes.c_int32,
-            ctypes.c_int32, ctypes.c_int32,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_int16))]
-        lib.jpeg_decode_scan.restype = ctypes.c_int64
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        i16pp = ctypes.POINTER(ctypes.POINTER(ctypes.c_int16))
+        i64, i32, cint = ctypes.c_int64, ctypes.c_int32, ctypes.c_int
+        huff = [u8p, i64, i64, cint, i32p, u8p, u8p, i32, i32, i32]
+        lib.jpeg_decode_scan.argtypes = huff + [i16pp]
+        lib.jpeg_decode_scan_progressive.argtypes = huff + [
+            cint, cint, cint, cint, i16pp]
+        lib.jpeg_decode_scan_arith.argtypes = [
+            u8p, i64, i64, cint, i32p, i32p, i32p, i32p, i32, i32, i32, cint,
+            cint, cint, cint, cint, i16pp]
+        lib.jpeg_decode_scan_lossless.argtypes = huff + [
+            u8p, ctypes.POINTER(i32p)]
+        for f in (lib.jpeg_decode_scan, lib.jpeg_decode_scan_progressive,
+                  lib.jpeg_decode_scan_arith, lib.jpeg_decode_scan_lossless):
+            f.restype = i64
+        lib.jpeg_undifference.argtypes = [i32p, i32p, i32, i32, i32, u8p,
+                                          cint, cint]
+        lib.jpeg_undifference.restype = None
+        lib.jpeg_smooth.argtypes = [
+            ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_int16),
+            i32, i32, i32, i32, i32, i32, i32p, i32p]
+        lib.jpeg_smooth.restype = None
         _LIB = lib
     return _LIB
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
 # --- accurate integer IDCT (jidctint.c) -----------------------------------
@@ -242,18 +280,31 @@ def _segment(buf, pos):
     return buf[pos + 2:pos + n], pos + n
 
 
-def decode_jpeg(buf: bytes) -> np.ndarray:
-    """A JPEG stream -> uint8 [H, W] (grey) or [H, W, 3] (RGB), what
-    ``np.asarray(PIL.Image.open(...))`` gives for it."""
+class _State:
+    """What the markers define, as the decoder reads them."""
+
+    def __init__(self):
+        self.qtables = [None] * 4
+        self.huff_bits = np.zeros((8, 16), np.uint8)
+        self.huff_vals = np.zeros((8, 256), np.uint8)
+        self.dc_l = np.zeros(4, np.int32)          # DAC: T.81 defaults
+        self.dc_u = np.ones(4, np.int32)
+        self.ac_k = np.full(4, 5, np.int32)
+        self.restart = 0
+        self.frame = None
+        self.saw_jfif = self.saw_adobe = False
+        self.adobe_transform = None
+        self.comment = None
+
+
+def decode_jpeg_like_pil(buf: bytes):
+    """A JPEG stream -> (array, mode, info): ``np.asarray(im)``, ``im.mode``
+    ("L", "RGB" or "CMYK") and the ``im.info`` entries the port carries
+    (``comment``: the last COM segment before the first scan) of
+    ``im = PIL.Image.open(...)``."""
     if buf[:2] != b"\xff\xd8":
         raise JpegError("not a JPEG stream (no SOI)")
-    qtables = [None] * 4
-    huff_bits = np.zeros((8, 16), np.uint8)
-    huff_vals = np.zeros((8, 256), np.uint8)
-    restart = 0
-    frame = None
-    saw_jfif = saw_adobe = False
-    adobe_transform = None
+    s = _State()
     pos = 2
     while True:
         # next marker, past any fill bytes
@@ -269,13 +320,15 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
             break
         if 0xD0 <= m <= 0xD7 or m == 0x01:                   # RSTn, TEM
             continue
-        if m in _UNSUPPORTED:
-            raise _not_ported(_UNSUPPORTED[m])
+        if m in _REFUSED:
+            raise _refused(_REFUSED[m])
         seg, nxt = _segment(buf, pos)
         if m == 0xE0 and seg[:5] == b"JFIF\x00":
-            saw_jfif = True
+            s.saw_jfif = True
         elif m == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            saw_adobe, adobe_transform = True, seg[11]
+            s.saw_adobe, s.adobe_transform = True, seg[11]
+        elif m == 0xFE and (s.frame is None or not s.frame["scans"]):
+            s.comment = bytes(seg)      # PIL keeps the last before the scans
         elif m == 0xDB:                                      # DQT
             i = 0
             while i < len(seg):
@@ -287,23 +340,10 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
                     raise JpegError("bad DQT segment")
                 q = np.zeros(64, np.int64)
                 q[ZIGZAG] = raw
-                qtables[tq] = q
+                s.qtables[tq] = q
                 i += 1 + n
-        elif m in (0xC0, 0xC1):                              # SOF0, SOF1
-            prec, h, w, nf = struct.unpack_from(">BHHB", seg, 0)
-            if prec != 8:
-                raise _not_ported(f"{prec}-bit precision")
-            if h == 0:
-                raise _not_ported("height given by a DNL marker")
-            if nf == 4:
-                raise _not_ported("CMYK/YCCK (four components)")
-            if nf not in (1, 3):
-                raise _not_ported(f"with {nf} components")
-            comps = []
-            for c in range(nf):
-                cid, hv, tq = struct.unpack_from(">BBB", seg, 6 + 3 * c)
-                comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
-            frame = _new_frame(w, h, comps)
+        elif m in _FRAMES:
+            s.frame = _new_frame(seg, *_FRAMES[m])
         elif m == 0xC4:                                      # DHT
             i = 0
             while i < len(seg):
@@ -313,45 +353,88 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
                 if tc > 1 or th > 3 or counts.size != 16 or n > 256:
                     raise JpegError("bad DHT segment")
                 t = 4 * tc + th
-                huff_bits[t] = counts
-                huff_vals[t] = 0
-                huff_vals[t, :n] = np.frombuffer(seg[i + 17:i + 17 + n],
-                                                 np.uint8)
+                s.huff_bits[t] = counts
+                s.huff_vals[t] = 0
+                s.huff_vals[t, :n] = np.frombuffer(seg[i + 17:i + 17 + n],
+                                                   np.uint8)
                 i += 17 + n
+        elif m == 0xCC:                                      # DAC
+            for i in range(0, len(seg) - 1, 2):
+                tc, tb, cs = seg[i] >> 4, seg[i] & 15, seg[i + 1]
+                if tb > 3:
+                    raise JpegError("bad DAC segment")
+                if tc:
+                    s.ac_k[tb] = cs
+                else:
+                    s.dc_l[tb], s.dc_u[tb] = cs & 15, cs >> 4
         elif m == 0xDD:                                      # DRI
-            (restart,) = struct.unpack_from(">H", seg, 0)
+            (s.restart,) = struct.unpack_from(">H", seg, 0)
         elif m == 0xDA:                                      # SOS
-            if frame is None:
+            if s.frame is None:
                 raise JpegError("SOS before SOF")
-            nxt = _decode_scan(buf, seg, nxt, frame, qtables, huff_bits,
-                               huff_vals, restart)
+            nxt = _decode_scan(buf, seg, nxt, s)
+            s.frame["scans"] += 1
         pos = nxt
-    if frame is None:
+    if s.frame is None:
         raise JpegError("no frame")
-    return _output(frame, saw_jfif, saw_adobe, adobe_transform)
+    info = {} if s.comment is None else {"comment": s.comment}
+    return _output(s), _MODES[len(s.frame["comps"])], info
 
 
-def _new_frame(w, h, comps):
+def decode_jpeg(buf: bytes) -> np.ndarray:
+    """A JPEG stream -> what ``np.asarray(PIL.Image.open(...))`` gives for
+    it: uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (CMYK)."""
+    return decode_jpeg_like_pil(buf)[0]
+
+
+def _new_frame(seg, coding, process):
+    prec, h, w, nf = struct.unpack_from(">BHHB", seg, 0)
+    if prec != 8:
+        raise _refused(f"with {prec}-bit samples")
+    if h == 0:
+        raise _refused("with its height given by a DNL marker")
+    if nf not in _MODES:
+        raise _refused(f"with {nf} components")
+    comps = []
+    for c in range(nf):
+        cid, hv, tq = struct.unpack_from(">BBB", seg, 6 + 3 * c)
+        comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
-    mcus_x = -(-w // (8 * hmax))
-    mcus_y = -(-h // (8 * vmax))
+    lossless = process == "lossless"
+    if lossless and (hmax, vmax) != (1, 1):
+        raise NotImplementedError(
+            "lossless JPEG with subsampled components is not decoded by the "
+            "port (ROADMAP.md C)")
+    unit = 1 if lossless else 8
+    mcus_x, mcus_y = -(-w // (unit * hmax)), -(-h // (unit * vmax))
     for c in comps:
         if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
             raise JpegError("bad sampling factors")
         c["dw"] = -(-w * c["h"] // hmax)          # downsampled width
         c["dh"] = -(-h * c["v"] // vmax)
-        c["bw"] = -(-c["dw"] // 8)                # blocks of real samples
-        c["bh"] = -(-c["dh"] // 8)
-        c["coef"] = np.zeros((mcus_y * c["v"], mcus_x * c["h"], 64),
-                             np.int16)
+        c["bw"] = -(-c["dw"] // unit)             # blocks of real samples
+        c["bh"] = -(-c["dh"] // unit)
+        shape = (mcus_y * c["v"], mcus_x * c["h"])
+        if lossless:
+            c["diff"] = np.zeros(shape, np.int32)
+            c["samples"] = None
+        else:
+            c["coef"] = np.zeros(shape + (64,), np.int16)
+        c["coef_bits"] = np.full(64, -1, np.int32)
         c["qt"] = None
     return dict(w=w, h=h, comps=comps, hmax=hmax, vmax=vmax, mcus_x=mcus_x,
-                mcus_y=mcus_y)
+                mcus_y=mcus_y, coding=coding, process=process, scans=0)
 
 
-def _decode_scan(buf, seg, pos, frame, qtables, huff_bits, huff_vals,
-                 restart):
+_SCAN_ERRORS = {-1: "scan uses an undefined Huffman table",
+                -2: "corrupt entropy-coded data",
+                -3: "missing restart marker",
+                -4: "corrupt arithmetic-coded data"}
+
+
+def _decode_scan(buf, seg, pos, s):
+    frame = s.frame
     ns = seg[0]
     by_id = {c["id"]: c for c in frame["comps"]}
     comps, params = [], []
@@ -360,80 +443,175 @@ def _decode_scan(buf, seg, pos, frame, qtables, huff_bits, huff_vals,
         if cid not in by_id:
             raise JpegError(f"scan names unknown component {cid}")
         c = by_id[cid]
-        if c["qt"] is None:            # latched at the component's first scan
-            if qtables[c["tq"]] is None:
+        if c["qt"] is None and frame["process"] != "lossless":
+            # latched at the component's first scan
+            if s.qtables[c["tq"]] is None:
                 raise JpegError(f"quantisation table {c['tq']} undefined")
-            c["qt"] = qtables[c["tq"]]
+            c["qt"] = s.qtables[c["tq"]]
         td, ta = tt >> 4, tt & 15
         if td > 3 or ta > 3:
             raise JpegError("bad table selector")
         comps.append(c)
         h, v = (c["h"], c["v"]) if ns > 1 else (1, 1)
-        params += [td, ta, h, v, c["coef"].shape[1], c["coef"].shape[0]]
+        arr = c["diff"] if frame["process"] == "lossless" else c["coef"]
+        params += [td, ta, h, v, arr.shape[1], arr.shape[0]]
     ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise JpegError("baseline scan with a spectral selection")
+    ah, al = ahal >> 4, ahal & 15
     if ns > 1:
         mx, my = frame["mcus_x"], frame["mcus_y"]
     else:   # a non-interleaved scan: one block per MCU, real blocks only
         mx, my = comps[0]["bw"], comps[0]["bh"]
     data = np.frombuffer(buf, np.uint8)
-    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib = _lib()
+    cp = np.asarray(params, np.int32)
+    head = (_ptr(data, ctypes.c_uint8), len(buf), pos, ns,
+            _ptr(cp, ctypes.c_int32))
+    huff = (_ptr(s.huff_bits, ctypes.c_uint8),
+            _ptr(s.huff_vals, ctypes.c_uint8), mx, my, s.restart)
+    process = frame["process"]
+    if process == "lossless":
+        return _lossless_scan(lib, head, huff, comps, my, ss, al, frame)
     i16p = ctypes.POINTER(ctypes.c_int16)
     ptrs = (i16p * ns)(*[c["coef"].ctypes.data_as(i16p) for c in comps])
-    cp = np.asarray(params, np.int32)
-    hb = np.ascontiguousarray(huff_bits)
-    hv = np.ascontiguousarray(huff_vals)
-    end = _lib().jpeg_decode_scan(
-        data.ctypes.data_as(u8p), len(buf), pos, ns,
-        cp.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        hb.ctypes.data_as(u8p), hv.ctypes.data_as(u8p), mx, my, restart,
-        ptrs)
+    if process == "sequential":
+        ss, se, ah, al = 0, 63, 0, 0
+    elif not (ss <= se <= 63 and (ss == 0) == (se == 0) and (ss == 0 or ns == 1)
+              and ah <= 13 and al <= 13):
+        raise JpegError(f"bad progressive scan {ss}-{se}, {ah}/{al}")
+    for c in comps:
+        c["coef_bits"][ss:se + 1] = al
+    if frame["coding"] == "arith":
+        end = lib.jpeg_decode_scan_arith(
+            *head, _ptr(s.dc_l, ctypes.c_int32), _ptr(s.dc_u, ctypes.c_int32),
+            _ptr(s.ac_k, ctypes.c_int32), mx, my, s.restart,
+            int(process == "progressive"), ss, se, ah, al, ptrs)
+    elif process == "progressive":
+        end = lib.jpeg_decode_scan_progressive(*head, *huff, ss, se, ah, al,
+                                               ptrs)
+    else:
+        end = lib.jpeg_decode_scan(*head, *huff, ptrs)
+    if end == -5:
+        raise _refused("arithmetic-coded scan whose data runs past one of "
+                       "PIL's 64 KiB reads")
     if end < 0:
-        raise JpegError({-1: "scan uses an undefined Huffman table",
-                         -2: "corrupt Huffman data",
-                         -3: "missing restart marker"}[int(end)])
+        raise JpegError(_SCAN_ERRORS[int(end)])
     return int(end)
 
 
-def _output(frame, saw_jfif, saw_adobe, adobe_transform):
+def _lossless_scan(lib, head, huff, comps, my, predictor, pt, frame):
+    if not 1 <= predictor <= 7:
+        raise JpegError(f"lossless predictor {predictor}")
+    mx = huff[2]
+    if huff[4] and huff[4] % mx:
+        raise NotImplementedError(
+            "lossless JPEG whose restart interval is not a whole number of "
+            "MCU rows is not decoded by the port (ROADMAP.md C)")
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    ptrs = (i32p * len(comps))(*[c["diff"].ctypes.data_as(i32p)
+                                 for c in comps])
+    first = np.zeros(my, np.uint8)
+    end = lib.jpeg_decode_scan_lossless(*head, *huff,
+                                        _ptr(first, ctypes.c_uint8), ptrs)
+    if end < 0:
+        raise JpegError(_SCAN_ERRORS[int(end)])
+    for c in comps:
+        rows, stride = c["diff"].shape
+        out = np.zeros_like(c["diff"])
+        lib.jpeg_undifference(_ptr(c["diff"], ctypes.c_int32),
+                              _ptr(out, ctypes.c_int32), rows, stride,
+                              c["bw"], _ptr(first, ctypes.c_uint8),
+                              predictor, pt)
+        c["samples"] = ((out << pt) & 0xFF).astype(np.uint8)
+    return int(end)
+
+
+def _smoothing_ok(frame):
+    """jdcoefct.c smoothing_ok: a progressive frame, every component's
+    DC and first nine AC quantisers nonzero and its DC sent, and some of
+    the first ten coefficients' bits still unsent."""
+    if frame["process"] != "progressive":
+        return False
+    useful = False
+    for c in frame["comps"]:
+        if c["qt"] is None or np.any(c["qt"][ZIGZAG[:10]] == 0):
+            return False
+        if c["coef_bits"][0] < 0:
+            return False
+        useful |= bool(np.any(c["coef_bits"][1:10] != 0))
+    return useful
+
+
+def _smoothed(c, frame):
+    out = np.empty_like(c["coef"])
+    bits = np.ascontiguousarray(c["coef_bits"][:10], np.int32)
+    q = np.ascontiguousarray(c["qt"][ZIGZAG[:10]], np.int32)
+    h, w = c["coef"].shape[:2]
+    _lib().jpeg_smooth(_ptr(c["coef"], ctypes.c_int16),
+                       _ptr(out, ctypes.c_int16), w, h, c["bw"], c["bh"],
+                       c["v"], frame["mcus_y"], _ptr(bits, ctypes.c_int32),
+                       _ptr(q, ctypes.c_int32))
+    return out
+
+
+def _output(s):
+    frame = s.frame
     w, h = frame["w"], frame["h"]
+    smooth = _smoothing_ok(frame)
     planes = []
     for c in frame["comps"]:
+        if frame["process"] == "lossless":
+            if c["samples"] is None:
+                raise JpegError(f"component {c['id']} has no scan")
+            planes.append(c["samples"][:h, :w])
+            continue
         if c["qt"] is None:
             raise JpegError(f"component {c['id']} has no scan")
-        blocks = idct_islow(c["coef"], c["qt"])          # [by, bx, 8, 8]
+        coef = _smoothed(c, frame) if smooth else c["coef"]
+        blocks = idct_islow(coef, c["qt"])               # [by, bx, 8, 8]
         by, bx = blocks.shape[:2]
         plane = blocks.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
         hx, rem_x = divmod(frame["hmax"], c["h"])
         vx, rem_y = divmod(frame["vmax"], c["v"])
         if rem_x or rem_y:
-            raise _not_ported("fractional sampling factors")
+            raise NotImplementedError(
+                "JPEG with fractional sampling factors is not decoded by the "
+                "port (ROADMAP.md C)")
         planes.append(_upsample(plane, c["dw"], c["dh"], hx, vx)[:h, :w])
     if len(planes) == 1:
         return planes[0]
-    # jdapimin.c default_decompress_parms: the colour space of 3 components
+    lossless = frame["process"] == "lossless"
+    if len(planes) == 4:
+        if lossless and s.saw_adobe and s.adobe_transform != 0:
+            raise _refused("lossless with a YCCK colour transform")
+        # jdapimin.c default_decompress_parms: Adobe transform 0 (or no
+        # Adobe marker) is CMYK, any other YCCK; PIL's "CMYK;I" inverts
+        if s.saw_adobe and s.adobe_transform != 0:
+            rgb = ycc_to_rgb(*planes[:3])
+            return np.concatenate([rgb, 255 - planes[3][..., None]], -1)
+        return 255 - np.stack(planes, -1)
+    # the colour space of 3 components
     ids = tuple(c["id"] for c in frame["comps"])
-    if saw_jfif:
+    if s.saw_jfif:
         rgb = False
-    elif saw_adobe:
-        rgb = adobe_transform == 0
+    elif s.saw_adobe:
+        rgb = s.adobe_transform == 0
     else:
         rgb = ids == (82, 71, 66)                  # 'R', 'G', 'B'
     if rgb:
         return np.stack(planes, -1)
+    if lossless:    # libjpeg-turbo converts no colour in lossless mode
+        raise _refused("lossless with a YCbCr colour transform")
     return ycc_to_rgb(*planes)
+
+
+def read_jpeg_like_pil(path: str):
+    """(array, mode, info) of a JPEG file, as decode_jpeg_like_pil."""
+    with open(path, "rb") as f:
+        return decode_jpeg_like_pil(f.read())
 
 
 def read_jpeg(path: str) -> np.ndarray:
     """``np.asarray(PIL.Image.open(path))`` of a JPEG file: uint8 [H, W]
-    for grey, [H, W, 3] for colour."""
-    with open(path, "rb") as f:
-        return decode_jpeg(f.read())
+    for grey, [H, W, 3] for colour, [H, W, 4] for CMYK."""
+    return read_jpeg_like_pil(path)[0]
 
-
-def read_jpeg_rgb(path: str) -> np.ndarray:
-    """``np.asarray(PIL.Image.open(path).convert("RGB"))``: uint8
-    [H, W, 3], grey replicated."""
-    img = read_jpeg(path)
-    return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img

@@ -1,20 +1,25 @@
-"""PNG decode (8 and 16 bits) and 8-bit encode in numpy + zlib.
+"""PNG decode and encode in numpy + zlib.
 
 The JAX package reads dataset frames with ``PIL.Image.open``
 (irgs_tpu/scene/datasets.py:59-60) and writes its visualisations with
 ``imageio.imwrite`` (irgs_tpu/utils/vis.py:32,54); the port reads and writes
 the same files without either library.
 
-  read : colour types 0 (grey), 2 (RGB), 4 (grey + alpha), 6 (RGBA) at 8 or
-         16 bits, all five row filters; palette (3), other bit depths and
-         interlaced files raise.
-  write: 8-bit grey, grey + alpha, RGB or RGBA, one chosen row filter.
+  read : every PNG image type (grey at 1, 2, 4, 8 and 16 bits, palette at
+         1, 2, 4 and 8, RGB, grey + alpha and RGBA at 8 and 16), all five
+         row filters, Adam7 interlacing; `read_png_like_pil` gives PIL's
+         array, mode and palette.
+  write: 8-bit grey, grey + alpha, RGB or RGBA, one chosen row filter; and
+         (`write_png_like_pil`) what PIL's save writes for the modes "1",
+         "P" (palette and tRNS), "L", "LA", "RGB", "RGBA" and "I;16", with
+         the source's ICC profile (iCCP).
 
 Format per the PNG specification (ISO/IEC 15948, W3C REC-PNG).
 """
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 
@@ -98,51 +103,149 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """The samples as stored: uint8 or uint16, [H, W] for grey, [H, W, C]
-    (C = 2, 3 or 4) otherwise."""
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+
+def _unpack(data: np.ndarray, w: int, depth: int, nch: int) -> np.ndarray:
+    """[h, stride] unfiltered bytes -> [h, w, nch] samples (uint8 or uint16
+    as stored; bit depths below 8 unpacked, not scaled)."""
+    h = data.shape[0]
+    if depth == 16:
+        return data.view(">u2").astype(np.uint16).reshape(h, w, nch)
+    if depth == 8:
+        return data.reshape(h, w, nch)
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    vals = (data[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return vals.reshape(h, -1)[:, :w, None].astype(np.uint8)
+
+
+def _decode_image(raw: np.ndarray, w: int, h: int, depth: int, nch: int,
+                  interlace: int, path: str) -> np.ndarray:
+    bpp = max(1, nch * depth // 8)
+
+    def stride(width):
+        return 1 + (width * nch * depth + 7) // 8
+
+    if not interlace:
+        if raw.size != h * stride(w):
+            raise PngError(f"{path}: {raw.size} bytes of image data, "
+                           f"expected {h * stride(w)}")
+        rows = _unfilter(raw.reshape(h, stride(w)), bpp)
+        return _unpack(rows, w, depth, nch)
+    dtype = np.uint16 if depth == 16 else np.uint8
+    img = np.zeros((h, w, nch), dtype)
+    pos = 0
+    for x0, y0, dx, dy in _ADAM7:           # Adam7: seven sub-images
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        n = ph * stride(pw)
+        if pos + n > raw.size:
+            raise PngError(f"{path}: interlaced image data too short")
+        rows = _unfilter(raw[pos:pos + n].reshape(ph, stride(pw)), bpp)
+        img[y0::dy, x0::dx] = _unpack(rows, pw, depth, nch)
+        pos += n
+    if pos != raw.size:
+        raise PngError(f"{path}: {raw.size} bytes of image data, expected "
+                       f"{pos}")
+    return img
+
+
+def _icc_profile(data: bytes, path: str):
+    """An iCCP payload's profile as PngImagePlugin's chunk_iCCP reads it:
+    None where zlib fails, an error past PIL's 1 MiB limit."""
+    i = data.find(b"\0")
+    if data[i + 1] != 0:
+        raise PngError(f"{path}: unknown iCCP compression {data[i + 1]}")
+    d = zlib.decompressobj()
+    try:
+        profile = d.decompress(data[i + 2:], 1 << 20)
+    except zlib.error:
+        return None
+    if d.unconsumed_tail:
+        raise PngError(f"{path}: iCCP profile past PIL's 1 MiB limit")
+    return profile
+
+
+def _read(path: str):
+    """(samples [H, W, C] as stored, bit depth, colour type, palette uint8
+    [n, 3] or None, tRNS payload or None, info: ``icc_profile`` from the
+    last iCCP chunk, as PIL's info holds it once the image is loaded)."""
     with open(path, "rb") as f:
         buf = f.read()
-    header, idat = None, []
+    header, idat, palette, trns, info = None, [], None, None, {}
     for kind, data in _chunks(buf):
-        if kind == b"IHDR":
+        if kind == b"iCCP":
+            info["icc_profile"] = _icc_profile(data, path)
+        elif kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            if len(data) % 3 or not 3 <= len(data) <= 768:
+                raise PngError(f"{path}: bad PLTE chunk")
+            palette = np.frombuffer(data, np.uint8).reshape(-1, 3).copy()
+        elif kind == b"tRNS":
+            trns = bytes(data)
         elif kind == b"IDAT":
             idat.append(data)
     if header is None:
         raise PngError(f"{path}: no IHDR")
     w, h, depth, ctype, _comp, _filt, interlace = header
-    if ctype == 3:
-        raise NotImplementedError(f"{path}: palette PNGs are not read")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced PNGs are not read")
-    if ctype not in _CHANNELS or depth not in (8, 16):
-        raise NotImplementedError(f"{path}: colour type {ctype} at {depth} "
-                                  "bits is not read")
-    nch = _CHANNELS[ctype]
-    bpp = nch * depth // 8
+    if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
+        raise PngError(f"{path}: colour type {ctype} at {depth} bits is not "
+                       "a PNG image type")
+    if ctype == 3 and palette is None:
+        raise PngError(f"{path}: palette image without PLTE")
+    if interlace not in (0, 1):
+        raise PngError(f"{path}: unknown interlace method {interlace}")
+    nch = 1 if ctype == 3 else _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise PngError(f"{path}: {raw.size} bytes of image data, expected "
-                       f"{h * (1 + w * bpp)}")
-    data = _unfilter(raw.reshape(h, 1 + w * bpp), bpp)
+    img = _decode_image(raw, w, h, depth, nch, interlace, path)
+    return img, depth, ctype, palette, trns, info
+
+
+def read_png(path: str) -> np.ndarray:
+    """The samples as stored: uint8 or uint16, [H, W] for grey and palette
+    indices, [H, W, C] (C = 2, 3 or 4) otherwise; bit depths below 8 as
+    their values (0-1, 0-3, 0-15)."""
+    img = _read(path)[0]
+    return img[..., 0] if img.shape[-1] == 1 else img
+
+
+def read_png_like_pil(path: str):
+    """(array, mode, info) of ``im = PIL.Image.open(path)``: ``np.asarray(
+    im)``, ``im.mode`` and the info the port carries: ``palette`` (uint8
+    [n, 3], mode P), ``transparency`` (the palette's tRNS alphas as
+    bytes, or the index of its one transparent entry) and ``icc_profile``
+    (the iCCP chunk's profile).
+
+    Modes as PngImagePlugin maps them: grey at 1 bit is "1" (bool), at 2
+    and 4 bits "L" scaled to 0-255, at 16 bits "I;16"; palette at any depth
+    "P" (the indices); 16-bit colour keeps each sample's high byte, and
+    16-bit grey + alpha becomes RGBA."""
+    img, depth, ctype, palette, trns, info = _read(path)
+    if ctype == 3:
+        info["palette"] = palette
+        if trns is not None:
+            # PIL's _simple_palette: one fully transparent entry and the
+            # rest opaque is kept as that entry's index
+            simple = re.fullmatch(rb"\xff*\x00\xff*", trns)
+            info["transparency"] = trns.index(b"\0") if simple else trns
+        return img[..., 0], "P", info
+    if ctype == 0:
+        g = img[..., 0]
+        if depth == 1:
+            return g.astype(bool), "1", info
+        if depth in (2, 4):
+            return (g * (255 // ((1 << depth) - 1))).astype(np.uint8), "L", info
+        return g, ("I;16" if depth == 16 else "L"), info
     if depth == 16:
-        data = data.view(">u2").astype(np.uint16)
-    img = data.reshape(h, w, nch)
-    return img[..., 0] if nch == 1 else img
-
-
-def read_png_as_pil(path: str) -> np.ndarray:
-    """What ``np.asarray(PIL.Image.open(path))`` gives for the files
-    read_png takes: 8-bit samples and 16-bit grey as stored; the other
-    16-bit types keep only the high byte of each sample, and 16-bit grey +
-    alpha comes as RGBA."""
-    img = read_png(path)
-    if img.dtype == np.uint16 and img.ndim == 3:
         img = (img >> 8).astype(np.uint8)
-        if img.shape[-1] == 2:
-            img = img[..., [0, 0, 0, 1]]
-    return img
+        if ctype == 4:
+            return img[..., [0, 0, 0, 1]], "RGBA", info
+    return img, {2: "RGB", 4: "LA", 6: "RGBA"}[ctype], info
 
 
 def _filter(img: np.ndarray, bpp: int, filter_type: int) -> np.ndarray:
@@ -172,6 +275,11 @@ def _filter(img: np.ndarray, bpp: int, filter_type: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
+def _chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))
+
+
 def write_png(path: str, img: np.ndarray, filter_type: int = 1) -> None:
     """Write a uint8 image, [H, W] or [H, W, C] with C in 1..4, every row
     filtered with `filter_type` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
@@ -186,14 +294,70 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 1) -> None:
     h, w, nch = img.shape
     rows = _filter(np.ascontiguousarray(img).reshape(h, w * nch), nch,
                    filter_type)
+    _write(path, w, h, 8, _COLOR_TYPE[nch], rows, filter_type)
+
+
+def _write(path, w, h, depth, ctype, rows, filter_type, extra=b""):
     raw = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows], 1)
-
-    def chunk(kind, data):
-        return (struct.pack(">I", len(data)) + kind + data
-                + struct.pack(">I", zlib.crc32(kind + data)))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[nch], 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + chunk(b"IHDR", ihdr)
-                + chunk(b"IDAT", zlib.compress(raw.tobytes()))
-                + chunk(b"IEND", b""))
+        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + extra
+                + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + _chunk(b"IEND", b""))
+
+
+def _pack(values: np.ndarray, depth: int) -> np.ndarray:
+    """[h, w] values below 2^depth -> [h, ceil(w * depth / 8)] bytes."""
+    h, w = values.shape
+    per = 8 // depth
+    padded = np.zeros((h, -(-w // per) * per), np.uint8)
+    padded[:, :w] = values
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    return np.bitwise_or.reduce(
+        padded.reshape(h, -1, per) << shifts, axis=2).astype(np.uint8)
+
+
+def write_png_like_pil(path: str, img: np.ndarray, mode: str,
+                       info: dict | None = None) -> None:
+    """Write an image of PIL mode `mode` as ``PIL.Image.save(path)`` stores
+    it: "1" at 1 bit, "L", "LA", "RGB", "RGBA" at 8, "I;16" at 16 bits, and
+    "P" with its palette (``info["palette"]``, [n, 3]) at the depth PIL picks
+    from the palette's length (1 bit up to 2 entries, 2 up to 4, 4 up to 16,
+    else 8); the ``transparency`` of ``info`` as a tRNS chunk and its
+    ``icc_profile`` as an iCCP chunk, as PIL carries them from the source
+    (the profile compressed by zlib.compress, as PIL does). The rows are filtered with None (PIL's
+    choice for these depths may differ; the pixels are the same)."""
+    info = info or {}
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    extra = b""
+    if mode == "1":
+        rows, depth, ctype = _pack(img.astype(np.uint8), 1), 1, 0
+    elif mode == "P":
+        pal = np.asarray(info["palette"], np.uint8).reshape(-1, 3)
+        colors = max(min(len(pal), 256), 1)
+        depth = 1 if colors <= 2 else 2 if colors <= 4 else 4 if colors <= 16 \
+            else 8
+        rows = _pack(img & ((1 << depth) - 1), depth) if depth < 8 else img
+        ctype = 3
+        extra = _chunk(b"PLTE", pal[:colors].tobytes())
+        t = info.get("transparency")
+        if isinstance(t, bytes):
+            extra += _chunk(b"tRNS", t[:colors])
+        elif t is not None:
+            t = max(0, min(255, int(t)))
+            extra += _chunk(b"tRNS", (b"\xff" * t + b"\0")[:colors])
+    elif mode == "I;16":
+        rows = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
+        depth, ctype = 16, 0
+    elif mode in ("L", "LA", "RGB", "RGBA"):
+        nch = len(mode)
+        rows = np.ascontiguousarray(img, np.uint8).reshape(h, w * nch)
+        depth, ctype = 8, _COLOR_TYPE[nch]
+    else:
+        raise OSError(f"cannot write mode {mode} as PNG")
+    if info.get("icc_profile"):
+        extra = _chunk(b"iCCP", b"ICC Profile\0\0"
+                       + zlib.compress(info["icc_profile"])) + extra
+    _write(path, w, h, depth, ctype, np.ascontiguousarray(rows, np.uint8), 0,
+           extra)

@@ -1,4 +1,5 @@
-"""cv2.resize on float images, in numpy, as OpenCV computes it.
+"""cv2.resize on float images, in numpy, as OpenCV computes it; and PIL's
+Lanczos resize of 8- and 16-bit images (`resize_lanczos_like_pil`).
 
 The JAX package resizes dataset frames and masks with ``cv2.resize``
 (irgs_tpu/scene/datasets.py:197-198 for Stanford-ORB's 512² frames,
@@ -35,7 +36,9 @@ to float; this module computes that branch in double and equals cv2 within
 
 from __future__ import annotations
 
+import ctypes
 import math
+from pathlib import Path
 
 import numpy as np
 
@@ -208,3 +211,85 @@ def _linear(src, dw, dh, scale_x, scale_y, inv_x, inv_y, area_mode):
     r0 = rows[np.clip(sy, 0, sh - 1)]
     r1 = rows[np.clip(sy + 1, 0, sh - 1)]
     return (r0 * b0 + r1 * b1).astype(src.dtype, copy=False)
+
+
+# --- PIL's Image.resize(..., LANCZOS) -------------------------------------
+
+_RESAMPLE_SRC = Path(__file__).resolve().parents[1] / "csrc" / "resample.cpp"
+_RESAMPLE_LIB = None
+
+
+def _resample_lib():
+    global _RESAMPLE_LIB
+    if _RESAMPLE_LIB is None:
+        from . import native
+        lib = ctypes.CDLL(str(native.build_library(_RESAMPLE_SRC,
+                                                   "resample")))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.resample_lanczos.argtypes = [u8p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int, u8p,
+                                         ctypes.c_int, ctypes.c_int]
+        lib.resample_lanczos.restype = ctypes.c_int
+        _RESAMPLE_LIB = lib
+    return _RESAMPLE_LIB
+
+
+def _lanczos(arr: np.ndarray, w: int, h: int) -> np.ndarray:
+    sixteen = arr.dtype == np.uint16
+    src = np.ascontiguousarray(arr.astype("<u2") if sixteen else arr)
+    bands = 1 if arr.ndim == 2 else arr.shape[2]
+    out = np.empty((h, w) + arr.shape[2:], src.dtype)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    _resample_lib().resample_lanczos(
+        src.ctypes.data_as(u8p), arr.shape[1], arr.shape[0], bands,
+        int(sixteen), out.ctypes.data_as(u8p), w, h)
+    return out.astype(np.uint16) if sixteen else out
+
+
+def _nearest(arr: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Pillow's ImagingScaleAffine at NEAREST: the source position of each
+    output pixel accumulated in double from the pixel's centre."""
+    def taps(n_in, n_out):
+        step = n_in / n_out
+        pos, out = step * 0.5, np.empty(n_out, np.int64)
+        for i in range(n_out):
+            out[i] = int(pos)
+            pos += step
+        return out
+    return arr[taps(arr.shape[0], h)][:, taps(arr.shape[1], w)]
+
+
+def _muldiv255(a, b):
+    t = a.astype(np.int32) * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def resize_lanczos_like_pil(arr: np.ndarray, mode: str, size) -> np.ndarray:
+    """``np.asarray(im.resize(size, Image.LANCZOS))`` for an image `im` of
+    PIL mode `mode` whose ``np.asarray`` is `arr`; size is (width, height).
+
+    Modes "1" and "P" resample with NEAREST, as PIL does; "LA" and "RGBA"
+    are premultiplied by alpha (MULDIV255) before and divided after (PIL's
+    "La"/"RGBa" modes); "L", "RGB", "CMYK" go through the 8-bit Lanczos of
+    csrc/resample.cpp, "I;16" through its 16-bit one."""
+    w, h = int(size[0]), int(size[1])
+    arr = np.asarray(arr)
+    if (w, h) == (arr.shape[1], arr.shape[0]):
+        return arr.copy()
+    if mode in ("1", "P"):
+        return _nearest(arr, w, h)
+    if mode in ("LA", "RGBA"):
+        a = arr[..., -1:].astype(np.int32)
+        pre = arr.copy()
+        pre[..., :-1] = _muldiv255(arr[..., :-1], a)
+        out = _lanczos(pre, w, h).astype(np.int32)
+        alpha = out[..., -1:]
+        safe = np.maximum(alpha, 1)
+        un = np.where((alpha == 0) | (alpha == 255), out[..., :-1],
+                      np.minimum(255 * out[..., :-1] // safe, 255))
+        return np.concatenate([un, alpha], -1).astype(np.uint8)
+    if mode == "I;16":
+        return _lanczos(arr.astype(np.uint16), w, h)
+    if mode in ("L", "RGB", "CMYK"):
+        return _lanczos(arr.astype(np.uint8), w, h)
+    raise NotImplementedError(f"LANCZOS resize of mode {mode}")

@@ -8,9 +8,25 @@ not installed. The images are synthetic patterns made from a seed.
     python tests/make_jpeg_fixtures.py [--out tests/data/jpeg]
 
 The variants PIL does not write (4:4:0 and 4:1:1 sampling, Adobe APP14
-files, RGB component ids) are made by editing the markers of a file PIL
-wrote: the entropy-coded data stays a valid stream, which PIL then decodes
-as the new header says.
+files, RGB component ids, YCCK) are made by editing the markers of a file
+PIL wrote: the entropy-coded data stays a valid stream, which PIL then
+decodes as the new header says. PIL writes the progressive, restart and
+CMYK variants itself; an incomplete progressive file is one PIL wrote with
+its last scans dropped (libjpeg-turbo then smooths its blocks). The
+arithmetic-coded (SOF9, SOF10, with DAC) and lossless (SOF3) variants come
+from the test-side encoders of tests/jpeg_streams.py; PIL's decode of them
+is the array kept.
+
+The two large re-saves of ``large_1297x840_q95`` (progressive, written by
+PIL, and progressive arithmetic, re-encoded from its coefficients) carry
+the same coefficients, so they decode to the same array and reuse its
+``.npy`` (`ARRAY_OF`). PIL (Pillow 12.1) feeds libjpeg-turbo 64 KiB at a
+time, and the arithmetic decoder cannot suspend when its data runs out, so
+the arithmetic one has COM segments that start its scans past each 64 KiB
+read; as written, without them, it is ``refused/arith_scan_past_64k_read``.
+
+``refused/`` holds streams PIL refuses (`refused()`, `LARGE_REFUSED`): the
+port raises on each as well.
 """
 
 from __future__ import annotations
@@ -22,6 +38,8 @@ import struct
 
 import numpy as np
 from PIL import Image
+
+import jpeg_streams as js
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jpeg")
 
@@ -95,6 +113,67 @@ def with_ids(data: bytes, ids) -> bytes:
     return bytes(data)
 
 
+def drop_scans(data: bytes, keep: int) -> bytes:
+    """The stream with only its first `keep` scans, then EOI."""
+    pos, seen = 2, 0
+    while True:
+        m = data[pos + 1]
+        (n,) = struct.unpack_from(">H", data, pos + 2)
+        if m == 0xDA:
+            if seen == keep:
+                return data[:pos] + b"\xff\xd9"
+            seen += 1
+            p = pos + 2 + n
+            while not (data[p] == 0xFF and data[p + 1] != 0
+                       and not 0xD0 <= data[p + 1] <= 0xD7):
+                p += 1
+            pos = p
+        else:
+            pos += 2 + n
+
+
+def cmyk(img: np.ndarray, **kw) -> bytes:
+    bio = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(bio, "JPEG", **kw)
+    return bio.getvalue()
+
+
+def set_adobe_transform(data: bytes, transform: int) -> bytes:
+    i = data.index(b"Adobe")
+    return data[:i + 11] + bytes([transform]) + data[i + 12:]
+
+
+def drop_adobe(data: bytes) -> bytes:
+    for m, start, end in segments(data):
+        if m == 0xEE:
+            return data[:start] + data[end:]
+    return data
+
+
+def _arith_source(w=37, h=29, seed=12):
+    """Coefficients of a PIL 4:2:0 file at quality 85."""
+    return js.read_baseline(encode(pattern(w, h, seed=seed), quality=85,
+                                   subsampling=2))
+
+
+def arith(progressive, restart=0, dac=False, grey=False):
+    coefs, samp, q, tq, size = _arith_source()
+    if grey:
+        coefs, samp, tq = coefs[:1], [(1, 1)], tq[:1]
+        # one component at 1 x 1: its blocks as the frame's MCUs
+    kw = dict(dc_l=(1, 2, 0, 0), dc_u=(4, 5, 1, 1), ac_k=(3, 9, 5, 5)) \
+        if dac else {}
+    return js.write_arith(coefs, samp, q[:len(set(tq))], tq, size,
+                          progressive=progressive,
+                          restart=restart, dac=dac, **kw)
+
+
+def lossless(predictor, pt=0, restart_rows=0, grey=False):
+    img = pattern(37, 29, seed=13)
+    return js.write_lossless(img[..., 0] if grey else img, predictor, pt,
+                             restart_rows)
+
+
 def variants():
     """name -> JPEG bytes: every variant the decoder handles."""
     img = pattern(33, 47, seed=1)
@@ -127,8 +206,110 @@ def variants():
         "ids_rgb_q90_17x9": with_ids(encode(pattern(17, 9, seed=10),
                                             quality=90, subsampling=0),
                                      (82, 71, 66)),
+        # progressive Huffman (SOF2)
+        "prog_s420_q90_33x47": encode(img, quality=90, subsampling=2,
+                                      progressive=True),
+        "prog_s444_q75_17x9": encode(pattern(17, 9, seed=14), quality=75,
+                                     subsampling=0, progressive=True),
+        "prog_grey_q90_33x47": encode(img[..., 1], quality=90,
+                                      progressive=True),
+        "prog_restart_q85_33x47": encode(img, quality=85, subsampling=1,
+                                         progressive=True,
+                                         restart_marker_blocks=2),
+        # incomplete progressive: DC only (DC interpolation), and the last
+        # refinement scans missing (AC estimates)
+        "prog_dconly_61x45": drop_scans(encode(pattern(61, 45, seed=15),
+                                               quality=75, progressive=True),
+                                        1),
+        "prog_partial_61x45": drop_scans(encode(pattern(61, 45, seed=15),
+                                                quality=75, progressive=True),
+                                         6),
+        # four components: PIL's CMYK (Adobe, transform 0), YCCK, and
+        # CMYK without an Adobe marker
+        "cmyk_q75_17x9": cmyk(pattern(17, 9, seed=16)),
+        "ycck_q75_17x9": set_adobe_transform(cmyk(pattern(17, 9, seed=17)),
+                                             2),
+        "cmyk_noadobe_q75_17x9": drop_adobe(cmyk(pattern(17, 9, seed=18))),
+        # arithmetic coding (SOF9, SOF10), default and DAC conditioning
+        "arith_seq_37x29": arith(False),
+        "arith_seq_dac_restart_37x29": arith(False, restart=5, dac=True),
+        "arith_prog_37x29": arith(True),
+        "arith_prog_dac_restart_37x29": arith(True, restart=3, dac=True),
+        "arith_prog_grey_37x29": arith(True, grey=True),
     }
+    # lossless Huffman (SOF3): each predictor, point transforms, restarts
+    for p in range(1, 8):
+        v[f"lossless_p{p}_37x29"] = lossless(p, pt=p % 3,
+                                             restart_rows=(0, 5)[p % 2],
+                                             grey=p == 7)
     return v
+
+
+def refused():
+    """name -> a stream PIL refuses to decode (and the port too)."""
+    base = encode(pattern(16, 16), quality=90)
+    i = base.index(b"\xff\xc0")
+    return {
+        "twelve_bit": base[:i + 4] + bytes([12]) + base[i + 5:],
+        "dnl_height": base[:i + 5] + b"\x00\x00" + base[i + 7:],
+        "sof5_hierarchical": base[:i + 1] + b"\xc5" + base[i + 2:],
+        "sof11_arith_lossless": js.write_lossless(pattern(16, 16)[..., 0],
+                                                  1, marker=0xCB),
+        "two_components": with_two_components(base),
+        "lossless_ycbcr": js.write_lossless(pattern(16, 16), 1,
+                                            header=js.JFIF),
+    }
+
+
+def with_two_components(data: bytes) -> bytes:
+    out = bytearray(data)
+    i = data.index(b"\xff\xc0")
+    out[i + 9] = 2
+    return bytes(out)
+
+
+def large_variants():
+    """The large frame re-saved progressive (PIL) and progressive
+    arithmetic (from its coefficients): same coefficients, same array.
+    -> (name -> stream PIL reads, name -> stream PIL refuses): the
+    arithmetic scans as written run past PIL's 64 KiB reads, so the stream
+    PIL reads has COM segments before its scans (`pad_scans_past_reads`)."""
+    data = large()
+    coefs, samp, q, tq, size = js.read_baseline(data)
+    arith = js.write_arith(coefs, samp, q, tq, size, progressive=True)
+    return {
+        "large_1297x840_q95_progressive": encode(
+            pattern(1297, 840, seed=11, noise=0.0), quality=95,
+            subsampling=2, progressive=True),
+        "large_1297x840_q95_arith": pad_scans_past_reads(arith),
+    }, {"arith_scan_past_64k_read": arith}
+
+
+def pad_scans_past_reads(data: bytes, block: int = 65536) -> bytes:
+    """An arithmetic-coded stream with a COM segment before each scan whose
+    data (up to the code of the marker after it) would hold a multiple of
+    `block`: the scan then starts at that multiple. PIL feeds libjpeg-turbo
+    the file in reads of `block` bytes, and its arithmetic decoder cannot
+    suspend when a read ends inside a scan."""
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    bounds = sos + [len(data) - 2]                          # EOI last
+    out = data[:sos[0]]
+    for a, b in zip(bounds, bounds[1:]):
+        (hdr,) = struct.unpack_from(">H", data, a + 2)
+        first, last = len(out) + 2 + hdr, len(out) + b - a + 1
+        m = -(-first // block) * block
+        if m <= last:
+            out += b"\xff\xfe" + struct.pack(">H", m - len(out) - 2)
+            out += b"\0" * (m - len(out))
+        out += data[a:b]
+    return out + data[-2:]
+
+
+# refused/ streams that large_variants() writes
+LARGE_REFUSED = ("arith_scan_past_64k_read",)
+# fixture -> the fixture whose .npy it decodes to
+ARRAY_OF = {name: "large_1297x840_q95" for name in (
+    "large_1297x840_q95_progressive", "large_1297x840_q95_arith")}
 
 
 def large() -> bytes:
@@ -138,7 +319,7 @@ def large() -> bytes:
 
 
 def write(out: str = OUT) -> None:
-    os.makedirs(out, exist_ok=True)
+    os.makedirs(os.path.join(out, "refused"), exist_ok=True)
     items = dict(variants())
     items["large_1297x840_q95"] = large()
     for name, data in items.items():
@@ -147,6 +328,24 @@ def write(out: str = OUT) -> None:
         np.save(os.path.join(out, name + ".npy"),
                 np.asarray(Image.open(io.BytesIO(data))))
         print(f"{name}: {len(data)} bytes")
+    want = np.asarray(Image.open(io.BytesIO(items["large_1297x840_q95"])))
+    readable, refused_large = large_variants()
+    for name, data in readable.items():         # PIL reads it: same array
+        got = np.asarray(Image.open(io.BytesIO(data)))
+        assert np.array_equal(got, want), name
+        with open(os.path.join(out, name + ".jpg"), "wb") as f:
+            f.write(data)
+        print(f"{name}: {len(data)} bytes (array of {ARRAY_OF[name]})")
+    for name, data in {**refused(), **refused_large}.items():
+        try:
+            np.asarray(Image.open(io.BytesIO(data)))
+        except (OSError, SyntaxError, ValueError):
+            pass
+        else:
+            raise AssertionError(f"PIL reads {name}")
+        with open(os.path.join(out, "refused", name + ".jpg"), "wb") as f:
+            f.write(data)
+        print(f"refused/{name}: {len(data)} bytes")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The port's bench tools (python -m irgs_tpu_torch.bench,
-.tools.bench_stage1, .tools.bench_frame) on the CPU, each shrunk through a
-parameter of its main: each prints its last line as one JSON object with the
-key set of its JAX script (read from the script's source: bench.py,
-tools/bench_stage1.py, tools/bench_frame.py), finite numbers where the JAX
+.tools.bench_stage1, .tools.bench_frame, .tools.bench_variant with each of
+its tracer variants) on the CPU, each shrunk through a parameter of its
+main: each prints its last line as one JSON object with the key set of its
+JAX script (read from the script's source: bench.py, tools/bench_stage1.py,
+tools/bench_frame.py, tools/bench_variant.py), finite numbers where the JAX
 script prints numbers, and the fields the port cannot fill as null. Times
 are not compared. The bench refuses a workload whose dup capacity drops
 splats, as bench.py's honesty check does.
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from irgs_tpu_torch import bench
-from irgs_tpu_torch.tools import bench_frame, bench_stage1
+from irgs_tpu_torch.tools import bench_frame, bench_stage1, bench_variant
 from test_torch_eval import TRACER
 from test_torch_mis import one_torch_thread  # noqa: F401
 
@@ -86,6 +87,17 @@ def test_bench_needs_a_card_by_default():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bench.main([], workload=TINY)
+
+
+@pytest.mark.parametrize("name", sorted(bench_variant.VARIANTS))
+def test_bench_variant_prints_script_keys(capsys, name):
+    out = bench_variant.main([name, "--device", "cpu"], workload=dict(
+        TINY, n_surface=128, n_capacity=256, img=16, spp=4, rays=256,
+        dup=2 ** 12), n_rounds=1, n_iters=1)
+    assert last_json(capsys) == out
+    assert set(out) == jax_json_keys("tools/bench_variant.py")
+    assert out["variant"] == name
+    assert math.isfinite(out["iters_per_sec"]) and out["iters_per_sec"] > 0
 
 
 def test_bench_stage1_prints_script_keys(capsys):

@@ -158,6 +158,67 @@ def test_load_scene_matches_jax(tmp_path, ext, nested, grey):
     _assert_info_equal(j, t)
 
 
+def _rewrite_frames(root, kind):
+    """Each frame of a COLMAP folder rewritten in another PIL mode, under
+    its own name (PIL picks the format from the extension)."""
+    folder = os.path.join(root, "images")
+    for i, name in enumerate(sorted(os.listdir(folder))):
+        path = os.path.join(folder, name)
+        rgb = np.asarray(Image.open(path).convert("RGB"))
+        h, w = rgb.shape[:2]
+        if kind == "grey16":     # samples 0, 1000, 2000, ... and 0..255
+            vals = (np.arange(h * w).reshape(h, w) * 1000 + 7 * i) % 65536
+            vals[::3] %= 256
+            im = Image.fromarray(vals.astype(np.uint16))
+        elif kind == "palette":
+            im = Image.fromarray(rgb).convert(
+                "P", palette=Image.Palette.ADAPTIVE, colors=5)
+        elif kind == "bilevel":
+            im = Image.fromarray(rgb[..., 0] > 100)
+        elif kind == "grey_alpha":
+            im = Image.fromarray(rgb).convert("LA")
+        elif kind == "rgba":
+            im = Image.fromarray(np.concatenate([rgb, rgb[..., :1]], -1),
+                                 "RGBA")
+        elif kind == "cmyk":
+            im = Image.fromarray(rgb).convert("CMYK")
+        else:                      # progressive
+            im = Image.fromarray(rgb)
+        im.save(path, progressive=kind == "progressive")
+
+
+def test_grey16_frames_match_jax(tmp_path):
+    """16-bit grey PNG frames: ``convert("RGB")`` clamps PIL's I;16 samples
+    at 255, so the frames hold 1.0 wherever a sample exceeds 255; the
+    port's frames equal the JAX reader's."""
+    root = write_colmap(str(tmp_path / "scene"), ["PINHOLE", "OPENCV"],
+                        ext=".png", seed=5)
+    _rewrite_frames(root, "grey16")
+    j = jcolmap.read_colmap_scene(root)
+    t = tcolmap.read_colmap_scene(root)
+    _assert_info_equal(j, t)
+    img = t.train_cameras[0].image
+    assert img.max() == 1.0 and 0.0 < img[img < 1].max() < 1.0
+    # the frame as read, before the camera clips it to [0, 1]
+    for cam in j.train_cameras + j.test_cameras:
+        want = np.asarray(Image.open(cam.image_path).convert("RGB"),
+                          np.float32) / 255.0
+        got = tcolmap._read_rgb(cam.image_path)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["palette", "bilevel", "grey_alpha", "rgba",
+                                  "cmyk", "progressive"])
+def test_frame_modes_match_jax(tmp_path, kind):
+    ext = ".jpg" if kind in ("cmyk", "progressive") else ".png"
+    root = write_colmap(str(tmp_path / "scene"), ["PINHOLE", "OPENCV"],
+                        ext=ext, seed=6)
+    _rewrite_frames(root, kind)
+    _assert_info_equal(jcolmap.read_colmap_scene(root),
+                       tcolmap.read_colmap_scene(root))
+
+
 @pytest.mark.parametrize("llffhold", [2, 3, 8])
 def test_llffhold_split_matches_jax(tmp_path, llffhold):
     root = write_colmap(str(tmp_path / "scene"), ["PINHOLE"] * 9, seed=3)

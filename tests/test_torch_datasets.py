@@ -151,15 +151,24 @@ def test_downscale_r2_matches_cv2_inter_area(scenes):
 
 
 def test_unported_inputs_raise(scenes, tmp_path):
-    """What the port still does not read raises: a folder of no known
-    layout, a progressive JPEG frame (ROADMAP.md A6) and an image format
-    the port has no codec for."""
+    """What the port does not read raises: a folder of no known layout, a
+    JPEG frame PIL refuses too (12-bit samples), and an image format the
+    port has no codec for. A progressive JPEG frame, refused before PR 12,
+    now reads as PIL reads it."""
+    from irgs_tpu_torch.utils import jpeg
     with pytest.raises(ValueError, match="recognize"):
         tds.load_scene(str(tmp_path))
     img = np.zeros((8, 8, 3), np.uint8)
+    img[2:5, 3:7] = (200, 40, 90)
     Image.fromarray(img).save(tmp_path / "p.jpg", progressive=True)
-    with pytest.raises(NotImplementedError, match="SOF2.*ROADMAP.md A6"):
-        tds._load_image_any(str(tmp_path / "p.jpg"))
+    np.testing.assert_array_equal(
+        tds._load_image_any(str(tmp_path / "p.jpg")),
+        np.asarray(Image.open(tmp_path / "p.jpg"), np.float32) / 255.0)
+    data = (tmp_path / "p.jpg").read_bytes()
+    i = data.index(b"\xff\xc2")
+    (tmp_path / "t.jpg").write_bytes(data[:i + 4] + bytes([12]) + data[i + 5:])
+    with pytest.raises(jpeg.JpegError, match="12-bit"):
+        tds._load_image_any(str(tmp_path / "t.jpg"))
     Image.fromarray(img).save(tmp_path / "f.bmp")
     with pytest.raises(NotImplementedError, match="PNG, JPEG, EXR and HDR"):
         tds._load_image_any(str(tmp_path / "f.bmp"))

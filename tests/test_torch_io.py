@@ -100,7 +100,7 @@ def test_png_decode_matches_pil_on_pil_files(tmp_path, mode):
     Image.fromarray(arr).save(path)
     want = np.asarray(Image.open(path))
     assert Image.open(path).mode == mode
-    got = png.read_png_as_pil(path)
+    got = png.read_png_like_pil(path)[0]
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(png.read_png(path), arr)
@@ -109,7 +109,7 @@ def test_png_decode_matches_pil_on_pil_files(tmp_path, mode):
 @pytest.mark.parametrize("color_type,c", [(0, 1), (4, 2), (2, 3), (6, 4)])
 def test_png_16bit_decode_matches_pil(tmp_path, color_type, c):
     """16-bit files of every colour type: read_png gives the samples as
-    stored, read_png_as_pil what PIL makes of them (high bytes, grey + alpha
+    stored, read_png_like_pil what PIL makes of them (high bytes, grey + alpha
     widened to RGBA, grey kept at 16 bits)."""
     rng = np.random.default_rng(3)
     samples = rng.integers(0, 65536, (9, 13, c)).astype(np.uint16)
@@ -118,7 +118,7 @@ def test_png_16bit_decode_matches_pil(tmp_path, color_type, c):
     stored = png.read_png(path)
     np.testing.assert_array_equal(stored, samples[..., 0] if c == 1 else samples)
     want = np.asarray(Image.open(path))
-    got = png.read_png_as_pil(path)
+    got = png.read_png_like_pil(path)[0]
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
 
@@ -137,14 +137,30 @@ def test_png_encoder_filters_decode_in_pil(tmp_path, filter_type, c):
 
 
 def test_png_refuses_what_it_does_not_read(tmp_path):
+    """Palette files are now read as PIL reads them (the indices, mode P and
+    the palette); a file whose data does not fit its interlaced header, an
+    image type PNG does not define and a corrupt chunk raise, in PIL too."""
     pal = str(tmp_path / "p.png")
-    Image.fromarray(np.zeros((4, 4), np.uint8), "L").convert("P").save(pal)
-    with pytest.raises(NotImplementedError, match="palette"):
-        png.read_png(pal)
+    Image.fromarray(np.arange(16, dtype=np.uint8).reshape(4, 4) * 9,
+                    "L").convert("P").save(pal)
+    arr, mode, info = png.read_png_like_pil(pal)
+    assert mode == Image.open(pal).mode == "P"
+    np.testing.assert_array_equal(arr, np.asarray(Image.open(pal)))
+    np.testing.assert_array_equal(
+        info["palette"].reshape(-1),
+        np.asarray(Image.open(pal).getpalette()))
     inter = str(tmp_path / "i.png")
     _raw_png(inter, np.zeros((4, 4, 3), np.uint8), 2, bits=8, interlace=1)
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    with pytest.raises(png.PngError, match="interlaced"):
         png.read_png(inter)
+    with pytest.raises(OSError):
+        np.asarray(Image.open(inter))
+    odd = str(tmp_path / "o.png")
+    _raw_png(odd, np.zeros((4, 2, 3), np.uint8), 2, bits=4)
+    with pytest.raises(png.PngError, match="not a PNG image type"):
+        png.read_png(odd)
+    with pytest.raises(OSError):
+        Image.open(odd)
     bad = str(tmp_path / "b.png")
     _raw_png(bad, np.zeros((4, 4, 3), np.uint8), 2, bits=8)
     data = bytearray(open(bad, "rb").read())

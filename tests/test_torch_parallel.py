@@ -188,6 +188,20 @@ def cli_run(tmp_path_factory):
     return dict(scene=scene, ply=ply, run=run, argv=argv)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread_ranks():
+    """The spawned CPU ranks run one intra-op thread each (they read
+    OMP_NUM_THREADS when they import torch), as the test runner's other
+    workers share the cores."""
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    yield
+    if old is None:
+        os.environ.pop("OMP_NUM_THREADS")
+    else:
+        os.environ["OMP_NUM_THREADS"] = old
+
+
 def test_train_cli_two_cpu_ranks(cli_run):
     """Two ranks train; rank 0 alone writes: one log line for iteration 1,
     the checkpoints of iterations 1 and 2, the PLY; the steps moved the

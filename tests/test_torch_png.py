@@ -1,0 +1,179 @@
+"""The port's PNG reader and writer (irgs_tpu_torch/utils/png.py) and PIL's
+mode conversions (irgs_tpu_torch/utils/image.py) against PIL: every PNG
+image type at every bit depth, plain and Adam7-interlaced, palettes and
+their tRNS, on the committed fixtures of tests/data/png/
+(tests/make_png_fixtures.py, which is how a machine without PIL checks
+them) and on files written here; ``convert("RGB")`` of every mode the
+readers return; what PIL's save writes for each mode; and the ICC profile
+(iCCP) PIL carries from a source to its save."""
+
+import glob
+import io
+import json
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+from PIL import Image
+
+import make_png_fixtures as mk
+from irgs_tpu_torch.utils import image, png
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                    "png")
+MODES = json.load(open(os.path.join(DATA, "modes.json")))
+
+
+def _info(arr, mode, info):
+    t = info.get("transparency")
+    pal = info.get("palette")
+    return {"mode": mode,
+            "palette": None if pal is None else np.asarray(pal).tolist(),
+            "transparency": list(t) if isinstance(t, bytes) else t}
+
+
+def test_fixture_set_is_complete():
+    names = sorted(os.path.basename(p)[:-4]
+                   for p in glob.glob(os.path.join(DATA, "*.png")))
+    assert names == sorted(MODES) == sorted(mk.png_variants())
+    for n in names:
+        assert os.path.exists(os.path.join(DATA, n + ".npy"))
+
+
+@pytest.mark.parametrize("name", sorted(MODES))
+def test_fixture_equals_committed_array(name):
+    arr, mode, info = png.read_png_like_pil(os.path.join(DATA, name + ".png"))
+    want = np.load(os.path.join(DATA, name + ".npy"))
+    assert arr.dtype == want.dtype and arr.shape == want.shape
+    np.testing.assert_array_equal(arr, want)
+    assert _info(arr, mode, info) == MODES[name]
+
+
+@pytest.mark.parametrize("name", sorted(mk.png_variants()))
+def test_variant_equals_pil(name, tmp_path):
+    path = str(tmp_path / "a.png")
+    with open(path, "wb") as f:
+        f.write(mk.png_variants()[name])
+    arr, mode, info = png.read_png_like_pil(path)
+    im = Image.open(path)
+    want = np.asarray(im)
+    assert arr.dtype == want.dtype
+    np.testing.assert_array_equal(arr, want)
+    assert _info(arr, mode, info) == mk.pil_info(im)
+    np.testing.assert_array_equal(
+        image.to_rgb_like_pil(arr, mode, info.get("palette")),
+        np.asarray(im.convert("RGB")))
+
+
+def _image(mode, rng, w=11, h=9):
+    if mode == "1":
+        return Image.fromarray(rng.integers(0, 2, (h, w)).astype(bool))
+    if mode == "I;16":
+        return Image.fromarray(rng.integers(0, 65536, (h, w)).astype(
+            np.uint16))
+    if mode == "P":
+        im = Image.fromarray(rng.integers(0, 7, (h, w)).astype(np.uint8),
+                             "P")
+        im.putpalette(rng.integers(0, 256, 21).tolist())
+        return im
+    c = {"L": 1, "LA": 2, "RGB": 3, "RGBA": 4, "CMYK": 4}[mode]
+    a = rng.integers(0, 256, (h, w, c)).astype(np.uint8)
+    return Image.fromarray(a[..., 0] if c == 1 else a, mode)
+
+
+CONVERT_MODES = ["1", "L", "I;16", "LA", "P", "RGB", "RGBA", "CMYK"]
+
+
+@pytest.mark.parametrize("mode", CONVERT_MODES)
+def test_to_rgb_equals_pil_convert(mode):
+    im = _image(mode, np.random.default_rng(5))
+    pal = (np.asarray(im.getpalette()).reshape(-1, 3) if mode == "P"
+           else None)
+    if mode == "I;16":                 # samples above 255 clamp
+        assert np.asarray(im).max() > 255
+    np.testing.assert_array_equal(
+        image.to_rgb_like_pil(np.asarray(im), mode, pal),
+        np.asarray(im.convert("RGB")))
+
+
+@pytest.mark.parametrize("mode", ["1", "L", "LA", "RGB", "RGBA", "I;16",
+                                  "P", "P_trns_index", "P_trns_bytes",
+                                  "P_256", "RGB_icc", "P_icc"])
+def test_writer_equals_pil_save(mode, tmp_path):
+    """write_png_like_pil: PIL decodes the port's file to what it decodes
+    from its own save of the same image (array, mode, palette, tRNS, ICC
+    profile), and the bit depth is PIL's."""
+    rng = np.random.default_rng(6)
+    base = mode.split("_")[0]
+    im = _image(base, rng)
+    if mode == "P_256":
+        im.putpalette(rng.integers(0, 256, 768).tolist())
+    if mode == "P_trns_index":
+        im.info["transparency"] = 2
+    if mode == "P_trns_bytes":
+        im.info["transparency"] = bytes([0, 128, 255, 7])
+    if mode.endswith("_icc"):
+        im.info["icc_profile"] = ICC
+    ours, theirs = str(tmp_path / "o.png"), str(tmp_path / "t.png")
+    im.save(theirs)
+    info = {"icc_profile": im.info.get("icc_profile")}
+    if base == "P":
+        info["palette"] = np.asarray(im.getpalette()).reshape(-1, 3)
+        if "transparency" in im.info:
+            info["transparency"] = im.info["transparency"]
+    png.write_png_like_pil(ours, np.asarray(im), base, info)
+    a, b = Image.open(ours), Image.open(theirs)
+    assert a.mode == b.mode == base
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert mk.pil_info(a) == mk.pil_info(b)
+    assert a.info.get("icc_profile") == b.info.get("icc_profile")
+    assert open(ours, "rb").read()[24] == open(theirs, "rb").read()[24]
+    assert _chunk_of(ours, b"iCCP") == _chunk_of(theirs, b"iCCP")
+
+
+# the start of an ICC profile header and some tag bytes
+ICC = b"\0\0\2\x0cADBE\2\x10\0\0mntrRGB XYZ " + bytes(range(200))
+
+
+def _chunk_of(path, kind):
+    """The payload of the first `kind` chunk of a PNG file, or None."""
+    buf = open(path, "rb").read()
+    i = buf.find(kind)
+    if i < 0:
+        return None
+    n = int.from_bytes(buf[i - 4:i], "big")
+    return buf[i + 4:i + 4 + n]
+
+
+@pytest.mark.parametrize("where", ["before_idat", "after_idat", "two",
+                                   "bad_zlib"])
+def test_icc_profile_is_read_as_pil_reads_it(where, tmp_path):
+    """The iCCP chunk's profile as PIL's info holds it once the image is
+    loaded: the last chunk's, one after the image data too, and None where
+    zlib fails."""
+    bio = io.BytesIO()
+    _image("RGB", np.random.default_rng(8)).save(bio, "PNG")
+    buf = bio.getvalue()
+    idat, iend = buf.index(b"IDAT") - 4, buf.index(b"IEND") - 4
+    good = _png_chunk(b"iCCP", b"a\0\0" + zlib.compress(ICC))
+    buf = {"before_idat": buf[:idat] + good + buf[idat:],
+           "after_idat": buf[:iend] + good + buf[iend:],
+           "two": buf[:idat] + _png_chunk(b"iCCP", b"b\0\0" + zlib.compress(
+               b"first")) + good + buf[idat:],
+           "bad_zlib": buf[:idat] + _png_chunk(b"iCCP", b"c\0\0 no zlib")
+           + buf[idat:]}[where]
+    path = str(tmp_path / "a.png")
+    with open(path, "wb") as f:
+        f.write(buf)
+    im = Image.open(path)
+    im.load()
+    want = im.info["icc_profile"]
+    assert want == (None if where == "bad_zlib" else ICC)
+    assert png.read_png_like_pil(path)[2]["icc_profile"] == want
+
+
+def _png_chunk(kind, data):
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data)))

@@ -90,3 +90,58 @@ def test_same_size_is_a_copy():
     assert y is not x
     with pytest.raises(TypeError):
         R.resize(x.astype(np.uint8), (3, 3), R.INTER_AREA)
+
+
+# --- PIL's Image.resize(..., LANCZOS) -------------------------------------
+
+from PIL import Image  # noqa: E402
+
+LANCZOS_MODES = {"L": 1, "RGB": 3, "CMYK": 4, "LA": 2, "RGBA": 4,
+                 "I;16": 1, "P": 1, "1": 1}
+LANCZOS_SIZES = {
+    "down4": lambda w, h: (w // 4, h // 4),
+    "down_frac": lambda w, h: (int(w / 2.7), int(h / 1.6)),
+    "up": lambda w, h: (2 * w + 1, h + 5),
+    "x_only": lambda w, h: (w // 3, h),
+    "y_only": lambda w, h: (w, h // 3),
+    "to_1x1": lambda w, h: (1, 1),
+}
+
+
+def _pil_image(mode, rng, w=57, h=43):
+    c = LANCZOS_MODES[mode]
+    if mode == "1":
+        return Image.fromarray(rng.integers(0, 2, (h, w)).astype(bool))
+    if mode == "I;16":
+        return Image.fromarray(rng.integers(0, 65536, (h, w)).astype(
+            np.uint16))
+    a = rng.integers(0, 256, (h, w, c)).astype(np.uint8)
+    if mode in ("LA", "RGBA"):     # alphas 0, 255 and between
+        a[..., -1] = rng.choice([0, 1, 7, 128, 254, 255], (h, w))
+    im = Image.fromarray(a[..., 0] if c == 1 else a,
+                         "L" if mode == "P" else mode)
+    if mode == "P":
+        im = im.convert("P")
+    return im
+
+
+@pytest.mark.parametrize("size", sorted(LANCZOS_SIZES))
+@pytest.mark.parametrize("mode", sorted(LANCZOS_MODES))
+def test_lanczos_equals_pil(mode, size):
+    """resize_lanczos_like_pil equals PIL's resize(..., LANCZOS) bit for
+    bit (NEAREST for P and 1, as PIL picks it)."""
+    im = _pil_image(mode, np.random.default_rng(len(mode) + len(size)))
+    wh = LANCZOS_SIZES[size](*im.size)
+    want = np.asarray(im.resize(wh, Image.LANCZOS))
+    got = R.resize_lanczos_like_pil(np.asarray(im), mode, wh)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_lanczos_large_frame_equals_pil():
+    """The smoke's frame size: 1600² RGB to 400²."""
+    a = np.random.default_rng(9).integers(0, 256, (1600, 1600, 3)).astype(
+        np.uint8)
+    want = np.asarray(Image.fromarray(a).resize((400, 400), Image.LANCZOS))
+    np.testing.assert_array_equal(
+        R.resize_lanczos_like_pil(a, "RGB", (400, 400)), want)

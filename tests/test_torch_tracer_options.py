@@ -434,10 +434,11 @@ def test_retrace_while_refuses_autograd(setup):
     raises, as JAX's reverse-mode derivative of its while_loop does."""
     arrs, alive, j_in, t_in, j_grid, t_grid, ro, rd = setup
     jcfg, tcfg = _cfgs(retrace_while=True, n_segments=8, retrace_bulk=1)
+    # traced under jit: the refusal comes at trace time, with no op run
     with pytest.raises(ValueError, match="while_loop"):
-        jax.grad(lambda o: gt.trace_segments(o, jnp.asarray(rd), j_grid, j_in,
-                                             cfg=jcfg, sh_deg=3).alpha.sum())(
-            jnp.asarray(ro))
+        jax.jit(jax.grad(lambda o: gt.trace_segments(
+            o, jnp.asarray(rd), j_grid, j_in, cfg=jcfg,
+            sh_deg=3).alpha.sum()))(jnp.asarray(ro))
     o_t = torch.tensor(ro, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         tgt.trace_segments(o_t, torch.tensor(rd), t_grid, t_in, cfg=tcfg,

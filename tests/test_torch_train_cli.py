@@ -229,10 +229,15 @@ def test_cli_refuses_unported_paths_and_needs_a_card(data, tmp_path):
         ts2.load_stage2_checkpoint(str(stage1), TConfig().opt, "cpu")
 
 
-def test_cli_toy_run_on_the_cpu(tmp_path):
+def test_cli_toy_run_on_the_cpu(tmp_path, monkeypatch):
     """--toy: ground truth rendered from the procedural sphere with
     render_ir_eval, then materials and env reset, on train.py's shrunk CPU
-    budgets (applied after cfg.json is saved, as there)."""
+    budgets (applied after cfg.json is saved, as there). One GT frame at
+    32² instead of the CPU toy's 6 at 64² (CPU_TOY): their number and size
+    are not what the test is about, and the six took ~95 % of its time."""
+    import irgs_tpu_torch.train.__main__ as cli
+    monkeypatch.setitem(cli.CPU_TOY, "res", 32)
+    monkeypatch.setitem(cli.CPU_TOY, "cams", 1)
     run = str(tmp_path / "toy")
     main(["--toy", "-m", run, "--iterations", "1", "--vis_interval", "0",
           "--envmap_resolution", "16", "--device", "cpu"])
