@@ -12,8 +12,11 @@ Phases (JSON lines; any failure exits non-zero):
   kernels       hold each kernel against its plain PyTorch version on the
                 card: the blend at two stage-2 slabs and at stage 1's widths
                 11 and 18 (with how its work spreads over the tiles, and the
-                heaviest tile's time alone), the row gather (bit for bit) at
-                the JAX package's test shapes and the TPU probe kernels';
+                heaviest tile's time alone), the row gather (bit for bit)
+                at the JAX package's test shapes, the TPU probe kernels'
+                and synthetic audit and eval first passes, beside
+                index_select in blocks and in turns, with its queued time
+                and both host costs a call;
   stage2_small  one test-scale stage-2 step on the card and on the CPU, and
                 two backward passes on the card bit for bit;
   stage2        stage2_step at the bench workload (100k-surfel toy sphere,
@@ -265,6 +268,28 @@ def cuda_ms(fn, reps=20, warmup=1):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def cuda_ms_paired(fn_a, fn_b, reps=20):
+    """Median ms of fn_a() and of fn_b(), each call timed as cuda_ms times
+    one, the two taken in turns (a first on even turns, b first on odd) so
+    that both see the same host and card: the pair's comparison where a
+    call is short enough for the host's jitter to matter."""
+    import torch
+    fn_a()
+    fn_b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for r in range(reps):
+        for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            (fn_a, fn_b)[k]()
+            b.record()
+            torch.cuda.synchronize()
+            times[k].append(a.elapsed_time(b))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def cuda_ms_queued(fn, n=20):
@@ -561,23 +586,50 @@ def phase_kernels(results):
 
 
 # the row gather's cases apart from the eval frame's own: the shapes of
-# tests/test_gather_pallas.py (M = 3T + 7, and its 5-row small batch) and
-# the two probe kernels of tools/_prof_collect_parts.py (`kern`, a row gather
+# tests/test_gather_pallas.py (M = 3T + 7, and its 5-row small batch), the
+# two probe kernels of tools/_prof_collect_parts.py (`kern`, a row gather
 # of [1024, 128] by 128 rows; `kern2`, a flat gather of 8 x 128 elements
-# from 110592, i.e. rows of one word)
-GATHER_CASES = [("test_513x224", 513, 224, 3 * 513 + 7),
-                ("test_64x896", 64, 896, 3 * 64 + 7),
-                ("test_2048x56", 2048, 56, 3 * 2048 + 7),
-                ("test_small_batch", 10, 4, 5),
-                ("probe_kern_1024x128", 1024, 128, 128),
-                ("probe_kern2_flat", 110592, 1, 8 * 128)]
+# from 110592, i.e. rows of one word), and synthetic stand-ins for the
+# audit's first pass (12,288 x 352) and the eval frame's (393,216 x 352):
+# from a table as large as the eval frame's pair table, indices drawn from
+# as many distinct rows as its first pass reads (both as the eval phase
+# records them on the H100); and the eval shape from a table small enough
+# to stay in L2 (8.8 MB), where only the write stream is left.
+# (name, T, W, M, distinct rows or None: any)
+EVAL_TABLE_ROWS, EVAL_FIRST_PASS_ROWS = 65536, 12887
+GATHER_CASES = [("test_513x224", 513, 224, 3 * 513 + 7, None),
+                ("test_64x896", 64, 896, 3 * 64 + 7, None),
+                ("test_2048x56", 2048, 56, 3 * 2048 + 7, None),
+                ("test_small_batch", 10, 4, 5, None),
+                ("probe_kern_1024x128", 1024, 128, 128, None),
+                ("probe_kern2_flat", 110592, 1, 8 * 128, None),
+                ("synthetic_audit_12288x352", EVAL_TABLE_ROWS, 352, 12288,
+                 EVAL_FIRST_PASS_ROWS),
+                ("synthetic_eval_first_pass_393216x352", EVAL_TABLE_ROWS, 352,
+                 393216, EVAL_FIRST_PASS_ROWS),
+                ("synthetic_l2_table_393216x352", 6250, 352, 393216, None)]
+
+def host_us_per_call(fn, n=50):
+    """The host's enqueue time of fn() by the host clock, no synchronise
+    inside the n calls: the wrapper's own cost where the device keeps up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check_gather(results, name, table, idx):
     """The gather kernel against table[idx] on the card, bit for bit, with
-    its time, the plain version's, index_select's, and its bound: the
-    distinct rows this idx reads, idx itself and the output, over the HBM
-    rate."""
+    its time (synchronised: ms, plain_ms and library_ms each a block of 20
+    calls, as every kernel line times them; then the kernel and index_select
+    again in turns, *_paired; and queued back to back), the host cost a call
+    of the kernel and of index_select, and its bound: the distinct rows this
+    idx reads, idx itself and the output, over the HBM rate."""
     import torch
     from irgs_tpu_torch.ops import gather_rows as gr
     out = gr.gather_rows_cuda(table, idx)
@@ -590,12 +642,24 @@ def check_gather(results, name, table, idx):
     line = {"phase": "kernels", "kernel": "gather_rows", "case": name,
             "ok": same, "bitwise_equal": same,
             "max_abs_err": float((out - want).abs().max()) if M else 0.0,
-            "table": list(table.shape), "rows": M, "distinct_rows": rows_read,
+            "table": list(table.shape), "table_bytes": 4 * table.numel(),
+            "rows": M, "distinct_rows": rows_read,
             "ms": cuda_ms(lambda: gr.gather_rows_cuda(table, idx)),
             "plain_ms": cuda_ms(lambda: gr.gather_rows_plain(table, idx)),
-            "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "bytes": nbytes}
+            "library_ms": cuda_ms(lambda: torch.index_select(table, 0, idx))}
+    line["ms_paired"], line["library_ms_paired"] = cuda_ms_paired(
+        lambda: gr.gather_rows_cuda(table, idx),
+        lambda: torch.index_select(table, 0, idx))
+    line.update(
+        vs_library=line["ms"] / line["library_ms"],
+        vs_library_paired=line["ms_paired"] / line["library_ms_paired"],
+        ms_queued=cuda_ms_queued(lambda: gr.gather_rows_cuda(table, idx)),
+        host_us_per_call=host_us_per_call(
+            lambda: gr.gather_rows_cuda(table, idx)),
+        library_host_us_per_call=host_us_per_call(
+            lambda: torch.index_select(table, 0, idx)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        bytes=nbytes)
     emit(line)
     results.setdefault("gather_rows", {})[name] = line
     return same
@@ -606,9 +670,11 @@ def phase_kernels_gather(results):
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
     ok = True
-    for name, T, W, M in GATHER_CASES:
+    for name, T, W, M, distinct in GATHER_CASES:
         table = torch.randn((T, W), device=dev, generator=g)
-        idx = torch.randint(0, T, (M,), device=dev, generator=g)
+        idx = torch.randint(0, distinct or T, (M,), device=dev, generator=g)
+        if distinct:
+            idx = torch.randperm(T, device=dev, generator=g)[:distinct][idx]
         ok &= check_gather(results, name, table, idx)
     if not ok:
         fail("kernels", "gather_rows differs from table[idx]")
@@ -4233,7 +4299,8 @@ def phase_images(results, tmp):
         t = info.get("transparency")
         got_info = {"mode": mode, "palette": None if info.get("palette")
                     is None else info["palette"].tolist(),
-                    "transparency": list(t) if isinstance(t, bytes) else t}
+                    "transparency": list(t) if isinstance(t, (bytes, tuple))
+                    else t}
         png_exact[name] = (arr.dtype == want.dtype and arr.shape == want.shape
                            and bool(np.array_equal(arr, want))
                            and got_info == want_info)

@@ -21,27 +21,35 @@ equal PIL's:
   IDCT       dequantisation and the accurate integer IDCT
              (jidctint.c jpeg_idct_islow: 13-bit constants, PASS1_BITS 2,
              the two DESCALE roundings and the post-IDCT range-limit table);
-  lossless   the predictors 1-7 modulo 2^16, restarted at each restart
-             interval, and the point transform (jdpred.c, jdlossls.c);
+  lossless   the predictors 1-7 modulo 2^16, restarted at the first row of
+             each iMCU row in which the scan or a restart interval starts
+             (jddiffct.c undifferences an iMCU row after decoding it), and
+             the point transform (jdpred.c, jdlossls.c); subsampled
+             components replicated (lossless output has no fancy
+             upsampling);
   upsampling libjpeg-turbo's "fancy" triangle filters (jdsample.c:
              h2v1 and h2v2 with their 1/2 and 8/7 biases, h1v2 with 1 and 2)
              over rows and columns clamped at the component's edge, plain
              replication for chroma 2 samples wide or less and for other
              integer factors (int_upsample);
   colour     the fixed-point YCbCr -> RGB tables of jdcolor.c (ONE_HALF
-             rounding, 16 fraction bits); grey stays one channel; four
+             rounding, 16 fraction bits); three components are RGB under
+             an Adobe transform 0, with ids 'R', 'G', 'B' and no marker,
+             or lossless with no marker (jdapimin.c
+             default_decompress_parms), else YCbCr; grey stays one
+             channel; four
              components are CMYK, or YCCK under an Adobe transform other
              than 0 (ycck_cmyk_convert), and PIL's "CMYK;I" raw mode then
              inverts all four samples.
 
 Streams PIL refuses raise JpegError here too: samples of other than 8 bits,
 a frame height given by DNL, hierarchical frames (SOF5-7, SOF13-15),
-arithmetic lossless (SOF11), component counts other than 1, 3 and 4, and
-an arithmetic-coded scan whose data runs past the end of one of the 64 KiB
-reads in which PIL hands the file to libjpeg-turbo (whose arithmetic
-decoder cannot suspend there).
-A lossless frame with subsampled components raises NotImplementedError
-(ROADMAP.md C).
+arithmetic lossless (SOF11), component counts other than 1, 3 and 4,
+sampling factors that do not divide the largest (jdsample.c), a lossless
+restart interval that is not a whole number of MCU rows (jddiffct.c), a
+lossless frame with a colour transform, and an arithmetic-coded scan whose
+data runs past the end of one of the 64 KiB reads in which PIL hands the
+file to libjpeg-turbo (whose arithmetic decoder cannot suspend there).
 """
 
 from __future__ import annotations
@@ -402,15 +410,13 @@ def _new_frame(seg, coding, process):
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     lossless = process == "lossless"
-    if lossless and (hmax, vmax) != (1, 1):
-        raise NotImplementedError(
-            "lossless JPEG with subsampled components is not decoded by the "
-            "port (ROADMAP.md C)")
     unit = 1 if lossless else 8
     mcus_x, mcus_y = -(-w // (unit * hmax)), -(-h // (unit * vmax))
     for c in comps:
         if not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4):
             raise JpegError("bad sampling factors")
+        if hmax % c["h"] or vmax % c["v"]:
+            raise _refused("with fractional sampling factors")
         c["dw"] = -(-w * c["h"] // hmax)          # downsampled width
         c["dh"] = -(-h * c["v"] // vmax)
         c["bw"] = -(-c["dw"] // unit)             # blocks of real samples
@@ -503,9 +509,8 @@ def _lossless_scan(lib, head, huff, comps, my, predictor, pt, frame):
         raise JpegError(f"lossless predictor {predictor}")
     mx = huff[2]
     if huff[4] and huff[4] % mx:
-        raise NotImplementedError(
-            "lossless JPEG whose restart interval is not a whole number of "
-            "MCU rows is not decoded by the port (ROADMAP.md C)")
+        raise _refused("lossless with a restart interval that is not a "
+                       "whole number of MCU rows")
     i32p = ctypes.POINTER(ctypes.c_int32)
     ptrs = (i32p * len(comps))(*[c["diff"].ctypes.data_as(i32p)
                                  for c in comps])
@@ -516,10 +521,20 @@ def _lossless_scan(lib, head, huff, comps, my, predictor, pt, frame):
         raise JpegError(_SCAN_ERRORS[int(end)])
     for c in comps:
         rows, stride = c["diff"].shape
+        # an iMCU row is v rows of the component: one MCU row of an
+        # interleaved scan, v of a scan of this component alone; its first
+        # row restarts the predictor where a restart (or the scan) starts
+        # inside it
+        v, per = c["v"], (c["v"] if len(comps) == 1 else 1)
+        n_imcu = -(-rows // v)
+        starts = np.zeros(n_imcu * per, bool)
+        starts[:my] = first
+        restarts = np.zeros(rows, np.uint8)
+        restarts[::v] = starts.reshape(n_imcu, per).any(1)
         out = np.zeros_like(c["diff"])
         lib.jpeg_undifference(_ptr(c["diff"], ctypes.c_int32),
                               _ptr(out, ctypes.c_int32), rows, stride,
-                              c["bw"], _ptr(first, ctypes.c_uint8),
+                              c["bw"], _ptr(restarts, ctypes.c_uint8),
                               predictor, pt)
         c["samples"] = ((out << pt) & 0xFF).astype(np.uint8)
     return int(end)
@@ -559,10 +574,13 @@ def _output(s):
     smooth = _smoothing_ok(frame)
     planes = []
     for c in frame["comps"]:
+        hx, vx = frame["hmax"] // c["h"], frame["vmax"] // c["v"]
         if frame["process"] == "lossless":
             if c["samples"] is None:
                 raise JpegError(f"component {c['id']} has no scan")
-            planes.append(c["samples"][:h, :w])
+            # jdsample.c: no fancy upsampling of 1 x 1 data units
+            p = c["samples"][:c["dh"], :c["dw"]]
+            planes.append(np.repeat(np.repeat(p, vx, 0), hx, 1)[:h, :w])
             continue
         if c["qt"] is None:
             raise JpegError(f"component {c['id']} has no scan")
@@ -570,12 +588,6 @@ def _output(s):
         blocks = idct_islow(coef, c["qt"])               # [by, bx, 8, 8]
         by, bx = blocks.shape[:2]
         plane = blocks.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
-        hx, rem_x = divmod(frame["hmax"], c["h"])
-        vx, rem_y = divmod(frame["vmax"], c["v"])
-        if rem_x or rem_y:
-            raise NotImplementedError(
-                "JPEG with fractional sampling factors is not decoded by the "
-                "port (ROADMAP.md C)")
         planes.append(_upsample(plane, c["dw"], c["dh"], hx, vx)[:h, :w])
     if len(planes) == 1:
         return planes[0]
@@ -589,14 +601,15 @@ def _output(s):
             rgb = ycc_to_rgb(*planes[:3])
             return np.concatenate([rgb, 255 - planes[3][..., None]], -1)
         return 255 - np.stack(planes, -1)
-    # the colour space of 3 components
+    # the colour space of 3 components (default_decompress_parms): with no
+    # marker, lossless is RGB whatever the ids
     ids = tuple(c["id"] for c in frame["comps"])
     if s.saw_jfif:
         rgb = False
     elif s.saw_adobe:
         rgb = s.adobe_transform == 0
     else:
-        rgb = ids == (82, 71, 66)                  # 'R', 'G', 'B'
+        rgb = lossless or ids == (82, 71, 66)      # 'R', 'G', 'B'
     if rgb:
         return np.stack(planes, -1)
     if lossless:    # libjpeg-turbo converts no colour in lossless mode

@@ -10,9 +10,11 @@ the same files without either library.
          row filters, Adam7 interlacing; `read_png_like_pil` gives PIL's
          array, mode and palette.
   write: 8-bit grey, grey + alpha, RGB or RGBA, one chosen row filter; and
-         (`write_png_like_pil`) what PIL's save writes for the modes "1",
-         "P" (palette and tRNS), "L", "LA", "RGB", "RGBA" and "I;16", with
-         the source's ICC profile (iCCP).
+         (`write_png_like_pil`) the file PIL's save writes for the modes
+         "1", "P" (palette), "L", "LA", "RGB", "RGBA" and "I;16", with the
+         source's transparency (tRNS) and ICC profile (iCCP): PIL's row
+         filters and deflate settings, so equal byte for byte where
+         Python's zlib deflates as PIL's does.
 
 Format per the PNG specification (ISO/IEC 15948, W3C REC-PNG).
 """
@@ -214,25 +216,40 @@ def read_png(path: str) -> np.ndarray:
     return img[..., 0] if img.shape[-1] == 1 else img
 
 
+def _transparency(trns: bytes, ctype: int, depth: int):
+    """A tRNS payload as PngImagePlugin's chunk_tRNS keeps it in info, or
+    None where PIL keeps none (colour types with alpha)."""
+    if ctype == 3:
+        # PIL's _simple_palette: one fully transparent entry and the rest
+        # opaque is kept as that entry's index
+        simple = re.fullmatch(rb"\xff*\x00\xff*", trns)
+        return trns.index(b"\0") if simple else trns
+    if ctype == 0:
+        (grey,) = struct.unpack_from(">H", trns)
+        return (255 if grey else 0) if depth == 1 else grey
+    if ctype == 2:
+        return struct.unpack_from(">HHH", trns)
+    return None
+
+
 def read_png_like_pil(path: str):
     """(array, mode, info) of ``im = PIL.Image.open(path)``: ``np.asarray(
     im)``, ``im.mode`` and the info the port carries: ``palette`` (uint8
     [n, 3], mode P), ``transparency`` (the palette's tRNS alphas as
-    bytes, or the index of its one transparent entry) and ``icc_profile``
-    (the iCCP chunk's profile).
+    bytes, or the index of its one transparent entry; the grey sample of
+    modes "1" (0 or 255), "L" and "I;16"; the (r, g, b) samples of RGB) and
+    ``icc_profile`` (the iCCP chunk's profile).
 
     Modes as PngImagePlugin maps them: grey at 1 bit is "1" (bool), at 2
     and 4 bits "L" scaled to 0-255, at 16 bits "I;16"; palette at any depth
     "P" (the indices); 16-bit colour keeps each sample's high byte, and
     16-bit grey + alpha becomes RGBA."""
     img, depth, ctype, palette, trns, info = _read(path)
+    t = None if trns is None else _transparency(trns, ctype, depth)
+    if t is not None:
+        info["transparency"] = t
     if ctype == 3:
         info["palette"] = palette
-        if trns is not None:
-            # PIL's _simple_palette: one fully transparent entry and the
-            # rest opaque is kept as that entry's index
-            simple = re.fullmatch(rb"\xff*\x00\xff*", trns)
-            info["transparency"] = trns.index(b"\0") if simple else trns
         return img[..., 0], "P", info
     if ctype == 0:
         g = img[..., 0]
@@ -297,13 +314,36 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 1) -> None:
     _write(path, w, h, 8, _COLOR_TYPE[nch], rows, filter_type)
 
 
-def _write(path, w, h, depth, ctype, rows, filter_type, extra=b""):
-    raw = np.concatenate([np.full((h, 1), filter_type, np.uint8), rows], 1)
+def _write(path, w, h, depth, ctype, rows, filter_type, extra=b"",
+           deflate=None, idat_size=None):
+    """`rows` [h, stride] already filtered with `filter_type` (one type, or
+    one per row); `deflate` zlib.compressobj's arguments (default
+    zlib.compress's); `idat_size` the bytes per IDAT chunk (default one
+    chunk)."""
+    raw = np.concatenate([np.broadcast_to(np.asarray(
+        filter_type, np.uint8).reshape(-1, 1), (h, 1)), rows], 1)
+    z = zlib.compressobj(*(deflate or ()))
+    data = z.compress(raw.tobytes()) + z.flush()
+    step = idat_size or max(len(data), 1)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", ihdr) + extra
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + b"".join(_chunk(b"IDAT", data[i:i + step])
+                           for i in range(0, len(data), step))
                 + _chunk(b"IEND", b""))
+
+
+def _filter_like_pil(rows: np.ndarray, bpp: int):
+    """PIL's ZIP encoder's row filters (ZipEncode.c): per row, the first
+    of None, Up, Sub, Paeth whose bytes, read as signed, have the least
+    absolute sum (Average only with ``optimize``). -> (filtered rows, the
+    filter type of each row)."""
+    order = (0, 2, 1, 4)
+    cand = np.stack([_filter(rows, bpp, f) for f in order])
+    cost = np.minimum(cand, 256 - cand.astype(np.int32)).sum(-1)
+    pick = np.argmin(cost, axis=0)          # the first of equal sums
+    return (np.take_along_axis(cand, pick[None, :, None], 0)[0],
+            np.asarray(order, np.uint8)[pick])
 
 
 def _pack(values: np.ndarray, depth: int) -> np.ndarray:
@@ -325,8 +365,11 @@ def write_png_like_pil(path: str, img: np.ndarray, mode: str,
     from the palette's length (1 bit up to 2 entries, 2 up to 4, 4 up to 16,
     else 8); the ``transparency`` of ``info`` as a tRNS chunk and its
     ``icc_profile`` as an iCCP chunk, as PIL carries them from the source
-    (the profile compressed by zlib.compress, as PIL does). The rows are filtered with None (PIL's
-    choice for these depths may differ; the pixels are the same)."""
+    (the profile compressed by zlib.compress, as PIL does). The rows are
+    filtered as PIL's encoder filters them (8-bit palette rows not at all)
+    and deflated with its settings (level 6, memLevel 9, Z_FILTERED; 8-bit
+    palette Z_DEFAULT_STRATEGY) into IDAT chunks of ImageFile's buffer
+    size."""
     info = info or {}
     img = np.asarray(img)
     h, w = img.shape[:2]
@@ -341,12 +384,6 @@ def write_png_like_pil(path: str, img: np.ndarray, mode: str,
         rows = _pack(img & ((1 << depth) - 1), depth) if depth < 8 else img
         ctype = 3
         extra = _chunk(b"PLTE", pal[:colors].tobytes())
-        t = info.get("transparency")
-        if isinstance(t, bytes):
-            extra += _chunk(b"tRNS", t[:colors])
-        elif t is not None:
-            t = max(0, min(255, int(t)))
-            extra += _chunk(b"tRNS", (b"\xff" * t + b"\0")[:colors])
     elif mode == "I;16":
         rows = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
         depth, ctype = 16, 0
@@ -356,8 +393,27 @@ def write_png_like_pil(path: str, img: np.ndarray, mode: str,
         depth, ctype = 8, _COLOR_TYPE[nch]
     else:
         raise OSError(f"cannot write mode {mode} as PNG")
+    t = info.get("transparency")
+    if t or t == 0:                         # PngImagePlugin._save's test
+        if mode == "P":
+            if not isinstance(t, bytes):
+                t = b"\xff" * max(0, min(255, int(t))) + b"\0"
+            extra += _chunk(b"tRNS", t[:colors])
+        elif mode in ("1", "L", "I;16"):
+            extra += _chunk(b"tRNS", struct.pack(">H", max(0, min(65535,
+                                                                 int(t)))))
+        elif mode == "RGB":
+            extra += _chunk(b"tRNS", struct.pack(">HHH", *t))
     if info.get("icc_profile"):
         extra = _chunk(b"iCCP", b"ICC Profile\0\0"
                        + zlib.compress(info["icc_profile"])) + extra
-    _write(path, w, h, depth, ctype, np.ascontiguousarray(rows, np.uint8), 0,
-           extra)
+    rows = np.ascontiguousarray(rows, np.uint8)
+    if mode == "P" and depth == 8:          # PIL's raw mode "P"
+        filters, strategy = 0, zlib.Z_DEFAULT_STRATEGY
+    else:
+        bpp = (depth * _CHANNELS.get(ctype, 1) + 7) // 8
+        rows, filters = _filter_like_pil(rows, bpp)
+        strategy = zlib.Z_FILTERED
+    _write(path, w, h, depth, ctype, rows, filters, extra,
+           deflate=(6, zlib.DEFLATED, 15, 9, strategy),
+           idat_size=max(65536, 4 * w))

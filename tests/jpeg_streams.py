@@ -476,55 +476,107 @@ def _predict(p, ra, rb, rc):
 
 def write_lossless(img: np.ndarray, predictor: int, pt: int = 0,
                    restart_rows: int = 0, header=None, ids=None,
-                   marker: int = 0xC3) -> bytes:
-    """A lossless Huffman JPEG of uint8 [H, W] or [H, W, C] (all components
-    1 x 1, one interleaved scan), `restart_rows` rows per restart
-    interval."""
+                   marker: int = 0xC3, sampling=None,
+                   restart: int | None = None,
+                   interleaved: bool = True) -> bytes:
+    """A lossless Huffman JPEG of uint8 [H, W] or [H, W, C] in one
+    interleaved scan (or, `interleaved` False, one scan per component),
+    with `restart_rows` MCU rows per restart interval (or an interval of
+    `restart` MCUs). `sampling` gives each component's (h, v) (default
+    1 x 1); a component at h x v takes every (hmax / h)-th column and
+    (vmax / v)-th row of its channel. An interleaved MCU holds h x v
+    samples of each component, and samples past a component's width or
+    height are sent as zero differences; a scan of one component has one
+    sample per MCU. libjpeg's decoder undifferences an iMCU row (one MCU
+    row interleaved, v MCU rows of one component) after decoding it, and
+    the predictor restarts at its first component row where the scan or a
+    restart interval starts inside it: so does this encoder."""
     img = np.asarray(img)
-    planes = [img] if img.ndim == 2 else [img[..., i]
-                                          for i in range(img.shape[-1])]
-    n = len(planes)
-    H, W = planes[0].shape
+    chans = [img] if img.ndim == 2 else [img[..., i]
+                                         for i in range(img.shape[-1])]
+    n = len(chans)
+    H, W = chans[0].shape
+    sampling = sampling or [(1, 1)] * n
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    mx, my = -(-W // hmax), -(-H // vmax)
+    interval = restart_rows * mx if restart is None else restart
     ids = ids or list(range(1, n + 1))
     header = (adobe(0) if n == 3 else b"") if header is None else header
     codes = _codes(LOSSLESS_BITS, LOSSLESS_VALS)
-    out = b"\xff\xd8" + header + sof(marker, W, H,
-                                      [(ids[i], 1, 1, 0) for i in range(n)])
+    out = b"\xff\xd8" + header + sof(marker, W, H, [
+        (ids[i], sampling[i][0], sampling[i][1], 0) for i in range(n)])
     out += _seg(0xC4, bytes([0x00]) + bytes(LOSSLESS_BITS)
                 + bytes(LOSSLESS_VALS))
-    if restart_rows:
-        out += _seg(0xDD, struct.pack(">H", restart_rows * W))
-    hdr = bytes([n]) + b"".join(bytes([ids[i], 0x00]) for i in range(n))
-    out += _seg(0xDA, hdr + bytes([predictor, 0, pt]))
-    x = [p.astype(np.int64) >> pt for p in planes]
-    bw = _BitWriter()
-    rst = 0
-    first = 0
-    for y in range(H):
-        if restart_rows and y and y % restart_rows == 0:
-            out_data = bw.flush()
-            out += out_data + bytes([0xFF, 0xD0 + rst])
-            rst = (rst + 1) % 8
-            first = y
-        for xx in range(W):
-            for c in range(n):
-                s = x[c]
-                if y == first:
-                    pred = (1 << (7 - pt)) if xx == 0 else s[y, xx - 1]
-                elif xx == 0:
-                    pred = s[y - 1, 0]
-                else:
-                    pred = _predict(predictor, s[y, xx - 1], s[y - 1, xx],
-                                    s[y - 1, xx - 1])
-                d = int(s[y, xx] - pred)
-                d = ((d + 32768) & 0xFFFF) - 32768
-                cat = 0 if d == 0 else int(abs(d)).bit_length()
-                code, length = codes[cat]
-                bw.put(code, length)
-                if cat and cat < 16:
-                    bw.put(d if d > 0 else d + (1 << cat) - 1, cat)
-    out += bw.flush()
+    if interval:
+        out += _seg(0xDD, struct.pack(">H", interval))
+    x = [c[::vmax // v, ::hmax // h].astype(np.int64) >> pt
+         for c, (h, v) in zip(chans, sampling)]
+    scans = [list(range(n))] if interleaved else [[c] for c in range(n)]
+    for comps in scans:
+        hdr = bytes([len(comps)]) + b"".join(bytes([ids[i], 0x00])
+                                             for i in comps)
+        out += _seg(0xDA, hdr + bytes([predictor, 0, pt]))
+        out += _lossless_scan(x, sampling, comps, mx if interleaved else None,
+                              my, interval, predictor, pt, codes)
     return out + b"\xff\xd9"
+
+
+def _lossless_scan(x, sampling, comps, mx, my, interval, predictor, pt,
+                   codes) -> bytes:
+    """The entropy-coded data of one lossless scan of components `comps`
+    (interleaved on an mx x my MCU grid; mx None: one component, one sample
+    per MCU)."""
+    if mx is None:
+        (c,) = comps
+        units = [(c, 1, 1)]
+        my, mx = x[c].shape
+        imcu = sampling[c][1]                 # MCU rows per iMCU row
+    else:
+        units = [(c, *sampling[c]) for c in comps]
+        imcu = 1
+    starts = {0} | ({u // mx for u in range(0, mx * my, interval)}
+                    if interval else set())
+
+    def first_row(r, v):
+        """r starts an iMCU row (of v component rows) in which the scan or
+        a restart interval starts."""
+        k = r // v
+        return r % v == 0 and any(q in starts
+                                  for q in range(k * imcu, (k + 1) * imcu))
+
+    def diff(s, v, r, col):
+        if r >= s.shape[0] or col >= s.shape[1]:
+            return 0                                 # past the edge
+        if first_row(r, v):
+            pred = (1 << (7 - pt)) if col == 0 else s[r, col - 1]
+        elif col == 0:
+            pred = s[r - 1, 0]
+        else:
+            pred = _predict(predictor, s[r, col - 1], s[r - 1, col],
+                            s[r - 1, col - 1])
+        d = int(s[r, col] - pred)
+        return ((d + 32768) & 0xFFFF) - 32768
+
+    bw = _BitWriter()
+    out = b""
+    rst = 0
+    for mcu in range(mx * my):
+        if interval and mcu and mcu % interval == 0:
+            out += bw.flush() + bytes([0xFF, 0xD0 + rst])
+            rst = (rst + 1) % 8
+        ym, xm = divmod(mcu, mx)
+        for c, h, v in units:
+            vv = sampling[c][1]
+            for y in range(v):
+                for xx in range(h):
+                    d = diff(x[c], vv, ym * v + y, xm * h + xx)
+                    cat = 0 if d == 0 else int(abs(d)).bit_length()
+                    code, length = codes[cat]
+                    bw.put(code, length)
+                    if cat and cat < 16:
+                        bw.put(d if d > 0 else d + (1 << cat) - 1, cat)
+    return out + bw.flush()
 
 
 # --- coefficients of a baseline PIL file ----------------------------------

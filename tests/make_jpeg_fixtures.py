@@ -174,6 +174,29 @@ def lossless(predictor, pt=0, restart_rows=0, grey=False):
                              restart_rows)
 
 
+def lossless_rgb(predictor, w=37, h=29, ids=(1, 2, 3), **kw):
+    """A 3-component lossless frame with no JFIF or Adobe marker, which
+    libjpeg-turbo takes as RGB whatever the component ids."""
+    return js.write_lossless(pattern(w, h, seed=19), predictor, header=b"",
+                             ids=list(ids), **kw)
+
+
+def arith_fractional():
+    """An arithmetic frame at 3 x 1 / 2 x 1 / 1 x 1: 3 is no multiple of 2,
+    which libjpeg-turbo's upsampler refuses. The coefficients are
+    _arith_source's, cut or padded to the new block grid."""
+    coefs, _, q, tq, (w, h) = _arith_source()
+    sampling = [(3, 1), (2, 1), (1, 1)]
+    mx, my = -(-w // 24), -(-h // 8)
+    out = []
+    for (hs, vs), c in zip(sampling, coefs):
+        a = np.zeros((my * vs, mx * hs, 64), np.int16)
+        r, k = min(a.shape[0], c.shape[0]), min(a.shape[1], c.shape[1])
+        a[:r, :k] = c[:r, :k]
+        out.append(a)
+    return js.write_arith(out, sampling, q[:len(set(tq))], tq, (w, h))
+
+
 def variants():
     """name -> JPEG bytes: every variant the decoder handles."""
     img = pattern(33, 47, seed=1)
@@ -242,6 +265,24 @@ def variants():
         v[f"lossless_p{p}_37x29"] = lossless(p, pt=p % 3,
                                              restart_rows=(0, 5)[p % 2],
                                              grey=p == 7)
+    # three components, no marker: RGB in lossless mode whatever the ids
+    v["lossless_ids123_37x29"] = lossless_rgb(1)
+    v["lossless_ids012_37x29"] = lossless_rgb(4, ids=(0, 1, 2))
+    v["lossless_ids597_restart_37x29"] = lossless_rgb(6, ids=(5, 9, 7),
+                                                      restart_rows=5)
+    # subsampled lossless (the first component at 2 x 1 or 2 x 2), even and
+    # odd sizes, restarts; and one scan per component at 1 x 2 with a
+    # restart every row (the predictor restarts once per iMCU row)
+    v["lossless_s21_36x29"] = lossless_rgb(1, 36, sampling=[(2, 1), (1, 1),
+                                                            (1, 1)])
+    v["lossless_s22_36x29"] = lossless_rgb(1, 36, sampling=[(2, 2), (1, 1),
+                                                            (1, 1)])
+    v["lossless_s21_restart_37x29"] = lossless_rgb(
+        5, sampling=[(2, 1), (1, 1), (1, 1)], restart_rows=3)
+    v["lossless_s22_restart_37x29"] = lossless_rgb(
+        7, pt=2, sampling=[(2, 2), (1, 1), (1, 1)], restart_rows=2)
+    v["lossless_s12_scans_restart_37x29"] = lossless_rgb(
+        2, sampling=[(1, 2), (1, 1), (1, 1)], restart=37, interleaved=False)
     return v
 
 
@@ -258,6 +299,12 @@ def refused():
         "two_components": with_two_components(base),
         "lossless_ycbcr": js.write_lossless(pattern(16, 16), 1,
                                             header=js.JFIF),
+        "arith_fractional_sampling": arith_fractional(),
+        # restart intervals of 7 and 16 MCUs on an 11-wide frame
+        "lossless_restart_7": js.write_lossless(
+            pattern(11, 9, seed=20)[..., 0], 1, restart=7),
+        "lossless_restart_16": js.write_lossless(
+            pattern(11, 9, seed=20)[..., 0], 1, restart=16),
     }
 
 

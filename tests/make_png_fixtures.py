@@ -2,8 +2,9 @@
 fixtures of tests/data/process_images/ (with PIL, here only).
 
 tests/data/png/: one file per PNG image type (grey at 1, 2, 4, 8, 16 bits,
-palette at 1, 2, 4, 8 bits, one with a tRNS chunk, RGB, grey + alpha and
-RGBA at 8 and 16 bits), each plain and Adam7-interlaced, every row filter
+palette at 1, 2, 4, 8 bits, RGB, grey + alpha and RGBA at 8 and 16 bits),
+each plain and Adam7-interlaced, and palette, grey and RGB files with a
+tRNS chunk, every row filter
 used in turn; beside each ``<name>.png`` the ``<name>.npy`` PIL decodes
 from it, and in ``modes.json`` its PIL mode and palette. So a machine
 without PIL checks the port's reader (irgs_tpu_torch/utils/png.py).
@@ -137,16 +138,30 @@ def png_variants():
     v["ct3_d8_trns"] = raw_png(idx, 3, 8, 0, pal, bytes([255, 0, 128]))
     v["ct3_d4_trns_simple_adam7"] = raw_png(idx, 3, 4, 1, pal,
                                             bytes([255, 255, 0]))
+    # tRNS of grey and RGB images: a grey sample, or an (r, g, b) triple,
+    # as 16-bit values (PIL keeps them in info as int and tuple)
+    for name, ctype, depth, trns in (
+            ("ct0_d1_trns", 0, 1, (1,)), ("ct0_d4_trns_adam7", 0, 4, (9,)),
+            ("ct0_d8_trns", 0, 8, (7,)), ("ct0_d16_trns", 0, 16, (40000,)),
+            ("ct2_d8_trns", 2, 8, (10, 20, 30)),
+            ("ct2_d16_trns_adam7", 2, 16, (300, 65535, 0))):
+        samples = rng.integers(0, 1 << depth, (h, w, _CHANNELS[ctype]))
+        v[name] = raw_png(samples.astype(np.uint16 if depth == 16
+                                         else np.uint8), ctype, depth,
+                          name.endswith("adam7"), None,
+                          struct.pack(f">{len(trns)}H", *trns))
     return v
 
 
 def pil_info(im) -> dict:
-    info = {"mode": im.mode, "palette": None, "transparency": None}
+    """Mode, palette and transparency of a PIL image, as JSON holds them
+    (bytes and tuples as lists)."""
+    t = im.info.get("transparency")
+    info = {"mode": im.mode, "palette": None,
+            "transparency": list(t) if isinstance(t, (bytes, tuple)) else t}
     if im.mode == "P":
         info["palette"] = np.asarray(im.getpalette(), int).reshape(
             -1, 3).tolist()
-        t = im.info.get("transparency")
-        info["transparency"] = list(t) if isinstance(t, bytes) else t
     return info
 
 

@@ -4,7 +4,8 @@ for bit: on streams PIL writes here (sizes 1x1 to 33x47, 4:4:4, 4:2:2,
 tables, restart intervals, Adobe APP14 and RGB component ids, 16-bit
 quantisation tables, progressive, CMYK), on streams the test-side encoders
 of tests/jpeg_streams.py write (arithmetic, lossless), on incomplete
-progressive files (block smoothing), and on the committed fixtures of
+progressive files (block smoothing), on lossless frames with subsampled
+components or without a colour marker, and on the committed fixtures of
 tests/data/jpeg/ (tests/make_jpeg_fixtures.py), which is how a machine
 without PIL checks it. Streams PIL refuses, the port refuses."""
 
@@ -27,6 +28,7 @@ FIXTURES = sorted(os.path.basename(p)[:-4]
                   for p in glob.glob(os.path.join(DATA, "*.jpg")))
 REFUSED = sorted(os.path.basename(p)[:-4]
                  for p in glob.glob(os.path.join(DATA, "refused", "*.jpg")))
+VARIANTS = fx.variants()        # name -> stream, written once (pure Python)
 
 
 def _pil(data: bytes) -> np.ndarray:
@@ -38,7 +40,7 @@ def _pil_rgb(data: bytes) -> np.ndarray:
 
 
 def test_fixture_set_is_complete():
-    assert set(FIXTURES) == (set(fx.variants()) | {"large_1297x840_q95"}
+    assert set(FIXTURES) == (set(VARIANTS) | {"large_1297x840_q95"}
                              | set(fx.ARRAY_OF))
     assert set(REFUSED) == set(fx.refused()) | set(fx.LARGE_REFUSED)
     for name in FIXTURES:
@@ -65,9 +67,9 @@ def test_fixture_equals_committed_array(name):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("name", sorted(fx.variants()))
+@pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_fixture_variant_equals_pil(name):
-    data = fx.variants()[name]
+    data = VARIANTS[name]
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), _pil(data))
     arr, mode, _ = jpeg.decode_jpeg_like_pil(data)
     np.testing.assert_array_equal(image.to_rgb_like_pil(arr, mode),
@@ -185,10 +187,10 @@ def _modes(data):
     return np.asarray(im), im.mode, np.asarray(im.convert("RGB"))
 
 
-@pytest.mark.parametrize("name", sorted(fx.variants()))
+@pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_variant_mode_and_rgb_equal_pil(name):
     """Mode ("L", "RGB", "CMYK") and ``convert("RGB")`` as PIL gives them."""
-    data = fx.variants()[name]
+    data = VARIANTS[name]
     arr, mode, _ = jpeg.decode_jpeg_like_pil(data)
     want, want_mode, want_rgb = _modes(data)
     assert mode == want_mode
@@ -250,6 +252,80 @@ def test_lossless_bit_for_bit(predictor, pt, restart_rows):
     np.testing.assert_array_equal(jpeg.decode_jpeg(data), _pil(data))
     grey = js.write_lossless(img[..., 1], predictor, pt, restart_rows)
     np.testing.assert_array_equal(jpeg.decode_jpeg(grey), _pil(grey))
+
+
+SUBSAMPLED = {"s21": [(2, 1), (1, 1), (1, 1)], "s22": [(2, 2), (1, 1), (1, 1)],
+              "s12": [(1, 2), (1, 1), (1, 1)], "chroma22": [(1, 1), (2, 2),
+                                                            (1, 1)],
+              "s41_21": [(4, 1), (1, 1), (2, 1)],
+              "s14_12": [(1, 4), (1, 2), (1, 1)]}
+
+
+@pytest.mark.parametrize("size", [(36, 29), (37, 31), (5, 3), (1, 1)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("sampling", sorted(SUBSAMPLED))
+def test_lossless_subsampled_bit_for_bit(sampling, size):
+    """Lossless frames with subsampled components, even and odd sizes:
+    one interleaved scan with restarts every 2 MCU rows, and one scan per
+    component (restarts every row where the components are equally wide):
+    PIL's array, and it is the component planes replicated."""
+    w, h = size
+    samp = SUBSAMPLED[sampling]
+    img = fx.pattern(w, h, seed=w + 3 * h)
+    hmax = max(a for a, _ in samp)
+    vmax = max(b for _, b in samp)
+    widths = {-(-w * a // hmax) for a, _ in samp}
+    streams = [js.write_lossless(img, 4, header=b"", sampling=samp,
+                                 restart_rows=2),
+               js.write_lossless(img, 7, pt=1, header=b"", sampling=samp,
+                                 interleaved=False,
+                                 restart=widths.pop() if len(widths) == 1
+                                 else 0)]
+    for data in streams:
+        got = jpeg.decode_jpeg(data)
+        np.testing.assert_array_equal(got, _pil(data))
+    np.testing.assert_array_equal(got, np.stack([np.repeat(np.repeat(
+        img[::vmax // b, ::hmax // a, c] >> 1 << 1, vmax // b, 0),
+        hmax // a, 1)[:h, :w] for c, (a, b) in enumerate(samp)], -1))
+
+
+@pytest.mark.parametrize("ids", [(1, 2, 3), (0, 1, 2), (5, 9, 7),
+                                 (82, 71, 66)])
+def test_lossless_without_marker_is_rgb(ids):
+    """libjpeg-turbo takes a 3-component lossless frame with no JFIF or
+    Adobe marker as RGB whatever its ids (a JFIF marker makes it YCbCr,
+    which lossless cannot convert: refused, as lossless_ycbcr)."""
+    img = fx.pattern(13, 11, seed=sum(ids))
+    data = js.write_lossless(img, 1, header=b"", ids=list(ids))
+    arr, mode, _ = jpeg.decode_jpeg_like_pil(data)
+    assert mode == Image.open(io.BytesIO(data)).mode == "RGB"
+    np.testing.assert_array_equal(arr, _pil(data))
+    np.testing.assert_array_equal(arr, img)
+    with pytest.raises(jpeg.JpegError, match="PIL does not read"):
+        jpeg.decode_jpeg(js.write_lossless(img, 1, header=js.JFIF,
+                                           ids=list(ids)))
+
+
+@pytest.mark.parametrize("interval", [7, 16, 22, 33])
+def test_lossless_restart_not_whole_rows(interval):
+    """A lossless restart interval of whole MCU rows (22, 33 on an 11-wide
+    frame) decodes; any other PIL refuses, and the port raises JpegError."""
+    img = fx.pattern(11, 9, seed=interval)[..., 0]
+    data = js.write_lossless(img, 1, restart=interval)
+    want = _pil_or_error(data)
+    if interval % 11:
+        assert isinstance(want, Exception)
+        with pytest.raises(jpeg.JpegError, match="whole number of MCU rows"):
+            jpeg.decode_jpeg(data)
+    else:
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data), want)
+
+
+def test_fractional_sampling_raises():
+    data = fx.arith_fractional()
+    assert isinstance(_pil_or_error(data), Exception)
+    with pytest.raises(jpeg.JpegError, match="fractional sampling"):
+        jpeg.decode_jpeg(data)
 
 
 @pytest.mark.parametrize("transform", [0, 1, 2, None])

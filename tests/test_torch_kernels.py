@@ -312,6 +312,54 @@ def test_gather_kernel_bf16_table_rows(cuda_device, tile):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 3, 4, 6, 128, 192, 352])
+@pytest.mark.parametrize("M", [1, 5, 31, 33, 1000, 70_001])
+def test_gather_kernel_branches(cuda_device, W, M):
+    """The kernel at rows of one word, of a width that is no multiple of 4
+    words (word copies), of 16-byte multiples (the bf16 table's 192 words,
+    352), at row counts below, at and past one warp's 32-row chunk and past
+    a grid's worth of chunks; indices at 0 and T - 1, and out of range
+    (clamped to [0, T), as the TPU gather clamps); f32, int32 and
+    bf16-as-int32 tables, and a table viewed at a row offset (not 16-byte
+    aligned); the same bits on two runs."""
+    T = 777
+    g = torch.Generator(cuda_device).manual_seed(W * 7919 + M)
+    idx = torch.randint(0, T, (M,), device=cuda_device, generator=g)
+    idx[0] = T - 1
+    if M > 4:
+        idx[1], idx[2], idx[3] = 0, -5, T + 11
+    want_idx = idx.clamp(0, T - 1)
+    base = torch.randn((T + 1, W), device=cuda_device, generator=g)
+    tables = {"f32": base[:T], "int32": base[:T].view(torch.int32),
+              "bf16": base[:T].to(torch.bfloat16).view(torch.int32)
+              if W % 2 == 0 else base[:T].view(torch.int32),
+              "offset": base.reshape(-1)[1:1 + T * W].reshape(T, W)}
+    for name, tab in tables.items():
+        gr.reset_launches()
+        out = gr.gather_rows_cuda(tab, idx)
+        again = gr.gather_rows_cuda(tab, idx)
+        torch.cuda.synchronize()
+        assert out.dtype == tab.dtype and out.shape == (M, tab.shape[1])
+        want = tab[want_idx].view(torch.int32)
+        assert torch.equal(out.view(torch.int32), want), name
+        assert torch.equal(again.view(torch.int32), want), name
+        assert gr.LAUNCHES["gather_rows"] == 2
+
+
+@pytest.mark.cuda
+def test_gather_kernel_on_a_side_stream(cuda_device):
+    """The kernel launches on the current stream: under a side stream the
+    result is ready once that stream has run."""
+    tab = torch.arange(40.0, device=cuda_device).reshape(10, 4)
+    idx = torch.tensor([9, 0, 3], device=cuda_device)
+    s = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(s):
+        out = gr.gather_rows(tab, idx)
+    s.synchronize()
+    assert torch.equal(out, tab[idx])
+
+
+@pytest.mark.cuda
 def test_light_sampler_card_equals_cpu(cuda_device):
     """The light sampler's hash uniforms and integer CDF draw the same texels
     and jitter on the card as on the CPU, from the same pdf."""

@@ -31,7 +31,7 @@ def _info(arr, mode, info):
     pal = info.get("palette")
     return {"mode": mode,
             "palette": None if pal is None else np.asarray(pal).tolist(),
-            "transparency": list(t) if isinstance(t, bytes) else t}
+            "transparency": list(t) if isinstance(t, (bytes, tuple)) else t}
 
 
 def test_fixture_set_is_complete():
@@ -98,22 +98,25 @@ def test_to_rgb_equals_pil_convert(mode):
         np.asarray(im.convert("RGB")))
 
 
-@pytest.mark.parametrize("mode", ["1", "L", "LA", "RGB", "RGBA", "I;16",
-                                  "P", "P_trns_index", "P_trns_bytes",
-                                  "P_256", "RGB_icc", "P_icc"])
-def test_writer_equals_pil_save(mode, tmp_path):
-    """write_png_like_pil: PIL decodes the port's file to what it decodes
-    from its own save of the same image (array, mode, palette, tRNS, ICC
-    profile), and the bit depth is PIL's."""
+WRITER_MODES = ["1", "L", "LA", "RGB", "RGBA", "I;16", "P", "P_trns_index",
+                "P_trns_bytes", "P_256", "RGB_icc", "P_icc", "1_trns",
+                "L_trns", "L_trns_0", "I;16_trns", "RGB_trns"]
+# the transparency PIL keeps for each mode (tRNS of grey and RGB images)
+TRNS = {"P_trns_index": 2, "P_trns_bytes": bytes([0, 128, 255, 7]),
+        "1_trns": 255, "L_trns": 7, "L_trns_0": 0, "I;16_trns": 40000,
+        "RGB_trns": (10, 20, 300)}
+
+
+def _write_both(mode, tmp_path):
+    """The same image saved by PIL and by write_png_like_pil -> (ours,
+    theirs) paths."""
     rng = np.random.default_rng(6)
     base = mode.split("_")[0]
     im = _image(base, rng)
     if mode == "P_256":
         im.putpalette(rng.integers(0, 256, 768).tolist())
-    if mode == "P_trns_index":
-        im.info["transparency"] = 2
-    if mode == "P_trns_bytes":
-        im.info["transparency"] = bytes([0, 128, 255, 7])
+    if mode in TRNS:
+        im.info["transparency"] = TRNS[mode]
     if mode.endswith("_icc"):
         im.info["icc_profile"] = ICC
     ours, theirs = str(tmp_path / "o.png"), str(tmp_path / "t.png")
@@ -121,9 +124,19 @@ def test_writer_equals_pil_save(mode, tmp_path):
     info = {"icc_profile": im.info.get("icc_profile")}
     if base == "P":
         info["palette"] = np.asarray(im.getpalette()).reshape(-1, 3)
-        if "transparency" in im.info:
-            info["transparency"] = im.info["transparency"]
+    if "transparency" in im.info:
+        info["transparency"] = im.info["transparency"]
     png.write_png_like_pil(ours, np.asarray(im), base, info)
+    return ours, theirs
+
+
+@pytest.mark.parametrize("mode", WRITER_MODES)
+def test_writer_equals_pil_save(mode, tmp_path):
+    """write_png_like_pil: PIL decodes the port's file to what it decodes
+    from its own save of the same image (array, mode, palette, tRNS, ICC
+    profile), and the bit depth is PIL's."""
+    base = mode.split("_")[0]
+    ours, theirs = _write_both(mode, tmp_path)
     a, b = Image.open(ours), Image.open(theirs)
     assert a.mode == b.mode == base
     np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -131,6 +144,35 @@ def test_writer_equals_pil_save(mode, tmp_path):
     assert a.info.get("icc_profile") == b.info.get("icc_profile")
     assert open(ours, "rb").read()[24] == open(theirs, "rb").read()[24]
     assert _chunk_of(ours, b"iCCP") == _chunk_of(theirs, b"iCCP")
+
+
+@pytest.mark.parametrize("mode", WRITER_MODES)
+def test_writer_bytes_equal_pil_save(mode, tmp_path):
+    """write_png_like_pil writes PIL's file byte for byte: its chunks, its
+    row filters and its deflate settings (Python's zlib deflates as the
+    zlib PIL was built with does, here)."""
+    ours, theirs = _write_both(mode, tmp_path)
+    assert open(ours, "rb").read() == open(theirs, "rb").read()
+
+
+@pytest.mark.parametrize("shape", [(3, 20000), (150, 200), (1, 1)],
+                         ids=["wide", "two_idat_chunks", "one_pixel"])
+@pytest.mark.parametrize("mode", ["1", "L", "RGB", "RGBA", "I;16", "P"])
+def test_writer_bytes_equal_pil_save_at_sizes(mode, shape, tmp_path):
+    """Byte for byte at widths past ImageFile's 64 KiB buffer, with image
+    data that spans several IDAT chunks, and at one pixel."""
+    h, w = shape
+    rng = np.random.default_rng(9)
+    im = _image(mode, rng, w, h)
+    if mode == "P" and w > 1:
+        im = Image.fromarray(rng.integers(0, 256, (h, w, 3)).astype(
+            np.uint8)).convert("P", palette=Image.Palette.ADAPTIVE, colors=11)
+    theirs, ours = str(tmp_path / "t.png"), str(tmp_path / "o.png")
+    im.save(theirs)
+    arr, m, info = png.read_png_like_pil(theirs)
+    png.write_png_like_pil(ours, arr, m, info)
+    Image.open(theirs).save(str(tmp_path / "t2.png"))
+    assert open(ours, "rb").read() == open(tmp_path / "t2.png", "rb").read()
 
 
 # the start of an ICC profile header and some tag bytes

@@ -3,7 +3,7 @@ process_images.py: on a folder of images of several modes (and the
 committed fixtures of tests/data/process_images/, made by
 tests/make_png_fixtures.py), `crop` and `split-grid` write files that PIL
 decodes to the same arrays, modes, palettes, transparency and ICC
-profiles, and JPEG files equal byte for byte."""
+profiles, and that equal the root script's byte for byte."""
 
 import os
 import shutil
@@ -33,8 +33,7 @@ def _same(a, b):
     da, db = _decoded(a), _decoded(b)
     assert da[1:] == db[1:], (a, da[1:], db[1:])
     np.testing.assert_array_equal(da[0], db[0], err_msg=a)
-    if a.lower().endswith((".jpg", ".jpeg")):
-        assert open(a, "rb").read() == open(b, "rb").read(), a
+    assert open(a, "rb").read() == open(b, "rb").read(), a
 
 
 def _root(*args):
@@ -113,6 +112,28 @@ def test_committed_fixtures(tmp_path):
     for r in range(2):
         _same(os.path.join(DATA, f"grid_panel{r}.png"),
               str(tmp_path / f"grid_panel{r}.png"))
+
+
+@pytest.mark.parametrize("args", [["--crop", "1", "1", "1", "1"],
+                                  ["--downscale", "2", "--crop", "1", "0",
+                                   "0", "1"]], ids=["crop", "down2"])
+def test_crop_keeps_trns_byte_for_byte(tmp_path, args):
+    """Grey and RGB PNGs with a tRNS chunk: PIL keeps their transparency
+    through the Lanczos downscale and the crop, and so does the port; the
+    files are the root script's byte for byte."""
+    src = tmp_path / "in"
+    src.mkdir()
+    rng = np.random.default_rng(0)
+    Image.fromarray(rng.integers(0, 255, (8, 8, 3), dtype=np.uint8)).save(
+        src / "rgb.png", transparency=(10, 20, 30))
+    Image.fromarray(rng.integers(0, 255, (8, 8), dtype=np.uint8)).save(
+        src / "grey.png", transparency=7)
+    _root("crop", str(src), str(tmp_path / "root"), *args)
+    PI.main(["crop", str(src), str(tmp_path / "port"), *args])
+    for n, t in (("rgb.png", (10, 20, 30)), ("grey.png", 7)):
+        assert Image.open(tmp_path / "root" / n).info["transparency"] == t
+        assert (open(tmp_path / "port" / n, "rb").read()
+                == open(tmp_path / "root" / n, "rb").read()), n
 
 
 def test_crop_box_raises_as_pil():
