@@ -75,7 +75,17 @@ Phases (JSON lines; any failure exits non-zero):
                 phase (initial, volume, surfel, and volume and surfel with
                 the indirect path on a TSDF fused on the CPU), two backward
                 passes on the card bit for bit, densify_and_prune from the
-                same state and draws;
+                same state and draws; then SH degree 4: SH4_STAGE1_STEPS
+                surfel-phase steps of the test-scale state with 25
+                coefficients per channel at active degree 4 (the first
+                step's loss and gradients card against CPU, the later
+                losses reported), one stage-2 step of the test-scale
+                sphere with 25 coefficients at active degree 3 (as
+                stage2_small) and one eval frame of it at active degree 4
+                (as eval_small, 8 diffuse samples), each a path of its own
+                (sh4_stage1, sh4_stage2, sh4_eval) with every kernel it
+                launches held at its first inputs and the scatter-add at
+                its largest call;
   stage1        stage1_full_step at STAGE1_BENCH (the JAX package's
                 tools/bench_stage1.py: 100k points, 400x400, 128² cubemaps,
                 dup 2^21): per phase 1 warm-up and 10 timed steps, the 128³
@@ -172,7 +182,13 @@ Phases (JSON lines; any failure exits non-zero):
                 committed inputs against the root script's committed
                 outputs (JPEG bytes equal, PNG arrays, modes and palettes
                 equal), split-grid on train_cli's vis/iter_000001.png and
-                crop --downscale 4 on eval_cli's render folder (sizes).
+                crop --downscale 4 on eval_cli's render folder (sizes);
+                every committed TIFF, BMP and GIF fixture (tests/data/tiff,
+                bmp, gif) bit for bit with its mode and palette through the
+                content-sniffing reader, their refused streams refused,
+                three files whose extension lies read by content, the .hdr
+                headers cv2 takes or refuses, and ms per 1297x840 RGB TIFF
+                at each compression, 24-bit BMP and GIF frame.
                 Needs train_cli and eval_cli.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
@@ -187,6 +203,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -688,34 +705,65 @@ STAGE2_SMALL_TRACER = dict(grid_res=12, pair_capacity=2 ** 14, max_cells=8,
 STEP_LOSS_REL_TOL, STEP_PARAM_TOL = 1e-4, 1e-5
 
 
-def stage2_small_setup(dev, light=0, train_ray=True):
+def stage2_small_setup(dev, light=0, train_ray=True, sh_degree=3):
     """The CPU tests' stage-2 scale (512 surfels, 64x64, 8 diffuse and
     `light` light samples on 128 pixels, or with train_ray off on every
-    pixel in 32 chunks of 128) -> stage2_setup's tuple."""
+    pixel in 32 chunks of 128; a model of SH degree `sh_degree`) ->
+    stage2_setup's tuple."""
     import dataclasses
     from irgs_tpu_torch import workload
     state, grid, cams, st = workload.stage2_setup(
         512, 1024, 64, 8, (8 + light) * 128, 2 ** 14, dev,
-        STAGE2_SMALL_TRACER, light=light)
+        STAGE2_SMALL_TRACER, light=light, sh_degree=sh_degree)
     return state, grid, cams, dataclasses.replace(st, train_ray=train_ray)
 
 
-def stage2_card_vs_cpu(light=0, train_ray=True):
+@contextlib.contextmanager
+def main_path(results, path, kernels=("blend", "gather"), scatter=True):
+    """Run the block as the main path `path` on the card: every launch count
+    set to 0 before it and read after it into results["launches"][path],
+    the `kernels` (_held) held at their first inputs as case
+    f"{path}_64px", and with `scatter` the scatter-add at its largest call
+    as f"{path}_largest"."""
+    import torch
+    reset_launch_counts()
+    with _held(kernels) as rec, LargestScatter() as scat:
+        yield
+    torch.cuda.synchronize()
+    results.setdefault("launches", {})[path] = launch_counts()
+    check_recorded(results, rec, f"{path}_64px")
+    if scatter:
+        check_scatter(results, scat, f"{path}_largest")
+
+
+def _on_card(dev, results, path, **kw):
+    """main_path(results, path, **kw) for the card's run of a card-vs-CPU
+    case that is a main path of its own, else no context."""
+    if dev == "cuda" and path:
+        return main_path(results, path, **kw)
+    return contextlib.nullcontext()
+
+
+def stage2_card_vs_cpu(light=0, train_ray=True, sh_degree=3, results=None,
+                       path=None):
     """One stage-2 step at the CPU tests' scale on the card and with the
-    plain CPU path, from the same draws -> its JSON fields and ok."""
+    plain CPU path, from the same draws -> its JSON fields and ok. With
+    `path`, the card's step is that main path (main_path)."""
     import torch
     from irgs_tpu_torch.train import stage2 as s2
 
     res = {}
     gen = torch.Generator().manual_seed(0)
     for dev in ("cpu", "cuda"):
-        state, grid, cams, st = stage2_small_setup(dev, light, train_ray)
+        state, grid, cams, st = stage2_small_setup(dev, light, train_ray,
+                                                   sh_degree)
         if dev == "cpu":
             draws = s2.draw_stage2(gen, st, "cpu")
         gt_img = torch.full((64, 64, 3), 0.4, device=dev)
         state.step = 1001
-        state, m = s2.stage2_step(state, grid, cams[0].params(dev), gt_img,
-                                  None, draws.to(dev), st=st)
+        with _on_card(dev, results, path):
+            state, m = s2.stage2_step(state, grid, cams[0].params(dev),
+                                      gt_img, None, draws.to(dev), st=st)
         res[dev] = (m, {k: v.detach().cpu() for k, v in
                         state.params.tensors().items()})
     loss_rel = abs(float(res["cuda"][0]["loss"]) - float(res["cpu"][0]["loss"])) \
@@ -724,6 +772,7 @@ def stage2_card_vs_cpu(light=0, train_ray=True):
                 for k in res["cpu"][1])
     ok = loss_rel <= STEP_LOSS_REL_TOL and p_err <= STEP_PARAM_TOL
     return {"light_sample_num": light, "train_ray": train_ray,
+            "sh_coefficients": res["cuda"][1]["features_rest"].shape[1] + 1,
             "loss_cuda": float(res["cuda"][0]["loss"]),
             "loss_cpu": float(res["cpu"][0]["loss"]), "loss_rel_err": loss_rel,
             "loss_rel_tol": STEP_LOSS_REL_TOL, "param_max_abs_err": p_err,
@@ -1234,11 +1283,12 @@ EVAL_SMALL = dict(n_surface=2000, n_capacity=2048, img=64, diffuse=32,
 MERGED_TRACE_MAX_ABS = 1.0 / EVAL_SMALL["diffuse"]
 
 
-def eval_card_vs_cpu(setup, flat_first_row=False):
+def eval_card_vs_cpu(setup, flat_first_row=False, results=None, path=None):
     """One test-scale eval frame (workload.eval_setup(**setup)) on the card
     and on the CPU (plain versions of every kernel), from the same scene
     -> its JSON fields and ok. `flat_first_row` sets the env's first row to
-    its second (see phase_mis_small)."""
+    its second (see phase_mis_small). With `path`, the card's frame is that
+    main path (main_path; no backward, so no scatter-add)."""
     import numpy as np
     import torch
     from irgs_tpu_torch import workload
@@ -1255,10 +1305,12 @@ def eval_card_vs_cpu(setup, flat_first_row=False):
         rb.reset_launches()
         gr.reset_launches()
         stats[dev] = {}
-        out = render_ir_eval(params, aux, grid, cam, ecfg,
-                             stats_out=stats[dev])
+        with _on_card(dev, results, path, scatter=False):
+            out = render_ir_eval(params, aux, grid, cam, ecfg,
+                                 stats_out=stats[dev])
+            # read before main_path's checks launch the kernels again
+            stats[dev]["launches"] = {**rb.LAUNCHES, **gr.LAUNCHES}
         outs[dev] = {k: v.cpu().numpy() for k, v in out.items()}
-        stats[dev]["launches"] = {**rb.LAUNCHES, **gr.LAUNCHES}
     spp = setup["diffuse"] + setup["light"]
     aovs, ok = {}, True
     for k, want in outs["cpu"].items():
@@ -2118,9 +2170,9 @@ def _stage1_static(phase, indirect, **kw):
     return s1.Stage1FullStatic(phase=phase, use_indirect=indirect, **kw)
 
 
-def stage1_small_state(dev):
-    """STAGE1_SMALL on `dev`: the state, cameras, target, FG table and the
-    static kwargs."""
+def stage1_small_state(dev, sh_degree=3):
+    """STAGE1_SMALL on `dev` at SH degree `sh_degree` (active and max): the
+    state, cameras, target, FG table and the static kwargs."""
     import numpy as np
     import torch
     from irgs_tpu_torch import workload
@@ -2131,10 +2183,11 @@ def stage1_small_state(dev):
     from irgs_tpu_torch.scene.ref_gaussians import RefGaussianParams
     from irgs_tpu_torch.train import stage1_full as s1
     w = workload.STAGE1_SMALL
-    fields, alive = workload.stage1_small_fields(w["n_surface"],
-                                                 w["n_capacity"], w["env_res"])
+    fields, alive = workload.stage1_small_fields(
+        w["n_surface"], w["n_capacity"], w["env_res"], sh_degree=sh_degree)
     params, aux = G.params_from_numpy(fields, alive, dev,
-                                      cls=RefGaussianParams)
+                                      cls=RefGaussianParams,
+                                      max_sh_degree=sh_degree)
     state = s1.init_state(params, aux, stage1_config().opt,
                           w["cameras_extent"])
     cams = toy.make_ring_cameras(w["n_cams"], width=w["img"],
@@ -2144,7 +2197,7 @@ def stage1_small_state(dev):
                                 0.5 - 0.2 * xx * yy], -1).astype(np.float32),
                       device=dev)
     lut = cm.compute_fg_lut(res=32, samples=64, device=dev)
-    static = dict(img_w=w["img"], img_h=w["img"], active_sh_degree=3,
+    static = dict(img_w=w["img"], img_h=w["img"], active_sh_degree=sh_degree,
                   white_background=False, dup_capacity=w["dup"])
     return state, cams, gt, lut, static
 
@@ -2227,11 +2280,96 @@ def stage1_densify_card_vs_cpu():
             "stats": stats}, ok
 
 
-def phase_stage1_small():
+def _grads_agree(g_cpu, g_card):
+    """Worst |card - CPU| / max|g_cpu| over the gradients, and the largest
+    share of a gradient's elements beyond S1_GRAD_REL·max|g_cpu|."""
+    worst, shares = 0.0, {}
+    for k, gc in g_cpu.items():
+        gk = g_card[k]
+        if gc is None or gk is None:
+            if (gc is None) != (gk is None):
+                shares[k] = 1.0
+            continue
+        scale = float(gc.abs().max().clamp_min(1e-12))
+        d = (gk - gc).abs()
+        worst = max(worst, float(d.max()) / scale)
+        shares[k] = float((d > S1_GRAD_REL * scale).float().mean())
+    return worst, max(shares.values())
+
+
+SH4_STAGE1_STEPS = 3
+# the degree-4 eval frame: EVAL_SMALL's scene and tracer at 8 diffuse samples
+SH4_EVAL = dict(EVAL_SMALL, diffuse=8, sh_degree=4)
+# each SH-degree-4 path and the kernels it must launch
+SH4_PATHS = {"sh4_stage1": ("blend_fwd", "blend_bwd", "segment_sum"),
+             "sh4_stage2": ("blend_fwd", "blend_bwd", "gather_rows",
+                            "segment_sum"),
+             "sh4_eval": ("blend_fwd", "gather_rows")}
+
+
+def stage1_small_steps(dev, n, sh_degree=3, results=None, path=None):
+    """n surfel-phase steps of STAGE1_SMALL at SH degree `sh_degree` from
+    iteration 10 -> their losses and the first step's gradients. With
+    `path`, the card's steps are that main path (main_path; no gather)."""
+    from irgs_tpu_torch.train import stage1_full as s1
+    state, cams, gt, lut, static = stage1_small_state(dev, sh_degree)
+    st = _stage1_static("surfel", False, **static)
+    state.step = 10
+    losses, grads = [], None
+    with _on_card(dev, results, path, kernels=("blend",)):
+        for i in range(n):
+            state, m = s1.stage1_full_step(state, cams[i % len(cams)]
+                                           .params(dev), gt, None, lut, None,
+                                           st=st)
+            losses.append(float(m["loss"]))
+            if i == 0:
+                grads = {k: None if t.grad is None else
+                         t.grad.detach().cpu().clone()
+                         for k, t in state.params.tensors().items()}
+    return losses, grads
+
+
+def sh_degree4_case(results):
+    """SH degree 4 at test scale, card against CPU, each card run a main
+    path of its own (main_path): SH4_STAGE1_STEPS surfel-phase stage-1 steps
+    of STAGE1_SMALL with 25 coefficients per channel at active degree 4
+    (sh4_stage1: the first step's loss and gradients compared, the later
+    losses reported); one stage-2 step of the test-scale sphere with 25
+    coefficients, at active degree 3 as the trainer runs it (sh4_stage2:
+    as stage2_small); and one eval frame of that sphere at active degree 4,
+    the tracer's blend evaluating the degree-4 terms (sh4_eval: as
+    eval_small, at SH4_EVAL's 8 diffuse samples)."""
+    l_cpu, g_cpu = stage1_small_steps("cpu", SH4_STAGE1_STEPS, 4)
+    l_card, g_card = stage1_small_steps("cuda", SH4_STAGE1_STEPS, 4,
+                                        results, "sh4_stage1")
+    worst, share = _grads_agree(g_cpu, g_card)
+    rel = [abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu)]
+    s1_ok = (rel[0] <= S1_LOSS_RTOL and share <= MAX_OUTLIER_SHARE
+             and worst <= BWD_REL and all(map(math.isfinite, l_card))
+             and g_cpu["features_rest"][:, 15:].abs().max() > 0)
+    s2, s2_ok = stage2_card_vs_cpu(sh_degree=4, results=results,
+                                   path="sh4_stage2")
+    ev, ev_ok = eval_card_vs_cpu(SH4_EVAL, results=results, path="sh4_eval")
+    launches = {p: results["launches"][p] for p in SH4_PATHS}
+    launched = all(launches[p].get(k, 0) > 0 for p, ks in SH4_PATHS.items()
+                   for k in ks)
+    s2_ok = s2_ok and s2["sh_coefficients"] == 25
+    return {"stage1_steps": SH4_STAGE1_STEPS, "stage1_loss_cuda": l_card,
+            "stage1_loss_cpu": l_cpu, "stage1_loss_rel_err": rel,
+            "stage1_grad_max_rel_err": worst,
+            "stage1_grad_max_outlier_share": share, "stage1_ok": bool(s1_ok),
+            "stage2": s2, "stage2_ok": bool(s2_ok),
+            "eval_diffuse": SH4_EVAL["diffuse"], "eval": ev,
+            "eval_ok": bool(ev_ok), "launches": launches}, \
+        bool(s1_ok and s2_ok and ev_ok and launched)
+
+
+def phase_stage1_small(results):
     """Stage 1 at test scale (STAGE1_SMALL), card against CPU: the loss and
     gradients of one step of each phase (the indirect ones on a TSDF fused
     on the CPU), two backward passes on the card bit for bit, and a
-    densify_and_prune from the same state and draws."""
+    densify_and_prune from the same state and draws; then the SH-degree-4
+    case (sh_degree4_case)."""
     import numpy as np
     from irgs_tpu_torch import workload
     from irgs_tpu_torch.train import stage1_full as s1
@@ -2248,36 +2386,27 @@ def phase_stage1_small():
         l_cpu, g_cpu, _ = stage1_small_grads("cpu", phase, ind, v)
         l_card, g_card, (det, differ) = stage1_small_grads("cuda", phase,
                                                            ind, v)
-        worst, shares = 0.0, {}
-        for k, gc in g_cpu.items():
-            gk = g_card[k]
-            if gc is None or gk is None:
-                if (gc is None) != (gk is None):
-                    shares[k] = 1.0
-                continue
-            scale = float(gc.abs().max().clamp_min(1e-12))
-            d = (gk - gc).abs()
-            worst = max(worst, float(d.max()) / scale)
-            shares[k] = float((d > S1_GRAD_REL * scale).float().mean())
+        worst, share = _grads_agree(g_cpu, g_card)
         allowed = S1_OUTLIER_SHARE if ind else MAX_OUTLIER_SHARE
         loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
         p_ok = (loss_rel <= S1_LOSS_RTOL and det
-                and max(shares.values()) <= allowed
+                and share <= allowed
                 and (ind or worst <= BWD_REL)
                 and bool(np.isfinite(l_card)))
         phases[name] = {"loss_cuda": l_card, "loss_cpu": l_cpu,
                         "loss_rel_err": loss_rel,
                         "grad_max_rel_err": worst,
-                        "grad_max_outlier_share": max(shares.values()),
+                        "grad_max_outlier_share": share,
                         "allowed_outlier_share": allowed,
                         "outlier_bound_rel": None if ind else BWD_REL,
                         "grads_bitwise_deterministic": det,
                         "grads_differ": differ, "ok": p_ok}
         ok &= p_ok
     dens, d_ok = stage1_densify_card_vs_cpu()
-    line = {"phase": "stage1_small", "ok": ok and d_ok,
+    sh4, sh4_ok = sh_degree4_case(results)
+    line = {"phase": "stage1_small", "ok": ok and d_ok and sh4_ok,
             "loss_rtol": S1_LOSS_RTOL, "grad_rel": S1_GRAD_REL,
-            "phases": phases, "densify": dens}
+            "phases": phases, "densify": dens, "sh_degree4": sh4}
     emit(line)
     if not line["ok"]:
         fail("stage1_small", "stage 1 on the card disagrees with the CPU "
@@ -3213,6 +3342,8 @@ def phase_parallel(results, tmp):
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
 PI_FIXTURES = os.path.join(ROOT, "tests", "data", "process_images")
+# the TIFF, BMP and GIF fixtures: format -> (folder, extension)
+CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif"}
 # re-saves that carry another fixture's coefficients, and so its array
 # (tests/make_jpeg_fixtures.py ARRAY_OF)
 JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
@@ -3241,6 +3372,143 @@ def jpeg_fixtures_exact():
                      and (got.ndim if mode == "L" else got.shape[-1])
                      == chans, mode)
     return out
+
+
+def container_fixtures_exact():
+    """Every committed TIFF, BMP and GIF fixture through the
+    content-sniffing reader (utils/image.read_image_like_pil) -> ({"fmt/name":
+    array, mode, palette and transparency equal to PIL's}, {"fmt/name" of a
+    refused stream: the format's reader raised its own error, naming what
+    is not ported where PIL reads the stream})."""
+    import numpy as np
+    from irgs_tpu_torch.utils import bmp, gif, image, tiff
+    readers = {"tiff": (tiff.read_tiff_like_pil, tiff.TiffError),
+               "bmp": (bmp.read_bmp_like_pil, bmp.BmpError),
+               "gif": (gif.read_gif_like_pil, gif.GifError)}
+    exact, refused = {}, {}
+    for fmt, ext in CONTAINER_FIXTURES.items():
+        folder = os.path.join(ROOT, "tests", "data", fmt)
+        with open(os.path.join(folder, "modes.json")) as f:
+            modes = json.load(f)
+        for name, want in modes.items():
+            arr, mode, info = image.read_image_like_pil(
+                os.path.join(folder, name + ext))
+            npy = np.load(os.path.join(folder, name + ".npy"))
+            ok = (mode == want["mode"] and arr.dtype == npy.dtype
+                  and arr.shape == npy.shape
+                  and bool(np.array_equal(arr, npy,
+                                          equal_nan=arr.dtype.kind == "f"))
+                  and info.get("transparency") == want["transparency"])
+            if want["palette"] is not None and mode in ("P", "PA"):
+                pal = np.asarray(want["palette"]).reshape(-1, 3)
+                got = np.asarray(info["palette"])
+                ok = ok and bool(np.array_equal(got, pal[:len(got)]))
+            exact[f"{fmt}/{name}"] = ok
+        with open(os.path.join(folder, "refused", "refused.json")) as f:
+            notes = json.load(f)
+        read, error = readers[fmt]
+        for name, why in notes.items():
+            try:
+                read(os.path.join(folder, "refused", name + ext))
+                refused[f"{fmt}/{name}"] = False
+            except error as e:
+                refused[f"{fmt}/{name}"] = why is None or "not ported" in str(e)
+    return exact, refused
+
+
+def mislabelled_read_by_content(tmp):
+    """A JPEG named .png and .jfif and a PNG named .jpg through
+    datasets._load_image_any -> {case: equal to the fixture's array / 255}."""
+    import shutil
+
+    import numpy as np
+    from irgs_tpu_torch.scene.datasets import _load_image_any
+    out = {}
+    for case, (src, dst) in {
+            "jpeg_as_png": ("jpeg/adobe_rgb_q90_17x9.jpg", "a.png"),
+            "jpeg_as_jfif": ("jpeg/adobe_rgb_q90_17x9.jpg", "a.jfif"),
+            "png_as_jpg": ("png/ct2_d8.png", "b.jpg")}.items():
+        path = os.path.join(tmp, dst)
+        shutil.copy(os.path.join(ROOT, "tests", "data", src), path)
+        want = np.load(os.path.join(ROOT, "tests", "data",
+                                    src.rsplit(".", 1)[0] + ".npy"))
+        got = _load_image_any(path)
+        out[case] = bool(np.array_equal(got, np.asarray(want, np.float32)
+                                        / 255.0))
+    return out
+
+
+# .hdr headers and what cv2.imread does with them (checked against cv2
+# where the tests run): True reads, False refuses
+HDR_HEADERS_CV2 = {
+    "radiance": (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 5 +X 12\n", True),
+    "rgbe": (b"#?RGBE\nFORMAT=32-bit_rle_rgbe\n\n-Y 5 +X 12\n", True),
+    "other_magic": (b"#?FOO\nFORMAT=32-bit_rle_rgbe\n\n-Y 5 +X 12\n", False),
+    "no_format": (b"#?RADIANCE\nEXPOSURE=1\n\n-Y 5 +X 12\n", False),
+    "crlf": (b"#?RADIANCE\r\nFORMAT=32-bit_rle_rgbe\r\n\r\n-Y 5 +X 12\r\n",
+             False),
+    "resolution_junk": (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
+                        b"-Y 5 +X 12 junk\n", True),
+}
+
+
+def hdr_headers_as_cv2(tmp):
+    """Each HDR_HEADERS_CV2 header before 5x12 flat RGBE pixels -> {case:
+    taken or refused as cv2 does, and what is taken decoded as rgbe.c
+    decodes it}."""
+    import numpy as np
+    from irgs_tpu_torch.utils import hdr
+    rgbe = np.random.default_rng(3).integers(1, 256, (5, 12, 4), np.uint8)
+    rgbe[..., 0] = 1
+    e = rgbe[..., 3].astype(np.int32)
+    want = rgbe[..., :3].astype(np.float32) * np.ldexp(
+        np.float32(1.0), e - 136).astype(np.float32)[..., None]
+    out = {}
+    for case, (head, reads) in HDR_HEADERS_CV2.items():
+        path = os.path.join(tmp, case + ".hdr")
+        with open(path, "wb") as f:
+            f.write(head + rgbe.tobytes())
+        try:
+            got = hdr.read_hdr(path)
+            out[case] = reads and bool(np.array_equal(got, want))
+        except hdr.HdrError:
+            out[case] = not reads
+    return out
+
+
+def container_decode_ms(frame, tmp):
+    """An 840x1297 RGB frame written as TIFF at each compression (strips of
+    8 rows, predictor 2 where the codec takes one), as 24-bit BMP and, its
+    red channel as indices, as an interlaced GIF, by tests/image_streams.py
+    -> ({file: median ms of the port's reader}, {file: all ms}, {file:
+    decoded equal to the source}, {file: bytes})."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import image_streams as ims
+    from irgs_tpu_torch.utils import image
+    frame = np.ascontiguousarray(frame[:840, :1297])
+    files = {}
+    for comp, pred in (("none", 1), ("packbits", 1), ("lzw", 1), ("lzw", 2),
+                       ("adobe_deflate", 2), ("deflate", 2)):
+        files[f"tiff_{comp}_p{pred}"] = (ims.write_tiff(
+            frame, photometric=2, bits=8, compression=comp, predictor=pred,
+            layout=("strips", 8)), frame)
+    files["bmp_24"] = (ims.write_bmp(frame, bits=24), frame)
+    pal = np.random.default_rng(1).integers(0, 256, (256, 3))
+    files["gif_interlaced"] = (ims.write_gif(frame[..., 0],
+                                             global_palette=pal,
+                                             interlace=True), frame[..., 0])
+    ms, ms_all, equal, sizes = {}, {}, {}, {}
+    for name, (data, src) in files.items():
+        path = os.path.join(tmp, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        ms[name], ms_all[name] = _median_ms(
+            lambda: image.read_image_like_pil(path))
+        equal[name] = bool(np.array_equal(image.read_image_like_pil(path)[0],
+                                          src))
+        sizes[name] = len(data)
+    return ms, ms_all, equal, sizes
 
 
 def _render_frames(params, aux, cams, spp):
@@ -4373,6 +4641,14 @@ def phase_images(results, tmp):
     want_crop = {f: [s // 4 for s in png.read_png(
         os.path.join(renders[-1], f)).shape[:2]] for f in srcs}
 
+    # TIFF, BMP and GIF, content sniffing and the .hdr headers
+    a = time.perf_counter()
+    containers, container_refused = container_fixtures_exact()
+    mislabelled = mislabelled_read_by_content(tmp)
+    hdr_cases = hdr_headers_as_cv2(tmp)
+    containers_s = time.perf_counter() - a
+    c_ms, c_ms_all, c_equal, c_bytes = container_decode_ms(frame, tmp)
+
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
             "png_fixtures": len(png_exact), "refused": refused,
@@ -4383,7 +4659,16 @@ def phase_images(results, tmp):
             "encode_1600_ms": encode_ms[0], "encode_bytes": len(data),
             "encode_psnr_db": psnr, "process_images_committed": committed,
             "process_images_run_s": pi_s, "vis_grid_shape": grid_shape,
-            "panels": panels, "crops": crops}
+            "panels": panels, "crops": crops,
+            "container_fixtures": {f: sum(k.startswith(f + "/")
+                                          for k in containers)
+                                   for f in CONTAINER_FIXTURES},
+            "container_refused": container_refused,
+            "mislabelled": mislabelled, "hdr_headers": hdr_cases,
+            "containers_s": containers_s,
+            "decode_1297x840_container_ms": c_ms,
+            "decode_1297x840_container_ms_all": c_ms_all,
+            "container_bytes": c_bytes}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4395,7 +4680,14 @@ def phase_images(results, tmp):
         "split_grid_sizes": all(p == [h_each, grid_shape[1] - 20, 3]
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
-            crops[f][:2] == want_crop[f] for f in srcs)}
+            crops[f][:2] == want_crop[f] for f in srcs),
+        "containers_bit_for_bit": len(containers) >= 200 and all(
+            containers.values()),
+        "containers_refused_raise": bool(container_refused) and all(
+            container_refused.values()),
+        "mislabelled_read_by_content": all(mislabelled.values()),
+        "hdr_headers_as_cv2": all(hdr_cases.values()),
+        "container_frames_decode": all(c_equal.values())}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4403,7 +4695,8 @@ def phase_images(results, tmp):
         fail("images", f"checks failed: {checks} (jpeg: "
              f"{[k for k, v in jpeg_exact.items() if not v[0]]}, png: "
              f"{[k for k, v in png_exact.items() if not v]}, process_images: "
-             f"{[k for k, v in committed.items() if not v]})")
+             f"{[k for k, v in committed.items() if not v]}, containers: "
+             f"{[k for k, v in containers.items() if not v]})")
 
 
 # each kernel: its source, the Pallas functions it replaces, and for each
@@ -4435,7 +4728,10 @@ KERNELS = {
                "load_reproducer": "reproducer_toy_128px",
                "run_grid": "run_grid_50px",
                "drive_overfit": "drive_overfit_128px",
-               "stage1_lite": "stage1_lite_400px_100k"}),
+               "stage1_lite": "stage1_lite_400px_100k",
+               "sh4_stage1": "sh4_stage1_64px",
+               "sh4_stage2": "sh4_stage2_64px",
+               "sh4_eval": "sh4_eval_64px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4456,7 +4752,9 @@ KERNELS = {
                "load_reproducer": "reproducer_toy_128px",
                "run_grid": "run_grid_50px",
                "drive_overfit": "drive_overfit_128px",
-               "stage1_lite": "stage1_lite_400px_100k"}),
+               "stage1_lite": "stage1_lite_400px_100k",
+               "sh4_stage1": "sh4_stage1_64px",
+               "sh4_stage2": "sh4_stage2_64px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -4479,7 +4777,9 @@ KERNELS = {
                "audit_train_budget": "audit_train_budget_100k_first_pass",
                "drive_stage2": "drive_stage2_128px_first_pass",
                "load_reproducer": "reproducer_toy_128px_first_pass",
-               "run_grid": "run_grid_50px_first_pass"}),
+               "run_grid": "run_grid_50px_first_pass",
+               "sh4_stage2": "sh4_stage2_64px_first_pass",
+               "sh4_eval": "sh4_eval_64px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -4503,7 +4803,9 @@ KERNELS = {
                "load_reproducer": "reproducer_largest",
                "run_grid": "run_grid_largest",
                "drive_overfit": "drive_overfit_largest",
-               "stage1_lite": "stage1_lite_largest"}),
+               "stage1_lite": "stage1_lite_largest",
+               "sh4_stage1": "sh4_stage1_largest",
+               "sh4_stage2": "sh4_stage2_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -4590,7 +4892,7 @@ def main():
             "train_cli_oversize": lambda: phase_train_cli_oversize(results,
                                                                    tmp),
             "eval_cli": lambda: phase_eval_cli(results, tmp),
-            "stage1_small": phase_stage1_small,
+            "stage1_small": lambda: phase_stage1_small(results),
             "stage1": lambda: phase_stage1(results),
             "train_stage1_cli": lambda: phase_train_stage1_cli(results, tmp),
             "extract_mesh": lambda: phase_extract_mesh(results, tmp),

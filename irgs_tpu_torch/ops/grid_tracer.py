@@ -428,8 +428,10 @@ def _hit_geom_cols10(cols, ray_o, ray_d):
 
 
 def _sh_basis(sh_deg: int, dirs):
-    """SH basis [..., C]: pre-clamp color = Σ_j b_j·sh_j + 0.5."""
-    from ..utils.sh import C0, C1, C2, C3
+    """SH basis [..., C]: pre-clamp color = Σ_j b_j·sh_j + 0.5. The JAX
+    tracer's basis stops at degree 3 (so its blend raises on 25
+    coefficients); the degree-4 terms here are utils/sh.py's."""
+    from ..utils.sh import C0, C1, C2, C3, C4
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
     terms = [C0 * torch.ones_like(x)]
     if sh_deg > 0:
@@ -445,6 +447,13 @@ def _sh_basis(sh_deg: int, dirs):
                   C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
                   C3[4] * x * (4 * zz - xx - yy), C3[5] * z * (xx - yy),
                   C3[6] * x * (xx - 3 * yy)]
+    if sh_deg > 3:
+        terms += [C4[0] * xy * (xx - yy), C4[1] * yz * (3 * xx - yy),
+                  C4[2] * xy * (7 * zz - 1), C4[3] * yz * (7 * zz - 3),
+                  C4[4] * (zz * (35 * zz - 30) + 3),
+                  C4[5] * xz * (7 * zz - 3), C4[6] * (xx - yy) * (7 * zz - 1),
+                  C4[7] * xz * (xx - 3 * yy),
+                  C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))]
     return torch.stack(terms, dim=-1)
 
 

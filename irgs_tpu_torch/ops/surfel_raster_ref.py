@@ -107,6 +107,18 @@ def preprocess_reference(means3d, scales, quats, opacities, shs, cam,
                       -0.4570457994644658 * x * (4 * z * z - x * x - y * y),
                       1.445305721320277 * z * (x * x - y * y),
                       -0.5900435899266435 * x * (x * x - 3 * y * y)]
+        if active_sh_degree >= 4:
+            xx, yy, zz = x * x, y * y, z * z
+            basis += [2.5033429417967046 * x * y * (xx - yy),
+                      -1.7701307697799304 * y * z * (3 * xx - yy),
+                      0.9461746957575601 * x * y * (7 * zz - 1),
+                      -0.6690465435572892 * y * z * (7 * zz - 3),
+                      0.10578554691520431 * (35 * zz * zz - 30 * zz + 3),
+                      -0.6690465435572892 * x * z * (7 * zz - 3),
+                      0.47308734787878004 * (xx - yy) * (7 * zz - 1),
+                      -1.7701307697799304 * x * z * (xx - 3 * yy),
+                      0.6258357354491761 * (xx * (xx - 3 * yy)
+                                            - yy * (3 * xx - yy))]
         rgb[i] = np.maximum(
             np.asarray(basis) @ shs[i, :len(basis)] + 0.5, 0.0)
 

@@ -10,7 +10,8 @@ split-grid reads the grid as ``convert("RGB")`` does, cuts `rows` panels
 between `padding`-pixel borders, max-normalises every panel after the
 first (``--normalize`` is always on, as in the root script), and writes
 ``<image>_panel<r>.png``. crop walks `in_dir` (os.walk, files sorted per
-folder), downscales each PNG/JPEG by an integer factor with PIL's LANCZOS
+folder), opens each file named .png, .jpg or .jpeg by its content, as PIL
+does, downscales it by an integer factor with PIL's LANCZOS
 (NEAREST for palette and 1-bit images), crops as ``Image.crop`` does (zeros
 past the edge) and saves it flat into `out_dir` under its own name: PNG in
 its own mode (palette and transparency kept), JPEG as PIL's default save

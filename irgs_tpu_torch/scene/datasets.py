@@ -4,11 +4,12 @@ colmap.py), the path sniffing of `load_scene` and the `-r/--resolution`
 rescale. Host-side numpy; frames stay in host RAM until the trainer moves
 them to the device.
 
-Images are read by the port's own codecs: EXR through utils/exr.py, PNG
-through utils/png.py and JPEG through utils/jpeg.py, decoded to the arrays
-PIL gives the JAX package, and Radiance .hdr through utils/hdr.py, as cv2
-gives it. Resizes are utils/resize.py's ports of cv2.resize. Other image
-formats raise NotImplementedError.
+Images are read by the port's own codecs: EXR through utils/exr.py and
+Radiance .hdr through utils/hdr.py (as cv2 gives it), chosen by the
+extension as the JAX package chooses; every other file through
+utils/image.read_image_like_pil, which picks PNG, JPEG, TIFF, BMP or GIF by
+the file's content, as PIL does, and decodes it to the array PIL gives the
+JAX package. Resizes are utils/resize.py's ports of cv2.resize.
 """
 
 from __future__ import annotations
@@ -47,8 +48,9 @@ def _nerfpp_norm(cams: list[Camera]):
 
 def _load_image_any(path: str):
     """RGB(A) image -> float [H, W, C]: EXR and HDR as stored (HDR as RGB,
-    as the JAX package flips cv2's BGR), PNG and JPEG as the JAX package's
-    np.asarray(PIL.Image.open(path), float32) / 255 (grey as [H, W])."""
+    as the JAX package flips cv2's BGR), any other file as the JAX
+    package's np.asarray(PIL.Image.open(path), float32) / 255 (grey as
+    [H, W])."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         from ..utils import exr
@@ -56,11 +58,8 @@ def _load_image_any(path: str):
     if ext == ".hdr":
         from ..utils import hdr
         return hdr.read_hdr(path)
-    if ext in (".png", ".jpg", ".jpeg"):
-        from ..utils.image import read_image_like_pil
-        return np.asarray(read_image_like_pil(path)[0], np.float32) / 255.0
-    raise NotImplementedError(
-        f"{path}: only PNG, JPEG, EXR and HDR images are read")
+    from ..utils.image import read_image_like_pil
+    return np.asarray(read_image_like_pil(path)[0], np.float32) / 255.0
 
 
 def _blender_frame_to_camera(frame, path, fovx, white_background, extension,

@@ -1,44 +1,72 @@
 """Radiance RGBE (.hdr) reader in numpy, for the relighting envmaps.
 
 Reads what the JAX package reads through ``cv2.imread(path,
-IMREAD_UNCHANGED)`` with BGR -> RGB: the header (``#?RADIANCE`` or
-``#?RGBE``, ``FORMAT=32-bit_rle_rgbe``, a ``-Y H +X W`` resolution line), then
-flat or run-length-encoded scanlines, decoded as Greg Ward's rgbe.c (which
-OpenCV vendors) decodes them: value = mantissa · 2^(exponent - 136), 0 where
-the exponent byte is 0.
+IMREAD_UNCHANGED)`` with BGR -> RGB, and refuses what cv2 refuses. The
+header is read as OpenCV's HdrDecoder and its vendored rgbe.cpp read it:
+the file starts with ``#?RADIANCE`` or ``#?RGBE``; every line is C's
+``fgets`` into 128 bytes (up to a ``\n`` only, so a CRLF header never
+ends); ``#`` lines are comments; a line equal to ``FORMAT=32-bit_rle_rgbe``
+must come before the blank line that ends the header; then the resolution
+line is parsed as ``sscanf(line, "-Y %d +X %d")`` parses it (text after it
+is ignored) and both sizes must be positive. Then flat or run-length-
+encoded scanlines, decoded as Greg Ward's rgbe.c decodes them: value =
+mantissa · 2^(exponent - 136), 0 where the exponent byte is 0.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
+
+SIGNATURES = (b"#?RADIANCE", b"#?RGBE")
+_RESOLUTION = re.compile(rb"-Y\s*([+-]?\d+)\s*\+X\s*([+-]?\d+)")
+_MAX_SIDE, _MAX_PIXELS = 1 << 20, 1 << 30      # OpenCV's CV_IO_MAX_IMAGE_*
 
 
 class HdrError(ValueError):
     pass
 
 
+def _fgets(buf: bytes, pos: int):
+    """C's ``fgets(line, 128, f)`` at `pos`: the bytes up to and including
+    the next newline, at most 127 of them -> (line, new pos); (None, pos)
+    at the end of the file."""
+    if pos >= len(buf):
+        return None, pos
+    end = buf.find(b"\n", pos, pos + 127)
+    end = min(pos + 127, len(buf)) if end < 0 else end + 1
+    return buf[pos:end], end
+
+
 def _parse_header(buf: bytes):
     """-> (height, width, offset of the pixel data)."""
-    if not buf.startswith(b"#?"):
-        raise HdrError("not a Radiance file (no '#?' magic)")
-    pos = 0
+    if not buf.startswith(SIGNATURES):
+        raise HdrError("not a Radiance file (no '#?RADIANCE' or '#?RGBE' "
+                       "signature)")
+    _, pos = _fgets(buf, 0)
+    has_format = False
     while True:                       # header lines up to the blank line
-        end = buf.find(b"\n", pos)
-        if end < 0:
-            raise HdrError("truncated header")
-        line = buf[pos:end]
-        pos = end + 1
-        if not line.strip():
+        line, pos = _fgets(buf, pos)
+        if line is None:
+            raise HdrError("truncated header (no blank line ends it)")
+        if line[:1] == b"\n":
             break
-        if line.startswith(b"FORMAT=") and line.strip() != b"FORMAT=32-bit_rle_rgbe":
-            raise HdrError(f"unsupported {line.decode(errors='replace')}")
-    end = buf.find(b"\n", pos)
-    if end < 0:
-        raise HdrError("no resolution line")
-    parts = buf[pos:end].split()
-    if len(parts) != 4 or parts[0] != b"-Y" or parts[2] != b"+X":
-        raise HdrError(f"unsupported orientation {buf[pos:end]!r} (only -Y H +X W)")
-    return int(parts[1]), int(parts[3]), end + 1
+        if line.split(b"\0", 1)[0] == b"FORMAT=32-bit_rle_rgbe\n":
+            has_format = True
+    if not has_format:
+        raise HdrError("missing FORMAT=32-bit_rle_rgbe specifier")
+    line, pos = _fgets(buf, pos)
+    m = _RESOLUTION.match((line or b"").split(b"\0", 1)[0])
+    if m is None:
+        raise HdrError(f"unsupported orientation or missing image size "
+                       f"{line!r} (only -Y H +X W)")
+    h, w = int(m.group(1)), int(m.group(2))
+    if h <= 0 or w <= 0:
+        raise HdrError(f"image size {h}x{w} is not positive")
+    if h > _MAX_SIDE or w > _MAX_SIDE or h * w > _MAX_PIXELS:
+        raise HdrError(f"image size {h}x{w} exceeds OpenCV's limits")
+    return h, w, pos
 
 
 def _rle_scanline(buf: bytes, pos: int, width: int):

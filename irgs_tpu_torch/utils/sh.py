@@ -1,4 +1,4 @@
-"""Real spherical harmonics (degrees 0..3) on torch tensors.
+"""Real spherical harmonics (degrees 0..4) on torch tensors.
 
 Same basis and coefficients as irgs_tpu/utils/sh.py (PlenOctree constants,
 ≙ computeColorFromSH of the reference rasterizer).
@@ -15,12 +15,15 @@ C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       0.3731763325901154, -0.4570457994644658, 1.445305721320277,
       -0.5900435899266435)
+C4 = (2.5033429417967046, -1.7701307697799304, 0.9461746957575601,
+      -0.6690465435572892, 0.10578554691520431, -0.6690465435572892,
+      0.47308734787878004, -1.7701307697799304, 0.6258357354491761)
 
 
 def eval_sh(deg: int, sh, dirs):
     """sh [..., C, (deg+1)**2] at unit dirs [..., 3] -> [..., C]."""
-    if not 0 <= deg <= 3:
-        raise ValueError(f"SH degree {deg} not in [0, 3]")
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree {deg} not in [0, 4]")
     result = C0 * sh[..., 0]
     if deg > 0:
         x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
@@ -44,6 +47,19 @@ def eval_sh(deg: int, sh, dirs):
                           + C3[4] * x * (4 * zz - xx - yy) * sh[..., 13]
                           + C3[5] * z * (xx - yy) * sh[..., 14]
                           + C3[6] * x * (xx - 3 * yy) * sh[..., 15])
+                if deg > 3:
+                    result = (
+                        result
+                        + C4[0] * xy * (xx - yy) * sh[..., 16]
+                        + C4[1] * yz * (3 * xx - yy) * sh[..., 17]
+                        + C4[2] * xy * (7 * zz - 1) * sh[..., 18]
+                        + C4[3] * yz * (7 * zz - 3) * sh[..., 19]
+                        + C4[4] * (zz * (35 * zz - 30) + 3) * sh[..., 20]
+                        + C4[5] * xz * (7 * zz - 3) * sh[..., 21]
+                        + C4[6] * (xx - yy) * (7 * zz - 1) * sh[..., 22]
+                        + C4[7] * xz * (xx - 3 * yy) * sh[..., 23]
+                        + C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy))
+                        * sh[..., 24])
     return result
 
 

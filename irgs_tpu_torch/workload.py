@@ -43,19 +43,20 @@ STAGE1_SMALL = dict(n_surface=2000, n_capacity=4096, img=64, n_cams=3,
 
 def stage2_setup(n_surface: int, n_capacity: int, img: int, spp: int,
                  rays: int, dup: int, device, tracer: dict | None = None,
-                 light: int = 0):
+                 light: int = 0, sh_degree: int = 3):
     """-> (TrainState, Grid, ring cameras, Stage2Static) on `device`, with
     `spp` diffuse and `light` light samples per shaded pixel. `tracer`
-    overrides the TracerConfig fields (default: from_pipe)."""
+    overrides the TracerConfig fields (default: from_pipe). `sh_degree`
+    (3 or 4) is the model's SH degree (with_sh_degree); stage 2 trains at
+    active degree 3, as the trainer does."""
     from .config import Config
     from .ops import grid_tracer as gt
     from .scene import toy
     from .train import stage2 as s2
 
-    params, aux = toy.make_sphere_scene(n_surface=n_surface,
-                                        n_capacity=n_capacity,
-                                        env_resolution=128 if img > 64 else 16,
-                                        device=device)
+    params, aux = with_sh_degree(*toy.make_sphere_scene(
+        n_surface=n_surface, n_capacity=n_capacity,
+        env_resolution=128 if img > 64 else 16, device=device), sh_degree)
     cams = toy.make_ring_cameras(8 if img > 64 else 3, width=img,
                                  height_px=img)
     cfg = Config()
@@ -73,10 +74,13 @@ def stage2_setup(n_surface: int, n_capacity: int, img: int, spp: int,
 
 def eval_setup(n_surface: int, n_capacity: int, img: int, diffuse: int,
                light: int, device=None,
-               tracer: dict | None = None, **eval_fields):
+               tracer: dict | None = None, sh_degree: int = 3,
+               **eval_fields):
     """-> (params, aux, Grid, CameraParams of ring camera 0, EvalConfig) on
     `device` (default cuda). `tracer` overrides TracerConfig fields of the
-    eval budgets; `eval_fields` override EvalConfig fields."""
+    eval budgets; `sh_degree` (3 or 4) is the model's SH degree
+    (with_sh_degree), rendered at that degree as the eval CLIs do;
+    `eval_fields` override EvalConfig fields."""
     from . import resolve_device
     from .config import Config
     from .ops import grid_tracer as gt
@@ -84,15 +88,14 @@ def eval_setup(n_surface: int, n_capacity: int, img: int, diffuse: int,
     from .scene import toy
 
     device = resolve_device(device)
-    params, aux = toy.make_sphere_scene(n_surface=n_surface,
-                                        n_capacity=n_capacity,
-                                        env_resolution=128 if img > 64 else 16,
-                                        device=device)
+    params, aux = with_sh_degree(*toy.make_sphere_scene(
+        n_surface=n_surface, n_capacity=n_capacity,
+        env_resolution=128 if img > 64 else 16, device=device), sh_degree)
     cam = toy.make_ring_cameras(1, width=img, height_px=img)[0].params(device)
     tcfg = dataclasses.replace(gt.TracerConfig.from_pipe(Config().pipe,
                                                          eval=True),
                                **(tracer or {}))
-    ecfg = EvalConfig(img_w=img, img_h=img, active_sh_degree=3,
+    ecfg = EvalConfig(img_w=img, img_h=img, active_sh_degree=sh_degree,
                       diffuse_sample_num=diffuse, light_sample_num=light,
                       tracer=tcfg, **eval_fields)
     grid = gt.build_grid_from_gaussians(params, aux, tcfg)
@@ -147,10 +150,10 @@ def stage1_setup(n_points: int, n_capacity: int, img: int, n_cams: int,
 
 
 def stage1_small_fields(n_surface: int, n_capacity: int, env_res: int,
-                        seed: int = 0):
+                        seed: int = 0, sh_degree: int = 3):
     """STAGE1_SMALL's RefGaussianParams fields as numpy arrays (the toy
-    sphere's geometry and SH, random materials, indirect SH and cubemaps)
-    and its alive mask."""
+    sphere's geometry and SH, random materials, indirect SH and cubemaps,
+    at SH degree `sh_degree`: extend_sh) and its alive mask."""
     import numpy as np
 
     from .scene import toy
@@ -173,4 +176,33 @@ def stage1_small_fields(n_surface: int, n_capacity: int, env_res: int,
         scaling=g["scaling"], rotation=g["rotation"], opacity=g["opacity"],
         env1=f32(0.5 * rng.standard_normal((6, env_res, env_res, 3))),
         env2=f32(0.5 * rng.standard_normal((6, env_res, env_res, 3))))
-    return fields, aux.alive.numpy()
+    return extend_sh(fields, sh_degree), aux.alive.numpy()
+
+
+def extend_sh(fields: dict, sh_degree: int, seed: int = 4) -> dict:
+    """`fields` (numpy arrays of a parameter set at SH degree 3) with the
+    coefficients of the degrees up to `sh_degree` appended to
+    features_rest and indirect_rest, 0.05·N(0, 1) from `seed`."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = dict(fields)
+    for k in ("features_rest", "indirect_rest"):
+        if k in out:
+            n, have = out[k].shape[:2]
+            more = (sh_degree + 1) ** 2 - 1 - have
+            out[k] = np.concatenate([out[k], 0.05 * rng.standard_normal(
+                (n, more, 3))], 1).astype(np.float32)
+    return out
+
+
+def with_sh_degree(params, aux, sh_degree: int):
+    """The toy's (params, aux) at SH degree `sh_degree` (extend_sh), on
+    their device; unchanged at degree 3."""
+    if sh_degree == params.max_sh_degree:
+        return params, aux
+    from .scene import gaussians as G
+    fields = extend_sh({k: t.detach().cpu().numpy()
+                        for k, t in params.tensors().items()}, sh_degree)
+    return G.params_from_numpy(fields, aux.alive.cpu().numpy(),
+                               params.xyz.device, max_sh_degree=sh_degree,
+                               cls=type(params))

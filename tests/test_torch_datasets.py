@@ -16,6 +16,7 @@ from irgs_tpu.scene import datasets as jds
 from irgs_tpu.utils import exr as jexr
 from irgs_tpu.utils import ply as jply
 from irgs_tpu_torch.scene import datasets as tds
+from irgs_tpu_torch.utils.image import UnreadableImageError
 
 RES, N_VIEWS = 32, 4
 
@@ -153,8 +154,8 @@ def test_downscale_r2_matches_cv2_inter_area(scenes):
 def test_unported_inputs_raise(scenes, tmp_path):
     """What the port does not read raises: a folder of no known layout, a
     JPEG frame PIL refuses too (12-bit samples), and an image format the
-    port has no codec for. A progressive JPEG frame, refused before PR 12,
-    now reads as PIL reads it."""
+    port has no codec for yet (WebP). A progressive JPEG frame and a BMP
+    frame, which the port once refused, now read as PIL reads them."""
     from irgs_tpu_torch.utils import jpeg
     with pytest.raises(ValueError, match="recognize"):
         tds.load_scene(str(tmp_path))
@@ -170,8 +171,12 @@ def test_unported_inputs_raise(scenes, tmp_path):
     with pytest.raises(jpeg.JpegError, match="12-bit"):
         tds._load_image_any(str(tmp_path / "t.jpg"))
     Image.fromarray(img).save(tmp_path / "f.bmp")
-    with pytest.raises(NotImplementedError, match="PNG, JPEG, EXR and HDR"):
-        tds._load_image_any(str(tmp_path / "f.bmp"))
+    np.testing.assert_array_equal(
+        tds._load_image_any(str(tmp_path / "f.bmp")),
+        np.asarray(Image.open(tmp_path / "f.bmp"), np.float32) / 255.0)
+    Image.fromarray(img).save(tmp_path / "f.webp")
+    with pytest.raises(UnreadableImageError, match="WebP.*not ported"):
+        tds._load_image_any(str(tmp_path / "f.webp"))
 
 
 # --- Stanford-ORB ---------------------------------------------------------

@@ -15,6 +15,7 @@ from irgs_tpu.config import Config
 from irgs_tpu.ops import grid_tracer as gt
 from irgs_tpu.scene import toy
 from irgs_tpu.train import stage2 as s2
+from irgs_tpu_torch import workload
 from irgs_tpu_torch.ops import grid_tracer as tgt
 from irgs_tpu_torch.scene import gaussians as tgs
 from irgs_tpu_torch.scene import toy as ttoy
@@ -103,7 +104,26 @@ def both():
     tstate, tm = ts2.stage2_step(tstate, tgrid, tcam.params("cpu"),
                                  torch.tensor(gt_img), None, draws, st=tst)
     return dict(jloss=jloss, jm=jm, jgrads=jgrads, jnew=jnew.params,
-                tm=tm, tparams=tstate.params, jp=jp)
+                tm=tm, tparams=tstate.params, jp=jp,
+                port_step=dict(alive=np.asarray(ja.alive), opt=cfg.opt,
+                               cam=tcam.params("cpu"), gt=gt_img,
+                               draws=draws, st=tst))
+
+
+@pytest.fixture(scope="module")
+def degree4(both):
+    """The port's step of `both` on a model of SH degree 4 (9 more
+    coefficients per channel from a seed), trained at active degree 3 as
+    train.py does."""
+    a = both["port_step"]
+    f4 = workload.extend_sh(_np_fields(both["jp"]), 4)
+    tp, ta = tgs.params_from_numpy(f4, a["alive"], "cpu", max_sh_degree=4)
+    state = ts2.init_state(tp, ta, a["opt"])
+    state.step = STEP
+    state, tm = ts2.stage2_step(
+        state, tgt.build_grid_from_gaussians(tp, ta, a["st"].tracer),
+        a["cam"], torch.tensor(a["gt"]), None, a["draws"], st=a["st"])
+    return dict(f4=f4, tm=tm, tparams=state.params)
 
 
 def test_stage2_loss_and_metrics_match_jax(both):
@@ -135,3 +155,38 @@ def test_stage2_updated_params_match_jax(both, field):
     if field in ("xyz", "opacity", "scaling", "rotation"):
         # lr_scale = 0 freezes the geometry
         np.testing.assert_array_equal(tn, np.asarray(getattr(both["jp"], field)))
+
+
+# SH degree 4 in stage 2: JAX's step at active degree 3 reads the first 16
+# coefficients per channel of a model of any degree, so the step above is
+# its step on the degree-4 model too
+
+
+def test_stage2_degree4_model_loss_matches_jax(both, degree4):
+    jm, tm = both["jm"], degree4["tm"]
+    for k in ("loss", "loss_l1", "loss_sh", "loss_normal", "ray_psnr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("field", tgs.PARAM_FIELDS)
+def test_stage2_degree4_model_matches_jax(both, degree4, field):
+    """A degree-4 model's gradients and updated parameters equal JAX's at the
+    degree-3 tests' tolerances; its 9 coefficients of degree 4 take no
+    gradient and keep their values through the Adam step."""
+    jg = np.asarray(getattr(both["jgrads"], field))
+    jn = np.asarray(getattr(both["jnew"], field))
+    p4 = getattr(degree4["tparams"], field)
+    tg = np.zeros(p4.shape, np.float32) if p4.grad is None else \
+        p4.grad.numpy()
+    tn = p4.detach().numpy()
+    if field == "features_rest":
+        assert tn.shape == (1024, 24, 3)
+        assert not tg[:, 15:].any()
+        np.testing.assert_array_equal(tn[:, 15:],
+                                      degree4["f4"]["features_rest"][:, 15:])
+        tg, tn = tg[:, :15], tn[:, :15]
+    scale = max(np.abs(jg).max(), 1e-12)
+    np.testing.assert_allclose(tg, jg, atol=1e-4 * scale, rtol=0,
+                               err_msg=field)
+    np.testing.assert_allclose(tn, jn, atol=1e-6, rtol=0, err_msg=field)
