@@ -188,8 +188,19 @@ Phases (JSON lines; any failure exits non-zero):
                 content-sniffing reader, their refused streams refused,
                 three files whose extension lies read by content, the .hdr
                 headers cv2 takes or refuses, and ms per 1297x840 RGB TIFF
-                at each compression, 24-bit BMP and GIF frame.
+                at each compression, 24-bit BMP and GIF frame; the WebP
+                fixtures (tests/data/webp) among the containers,
+                and the median ms of 5 decodes of the three committed
+                1297x840 WebP frames (lossless, lossy q90, lossy with
+                alpha), each held against the SHA-256 of PIL's array.
                 Needs train_cli and eval_cli.
+  webp_colmap   python -m irgs_tpu_torch.train for 5 iterations at the
+                BENCH budgets on the committed COLMAP capture of WebP frames
+                (tests/data/webp/colmap: 4 views at 400², two lossy, one
+                lossless, one lossy with alpha; 4,096 points), a main path
+                of its own: the blends and the gather held at their first
+                inputs, the scatter-add at its largest; load time, ms per
+                step and peak memory.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -719,19 +730,20 @@ def stage2_small_setup(dev, light=0, train_ray=True, sh_degree=3):
 
 
 @contextlib.contextmanager
-def main_path(results, path, kernels=("blend", "gather"), scatter=True):
+def main_path(results, path, kernels=("blend", "gather"), scatter=True,
+              case=None):
     """Run the block as the main path `path` on the card: every launch count
     set to 0 before it and read after it into results["launches"][path],
-    the `kernels` (_held) held at their first inputs as case
-    f"{path}_64px", and with `scatter` the scatter-add at its largest call
-    as f"{path}_largest"."""
+    the `kernels` (_held) held at their first inputs as case `case`
+    (default f"{path}_64px"), and with `scatter` the scatter-add at its
+    largest call as f"{path}_largest"."""
     import torch
     reset_launch_counts()
     with _held(kernels) as rec, LargestScatter() as scat:
         yield
     torch.cuda.synchronize()
     results.setdefault("launches", {})[path] = launch_counts()
-    check_recorded(results, rec, f"{path}_64px")
+    check_recorded(results, rec, case or f"{path}_64px")
     if scatter:
         check_scatter(results, scat, f"{path}_largest")
 
@@ -3342,8 +3354,9 @@ def phase_parallel(results, tmp):
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
 PI_FIXTURES = os.path.join(ROOT, "tests", "data", "process_images")
-# the TIFF, BMP and GIF fixtures: format -> (folder, extension)
-CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif"}
+# the TIFF, BMP, GIF and WebP fixtures: format -> extension
+CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif",
+                      "webp": ".webp"}
 # re-saves that carry another fixture's coefficients, and so its array
 # (tests/make_jpeg_fixtures.py ARRAY_OF)
 JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
@@ -3375,16 +3388,17 @@ def jpeg_fixtures_exact():
 
 
 def container_fixtures_exact():
-    """Every committed TIFF, BMP and GIF fixture through the
+    """Every committed TIFF, BMP, GIF and WebP fixture through the
     content-sniffing reader (utils/image.read_image_like_pil) -> ({"fmt/name":
     array, mode, palette and transparency equal to PIL's}, {"fmt/name" of a
     refused stream: the format's reader raised its own error, naming what
     is not ported where PIL reads the stream})."""
     import numpy as np
-    from irgs_tpu_torch.utils import bmp, gif, image, tiff
+    from irgs_tpu_torch.utils import bmp, gif, image, tiff, webp
     readers = {"tiff": (tiff.read_tiff_like_pil, tiff.TiffError),
                "bmp": (bmp.read_bmp_like_pil, bmp.BmpError),
-               "gif": (gif.read_gif_like_pil, gif.GifError)}
+               "gif": (gif.read_gif_like_pil, gif.GifError),
+               "webp": (webp.read_webp_like_pil, webp.WebpError)}
     exact, refused = {}, {}
     for fmt, ext in CONTAINER_FIXTURES.items():
         folder = os.path.join(ROOT, "tests", "data", fmt)
@@ -3508,6 +3522,31 @@ def container_decode_ms(frame, tmp):
         equal[name] = bool(np.array_equal(image.read_image_like_pil(path)[0],
                                           src))
         sizes[name] = len(data)
+    return ms, ms_all, equal, sizes
+
+
+WEBP_FIXTURES = os.path.join(ROOT, "tests", "data", "webp")
+
+
+def webp_large_ms():
+    """The three committed 1297x840 WebP frames -> ({name: median ms of 5
+    decodes}, {name: all ms}, {name: mode, shape and SHA-256 of the array
+    equal to PIL's}, {name: bytes})."""
+    import hashlib
+    folder = os.path.join(WEBP_FIXTURES, "large")
+    from irgs_tpu_torch.utils import image
+    with open(os.path.join(folder, "large.json")) as f:
+        want = json.load(f)
+    ms, ms_all, equal, sizes = {}, {}, {}, {}
+    for name, w in want.items():
+        path = os.path.join(folder, name + ".webp")
+        arr, mode, _ = image.read_image_like_pil(path)
+        equal[name] = (mode == w["mode"] and list(arr.shape) == w["shape"]
+                       and hashlib.sha256(arr.tobytes()).hexdigest()
+                       == w["sha256"])
+        ms[name], ms_all[name] = _median_ms(
+            lambda: image.read_image_like_pil(path))
+        sizes[name] = os.path.getsize(path)
     return ms, ms_all, equal, sizes
 
 
@@ -4648,6 +4687,7 @@ def phase_images(results, tmp):
     hdr_cases = hdr_headers_as_cv2(tmp)
     containers_s = time.perf_counter() - a
     c_ms, c_ms_all, c_equal, c_bytes = container_decode_ms(frame, tmp)
+    w_ms, w_ms_all, w_equal, w_bytes = webp_large_ms()
 
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
@@ -4668,7 +4708,8 @@ def phase_images(results, tmp):
             "containers_s": containers_s,
             "decode_1297x840_container_ms": c_ms,
             "decode_1297x840_container_ms_all": c_ms_all,
-            "container_bytes": c_bytes}
+            "container_bytes": c_bytes, "decode_1297x840_webp_ms": w_ms,
+            "decode_1297x840_webp_ms_all": w_ms_all, "webp_bytes": w_bytes}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4681,13 +4722,15 @@ def phase_images(results, tmp):
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
             crops[f][:2] == want_crop[f] for f in srcs),
-        "containers_bit_for_bit": len(containers) >= 200 and all(
+        "containers_bit_for_bit": len(containers) >= 325 and all(
             containers.values()),
         "containers_refused_raise": bool(container_refused) and all(
             container_refused.values()),
         "mislabelled_read_by_content": all(mislabelled.values()),
         "hdr_headers_as_cv2": all(hdr_cases.values()),
-        "container_frames_decode": all(c_equal.values())}
+        "container_frames_decode": all(c_equal.values()),
+        "webp_large_frames_equal": len(w_equal) == 3 and all(
+            w_equal.values())}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4697,6 +4740,59 @@ def phase_images(results, tmp):
              f"{[k for k, v in png_exact.items() if not v]}, process_images: "
              f"{[k for k, v in committed.items() if not v]}, containers: "
              f"{[k for k, v in containers.items() if not v]})")
+
+
+WEBP_CAPTURE = os.path.join(WEBP_FIXTURES, "colmap")
+WEBP_COLMAP_ITERS = 5
+
+
+def phase_webp_colmap(results, tmp):
+    """python -m irgs_tpu_torch.train on the committed COLMAP capture of WebP
+    frames for WEBP_COLMAP_ITERS iterations at CLI_BENCH's budgets, as the
+    main path webp_colmap (main_path: the blends and the gather held at
+    their first inputs, the scatter-add at its largest)."""
+    import numpy as np
+    import torch
+    from irgs_tpu_torch.scene import datasets as ds
+
+    a = time.perf_counter()
+    info = ds.load_scene(WEBP_CAPTURE, eval_split=False)
+    load_s = time.perf_counter() - a
+    images = [c.image for c in info.train_cameras]
+    n_points = int(len(info.points))
+    del info
+    run = os.path.join(tmp, "webp_colmap_run")
+    with main_path(results, "webp_colmap", case="webp_colmap_400px"), \
+            StepMeter() as meter:
+        launches, cli_s = run_cli(
+            ["-s", WEBP_CAPTURE, "-m", run, "--iterations",
+             str(WEBP_COLMAP_ITERS), "--checkpoint_interval", "0",
+             "--vis_interval", "0", *CLI_BENCH])
+    log = list(read_log(run).values())
+    steps = [st["ms"] for st in meter.steps[1:]]
+    checks = _run_checks(log, launches)
+    checks["frames_400"] = [list(im.shape) for im in images] == \
+        [[400, 400, 3]] * 4
+    checks["frames_finite"] = all(bool(np.isfinite(im).all())
+                                  for im in images)
+    checks["points_4096"] = n_points == 4096
+    checks["steps"] = len(meter.steps) == WEBP_COLMAP_ITERS
+    line = {"phase": "webp_colmap", "load_s": load_s, "cli_s": cli_s,
+            "ms_per_step": [st["ms"] for st in meter.steps],
+            "ms_per_step_median_after_first": statistics.median(steps)
+            if steps else None,
+            "step_max_memory_allocated": max(st["peak"]
+                                             for st in meter.steps),
+            "run_max_memory_allocated": meter.run_peak,
+            "launches": launches, "log": log, "n_points": n_points,
+            "frames": sorted(os.listdir(os.path.join(WEBP_CAPTURE,
+                                                     "images"))),
+            "checks": checks}
+    line["ok"] = all(checks.values())
+    emit(line)
+    if not line["ok"]:
+        fail("webp_colmap", f"checks failed: {checks}")
+    torch.cuda.synchronize()
 
 
 # each kernel: its source, the Pallas functions it replaces, and for each
@@ -4731,7 +4827,8 @@ KERNELS = {
                "stage1_lite": "stage1_lite_400px_100k",
                "sh4_stage1": "sh4_stage1_64px",
                "sh4_stage2": "sh4_stage2_64px",
-               "sh4_eval": "sh4_eval_64px"}),
+               "sh4_eval": "sh4_eval_64px",
+               "webp_colmap": "webp_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4754,7 +4851,8 @@ KERNELS = {
                "drive_overfit": "drive_overfit_128px",
                "stage1_lite": "stage1_lite_400px_100k",
                "sh4_stage1": "sh4_stage1_64px",
-               "sh4_stage2": "sh4_stage2_64px"}),
+               "sh4_stage2": "sh4_stage2_64px",
+               "webp_colmap": "webp_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -4779,7 +4877,8 @@ KERNELS = {
                "load_reproducer": "reproducer_toy_128px_first_pass",
                "run_grid": "run_grid_50px_first_pass",
                "sh4_stage2": "sh4_stage2_64px_first_pass",
-               "sh4_eval": "sh4_eval_64px_first_pass"}),
+               "sh4_eval": "sh4_eval_64px_first_pass",
+               "webp_colmap": "webp_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -4805,7 +4904,8 @@ KERNELS = {
                "drive_overfit": "drive_overfit_largest",
                "stage1_lite": "stage1_lite_largest",
                "sh4_stage1": "sh4_stage1_largest",
-               "sh4_stage2": "sh4_stage2_largest"}),
+               "sh4_stage2": "sh4_stage2_largest",
+               "webp_colmap": "webp_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -4844,7 +4944,7 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
           "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
-          "load_reproducer", "run_grid", "overfit", "images")
+          "load_reproducer", "run_grid", "overfit", "images", "webp_colmap")
 
 
 def nvidia_smi_line():
@@ -4909,6 +5009,7 @@ def main():
             "run_grid": lambda: phase_run_grid(results, tmp),
             "overfit": lambda: phase_overfit(results),
             "images": lambda: phase_images(results, tmp),
+            "webp_colmap": lambda: phase_webp_colmap(results, tmp),
         }
         for name in PHASES:
             if name in phases:

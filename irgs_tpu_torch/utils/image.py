@@ -6,8 +6,9 @@ The JAX package reads LDR frames with ``np.asarray(Image.open(p))``
 ``Image.open(p).convert("RGB")`` (irgs_tpu/scene/colmap.py:122). PIL picks
 the decoder from the file's first bytes, whatever its name, and so does
 `read_image_like_pil`; the port's readers (utils/png.py, jpeg.py, tiff.py,
-bmp.py, gif.py) return PIL's array together with its mode (and palette);
-`to_rgb_like_pil` then converts as Pillow's Convert.c does for each mode.
+bmp.py, gif.py, webp.py) return PIL's array together with its mode (and
+palette); `to_rgb_like_pil` then converts as Pillow's Convert.c does for
+each mode.
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ _TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
 
 
 class UnreadableImageError(ValueError):
-    """No reader of the port takes the file (PIL's UnidentifiedImageError),
-    or the container is one PIL reads that is not ported yet."""
+    """None of the port's readers (PNG, JPEG, TIFF, BMP, GIF, WebP) takes
+    the file: PIL's UnidentifiedImageError where PIL has no reader for it
+    either, else a container PIL reads that is not ported yet."""
 
 
 def read_image_like_pil(path: str):
@@ -47,9 +49,10 @@ def read_image_like_pil(path: str):
     if head.startswith((b"GIF87a", b"GIF89a")):
         from . import gif
         return gif.read_gif_like_pil(path)
-    if head.startswith(b"RIFF") and head[8:12] == b"WEBP":
-        raise UnreadableImageError(f"{path}: WebP, which PIL reads, is not "
-                                   f"ported yet")
+    if (head.startswith(b"RIFF") and head[8:12] == b"WEBP"
+            and head[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
+        from . import webp
+        return webp.read_webp_like_pil(path)
     raise UnreadableImageError(f"cannot identify image file {path}")
 
 

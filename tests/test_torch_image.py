@@ -155,10 +155,18 @@ def test_unidentified_and_queued_files_raise(tmp_path):
     p.write_bytes(b"P6\n1 1\n255\n\x00\x00\x00")
     with pytest.raises(image.UnreadableImageError, match="cannot identify"):
         image.read_image_like_pil(str(p))
+    # WebP, once queued, reads as PIL reads it (by content, named .png); a
+    # RIFF WEBP file whose first chunk PIL does not know is unidentified
     bio = io.BytesIO()
     Image.new("RGB", (4, 3), (10, 20, 30)).save(bio, "WEBP")
     p.write_bytes(bio.getvalue())
-    with pytest.raises(image.UnreadableImageError, match="not ported"):
+    arr, mode, _ = image.read_image_like_pil(str(p))
+    with Image.open(p) as im:
+        assert mode == im.mode == "RGB"
+        np.testing.assert_array_equal(arr, np.asarray(im))
+    data = bio.getvalue()
+    p.write_bytes(data[:12] + b"VP9 " + data[16:])
+    with pytest.raises(image.UnreadableImageError, match="cannot identify"):
         image.read_image_like_pil(str(p))
 
 
