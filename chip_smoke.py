@@ -192,8 +192,10 @@ Phases (JSON lines; any failure exits non-zero):
                 fixtures (tests/data/webp) among the containers,
                 and the median ms of 5 decodes of the three committed
                 1297x840 WebP frames (lossless, lossy q90, lossy with
-                alpha), each held against the SHA-256 of PIL's array.
-                Needs train_cli and eval_cli.
+                alpha) and of the four committed TIFF frames (YCbCr
+                JPEG-in-TIFF 4:2:0, Zstandard and LZMA with predictor 2,
+                1297x840; a 1728-wide T.6 page), each held against the
+                SHA-256 of PIL's array. Needs train_cli and eval_cli.
   webp_colmap   python -m irgs_tpu_torch.train for 5 iterations at the
                 BENCH budgets on the committed COLMAP capture of WebP frames
                 (tests/data/webp/colmap: 4 views at 400², two lossy, one
@@ -201,6 +203,11 @@ Phases (JSON lines; any failure exits non-zero):
                 of its own: the blends and the gather held at their first
                 inputs, the scatter-add at its largest; load time, ms per
                 step and peak memory.
+  tiff_colmap   the same on the committed COLMAP capture of TIFF frames
+                (tests/data/tiff/colmap: the same 4 views as YCbCr
+                JPEG-in-TIFF 4:2:0 with JPEGTables, RGB JPEG-in-TIFF, YCbCr
+                LZW at 2x2, RGBA Zstandard tiles with predictor 2), a main
+                path of its own.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -3528,22 +3535,26 @@ def container_decode_ms(frame, tmp):
 WEBP_FIXTURES = os.path.join(ROOT, "tests", "data", "webp")
 
 
-def webp_large_ms():
-    """The three committed 1297x840 WebP frames -> ({name: median ms of 5
-    decodes}, {name: all ms}, {name: mode, shape and SHA-256 of the array
-    equal to PIL's}, {name: bytes})."""
+def large_frames_ms(fmt="webp", ext=".webp"):
+    """The committed large frames of tests/data/<fmt>/large/ (three
+    1297x840 WebP; four TIFF) -> ({name: median ms of 5 decodes}, {name: all
+    ms}, {name: mode, shape and SHA-256 of the array equal to PIL's (bool
+    as 0/1 bytes)}, {name: bytes})."""
     import hashlib
-    folder = os.path.join(WEBP_FIXTURES, "large")
+
+    import numpy as np
+    folder = os.path.join(ROOT, "tests", "data", fmt, "large")
     from irgs_tpu_torch.utils import image
     with open(os.path.join(folder, "large.json")) as f:
         want = json.load(f)
     ms, ms_all, equal, sizes = {}, {}, {}, {}
     for name, w in want.items():
-        path = os.path.join(folder, name + ".webp")
+        path = os.path.join(folder, name + ext)
         arr, mode, _ = image.read_image_like_pil(path)
+        vals = arr.astype(np.uint8) if arr.dtype == bool else arr
         equal[name] = (mode == w["mode"] and list(arr.shape) == w["shape"]
-                       and hashlib.sha256(arr.tobytes()).hexdigest()
-                       == w["sha256"])
+                       and hashlib.sha256(np.ascontiguousarray(
+                           vals).tobytes()).hexdigest() == w["sha256"])
         ms[name], ms_all[name] = _median_ms(
             lambda: image.read_image_like_pil(path))
         sizes[name] = os.path.getsize(path)
@@ -4687,7 +4698,8 @@ def phase_images(results, tmp):
     hdr_cases = hdr_headers_as_cv2(tmp)
     containers_s = time.perf_counter() - a
     c_ms, c_ms_all, c_equal, c_bytes = container_decode_ms(frame, tmp)
-    w_ms, w_ms_all, w_equal, w_bytes = webp_large_ms()
+    w_ms, w_ms_all, w_equal, w_bytes = large_frames_ms()
+    t_ms, t_ms_all, t_equal, t_bytes = large_frames_ms("tiff", ".tif")
 
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
@@ -4709,7 +4721,9 @@ def phase_images(results, tmp):
             "decode_1297x840_container_ms": c_ms,
             "decode_1297x840_container_ms_all": c_ms_all,
             "container_bytes": c_bytes, "decode_1297x840_webp_ms": w_ms,
-            "decode_1297x840_webp_ms_all": w_ms_all, "webp_bytes": w_bytes}
+            "decode_1297x840_webp_ms_all": w_ms_all, "webp_bytes": w_bytes,
+            "decode_large_tiff_ms": t_ms, "decode_large_tiff_ms_all": t_ms_all,
+            "large_tiff_bytes": t_bytes}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4722,7 +4736,7 @@ def phase_images(results, tmp):
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
             crops[f][:2] == want_crop[f] for f in srcs),
-        "containers_bit_for_bit": len(containers) >= 325 and all(
+        "containers_bit_for_bit": len(containers) >= 424 and all(
             containers.values()),
         "containers_refused_raise": bool(container_refused) and all(
             container_refused.values()),
@@ -4730,7 +4744,9 @@ def phase_images(results, tmp):
         "hdr_headers_as_cv2": all(hdr_cases.values()),
         "container_frames_decode": all(c_equal.values()),
         "webp_large_frames_equal": len(w_equal) == 3 and all(
-            w_equal.values())}
+            w_equal.values()),
+        "tiff_large_frames_equal": len(t_equal) == 4 and all(
+            t_equal.values())}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4743,30 +4759,39 @@ def phase_images(results, tmp):
 
 
 WEBP_CAPTURE = os.path.join(WEBP_FIXTURES, "colmap")
-WEBP_COLMAP_ITERS = 5
+TIFF_CAPTURE = os.path.join(ROOT, "tests", "data", "tiff", "colmap")
+CAPTURE_ITERS = 5
 
 
 def phase_webp_colmap(results, tmp):
-    """python -m irgs_tpu_torch.train on the committed COLMAP capture of WebP
-    frames for WEBP_COLMAP_ITERS iterations at CLI_BENCH's budgets, as the
-    main path webp_colmap (main_path: the blends and the gather held at
-    their first inputs, the scatter-add at its largest)."""
+    _capture_phase(results, tmp, "webp_colmap", WEBP_CAPTURE)
+
+
+def phase_tiff_colmap(results, tmp):
+    _capture_phase(results, tmp, "tiff_colmap", TIFF_CAPTURE)
+
+
+def _capture_phase(results, tmp, phase, capture):
+    """python -m irgs_tpu_torch.train on a committed COLMAP capture (four
+    400² frames, 4,096 points) for CAPTURE_ITERS iterations at CLI_BENCH's
+    budgets, as the main path `phase` (main_path: the blends and the gather
+    held at their first inputs, the scatter-add at its largest)."""
     import numpy as np
     import torch
     from irgs_tpu_torch.scene import datasets as ds
 
     a = time.perf_counter()
-    info = ds.load_scene(WEBP_CAPTURE, eval_split=False)
+    info = ds.load_scene(capture, eval_split=False)
     load_s = time.perf_counter() - a
     images = [c.image for c in info.train_cameras]
     n_points = int(len(info.points))
     del info
-    run = os.path.join(tmp, "webp_colmap_run")
-    with main_path(results, "webp_colmap", case="webp_colmap_400px"), \
+    run = os.path.join(tmp, phase + "_run")
+    with main_path(results, phase, case=phase + "_400px"), \
             StepMeter() as meter:
         launches, cli_s = run_cli(
-            ["-s", WEBP_CAPTURE, "-m", run, "--iterations",
-             str(WEBP_COLMAP_ITERS), "--checkpoint_interval", "0",
+            ["-s", capture, "-m", run, "--iterations",
+             str(CAPTURE_ITERS), "--checkpoint_interval", "0",
              "--vis_interval", "0", *CLI_BENCH])
     log = list(read_log(run).values())
     steps = [st["ms"] for st in meter.steps[1:]]
@@ -4776,8 +4801,8 @@ def phase_webp_colmap(results, tmp):
     checks["frames_finite"] = all(bool(np.isfinite(im).all())
                                   for im in images)
     checks["points_4096"] = n_points == 4096
-    checks["steps"] = len(meter.steps) == WEBP_COLMAP_ITERS
-    line = {"phase": "webp_colmap", "load_s": load_s, "cli_s": cli_s,
+    checks["steps"] = len(meter.steps) == CAPTURE_ITERS
+    line = {"phase": phase, "load_s": load_s, "cli_s": cli_s,
             "ms_per_step": [st["ms"] for st in meter.steps],
             "ms_per_step_median_after_first": statistics.median(steps)
             if steps else None,
@@ -4785,13 +4810,12 @@ def phase_webp_colmap(results, tmp):
                                              for st in meter.steps),
             "run_max_memory_allocated": meter.run_peak,
             "launches": launches, "log": log, "n_points": n_points,
-            "frames": sorted(os.listdir(os.path.join(WEBP_CAPTURE,
-                                                     "images"))),
+            "frames": sorted(os.listdir(os.path.join(capture, "images"))),
             "checks": checks}
     line["ok"] = all(checks.values())
     emit(line)
     if not line["ok"]:
-        fail("webp_colmap", f"checks failed: {checks}")
+        fail(phase, f"checks failed: {checks}")
     torch.cuda.synchronize()
 
 
@@ -4828,7 +4852,8 @@ KERNELS = {
                "sh4_stage1": "sh4_stage1_64px",
                "sh4_stage2": "sh4_stage2_64px",
                "sh4_eval": "sh4_eval_64px",
-               "webp_colmap": "webp_colmap_400px"}),
+               "webp_colmap": "webp_colmap_400px",
+               "tiff_colmap": "tiff_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4852,7 +4877,8 @@ KERNELS = {
                "stage1_lite": "stage1_lite_400px_100k",
                "sh4_stage1": "sh4_stage1_64px",
                "sh4_stage2": "sh4_stage2_64px",
-               "webp_colmap": "webp_colmap_400px"}),
+               "webp_colmap": "webp_colmap_400px",
+               "tiff_colmap": "tiff_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -4878,7 +4904,8 @@ KERNELS = {
                "run_grid": "run_grid_50px_first_pass",
                "sh4_stage2": "sh4_stage2_64px_first_pass",
                "sh4_eval": "sh4_eval_64px_first_pass",
-               "webp_colmap": "webp_colmap_400px_first_pass"}),
+               "webp_colmap": "webp_colmap_400px_first_pass",
+               "tiff_colmap": "tiff_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -4905,7 +4932,8 @@ KERNELS = {
                "stage1_lite": "stage1_lite_largest",
                "sh4_stage1": "sh4_stage1_largest",
                "sh4_stage2": "sh4_stage2_largest",
-               "webp_colmap": "webp_colmap_largest"}),
+               "webp_colmap": "webp_colmap_largest",
+               "tiff_colmap": "tiff_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -4944,7 +4972,8 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "eval_cli", "stage1_small", "stage1", "train_stage1_cli",
           "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
-          "load_reproducer", "run_grid", "overfit", "images", "webp_colmap")
+          "load_reproducer", "run_grid", "overfit", "images", "webp_colmap",
+          "tiff_colmap")
 
 
 def nvidia_smi_line():
@@ -5010,6 +5039,7 @@ def main():
             "overfit": lambda: phase_overfit(results),
             "images": lambda: phase_images(results, tmp),
             "webp_colmap": lambda: phase_webp_colmap(results, tmp),
+            "tiff_colmap": lambda: phase_tiff_colmap(results, tmp),
         }
         for name in PHASES:
             if name in phases:

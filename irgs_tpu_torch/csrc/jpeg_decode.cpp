@@ -34,15 +34,18 @@ struct Table {
   int32_t maxcode[18];   // largest code of each length, -1 if none
   int32_t valoffset[18]; // huffval index of the first code of each length
   const uint8_t* vals;
+  int total;
   bool defined;
+  bool bad;              // more codes of a length than fit (all ones)
 };
 
 void build_table(const uint8_t* bits, const uint8_t* vals, Table* t) {
   // canonical codes (T.81 C.2): codes of each length follow those of the
   // length before, shifted left by one
-  t->defined = false;
+  t->defined = t->bad = false;
   int total = 0;
   for (int l = 1; l <= 16; ++l) total += bits[l - 1];
+  t->total = total;
   if (total == 0) return;
   int32_t code = 0, k = 0;
   for (int l = 1; l <= 16; ++l) {
@@ -52,6 +55,8 @@ void build_table(const uint8_t* bits, const uint8_t* vals, Table* t) {
       code += n;
       k += n;
       t->maxcode[l] = code - 1;
+      // jpeg_make_d_derived_tbl: no code may be all ones
+      if (code >= (1 << l)) t->bad = true;
     } else {
       t->maxcode[l] = -1;
     }
@@ -68,6 +73,11 @@ struct Reader {
   uint64_t buf = 0;
   int nbits = 0;
   bool hit_marker = false;
+  // the buffered bits that came from the data (the rest are zeros fed at
+  // a marker); a read past them sets `insufficient`, after which
+  // libjpeg-turbo leaves the scan's next MCUs (up to a restart) zero
+  int real = 0;
+  bool insufficient = false;
 
   // libjpeg's fill_bit_buffer: 0xFF 0x00 is a stuffed 0xFF; 0xFF fill bytes
   // before a marker are skipped; at a marker (or the end of the data) the
@@ -89,9 +99,18 @@ struct Reader {
         } else {
           ++pos;
         }
+        if (!hit_marker) real += 8;
       }
       buf |= static_cast<uint64_t>(c) << (56 - nbits);
       nbits += 8;
+    }
+  }
+  void take(int n) {
+    if (n > real) {
+      insufficient = true;
+      real = 0;
+    } else {
+      real -= n;
     }
   }
   int bit() {
@@ -99,6 +118,7 @@ struct Reader {
     int b = static_cast<int>(buf >> 63);
     buf <<= 1;
     --nbits;
+    take(1);
     return b;
   }
   int32_t bits(int n) {
@@ -107,6 +127,7 @@ struct Reader {
     int32_t v = static_cast<int32_t>(buf >> (64 - n));
     buf <<= n;
     nbits -= n;
+    take(n);
     return v;
   }
   // drop the buffered bits; position at the next marker
@@ -114,18 +135,31 @@ struct Reader {
     buf = 0;
     nbits = 0;
     hit_marker = false;
+    real = 0;
+    insufficient = false;
   }
 };
 
-// -1 for a code longer than 16 bits
+// a code longer than 16 bits (17 read) decodes as symbol 0, as
+// libjpeg-turbo's jpeg_huff_decode returns it (with a warning)
 inline int decode(Reader& r, const Table& t) {
   int32_t code = r.bit();
   int l = 1;
   while (code > t.maxcode[l]) {
     code = (code << 1) | r.bit();
-    if (++l > 16) return -1;
+    if (++l > 16) return 0;
   }
   return t.vals[t.valoffset[l] + code];
+}
+
+// jpeg_make_d_derived_tbl's checks of a table a scan uses: codes that fit,
+// and DC symbols of at most 15
+bool table_ok(const Table& t, bool dc) {
+  if (t.bad) return false;
+  if (dc)
+    for (int i = 0; i < t.total; ++i)
+      if (t.vals[i] > 15) return false;
+  return true;
 }
 
 inline int32_t extend(int32_t v, int s) {
@@ -349,7 +383,7 @@ extern "C" {
 //                     order, written in place
 // Returns the position after the scan's data (its next marker), or
 // -1 for an undefined table, -2 for a bad Huffman code, -3 for a missing
-// restart marker.
+// restart marker, -6 for a table libjpeg-turbo refuses.
 int64_t jpeg_decode_scan(const uint8_t* data, int64_t len, int64_t pos,
                          int n_comps, const int32_t* comp,
                          const uint8_t* huff_bits, const uint8_t* huff_vals,
@@ -358,9 +392,13 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t len, int64_t pos,
   Table tables[8];
   for (int t = 0; t < 8; ++t)
     build_table(huff_bits + 16 * t, huff_vals + 256 * t, &tables[t]);
-  for (int i = 0; i < n_comps; ++i)
+  for (int i = 0; i < n_comps; ++i) {
     if (!tables[comp[i * 6]].defined || !tables[4 + comp[i * 6 + 1]].defined)
       return -1;
+    if (!table_ok(tables[comp[i * 6]], true) ||
+        !table_ok(tables[4 + comp[i * 6 + 1]], false))
+      return -6;
+  }
 
   Reader r{data, len, pos};
   int32_t pred[4] = {0, 0, 0, 0};
@@ -375,6 +413,7 @@ int64_t jpeg_decode_scan(const uint8_t* data, int64_t len, int64_t pos,
         r.align();
         for (int i = 0; i < 4; ++i) pred[i] = 0;
       }
+      if (r.insufficient) continue;   // left zero, as libjpeg-turbo
       bool ok = w.walk(mx, my, [&](int i, int16_t* blk) {
         const Table& dc = tables[comp[i * 6]];
         const Table& ac = tables[4 + comp[i * 6 + 1]];
@@ -419,6 +458,8 @@ int64_t jpeg_decode_scan_progressive(
   for (int i = 0; i < n_comps; ++i) {
     if (dc_scan && ah == 0 && !tables[comp[i * 6]].defined) return -1;
     if (!dc_scan && !tables[4 + comp[i * 6 + 1]].defined) return -1;
+    if (dc_scan && ah == 0 && !table_ok(tables[comp[i * 6]], true)) return -6;
+    if (!dc_scan && !table_ok(tables[4 + comp[i * 6 + 1]], false)) return -6;
   }
   Reader r{data, len, pos};
   int32_t pred[4] = {0, 0, 0, 0};
@@ -437,6 +478,7 @@ int64_t jpeg_decode_scan_progressive(
         for (int i = 0; i < 4; ++i) pred[i] = 0;
         eobrun = 0;
       }
+      if (r.insufficient) continue;   // left as it is, as libjpeg-turbo
       bool ok = w.walk(mx, my, [&](int i, int16_t* blk) {
         if (dc_scan && ah == 0) {  // DC first
           int s = decode(r, tables[comp[i * 6]]);

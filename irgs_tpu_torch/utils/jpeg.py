@@ -18,9 +18,11 @@ equal PIL's:
   smoothing  the block smoothing libjpeg-turbo applies to a progressive
              file whose scans leave coefficient bits unsent (jdcoefct.c
              decompress_smooth_data, in jpeg_decode.cpp);
-  IDCT       dequantisation and the accurate integer IDCT
-             (jidctint.c jpeg_idct_islow: 13-bit constants, PASS1_BITS 2,
-             the two DESCALE roundings and the post-IDCT range-limit table);
+  IDCT       dequantisation and the accurate integer IDCT as
+             libjpeg-turbo's SIMD code computes jidctint.c's
+             jpeg_idct_islow (13-bit constants, PASS1_BITS 2, the two
+             DESCALE roundings; 16-bit lanes that wrap and saturate where
+             damaged data overflows them);
   lossless   the predictors 1-7 modulo 2^16, restarted at the first row of
              each iMCU row in which the scan or a restart interval starts
              (jddiffct.c undifferences an iMCU row after decoding it), and
@@ -84,6 +86,9 @@ _REFUSED = {
     "hierarchical lossless)",
 }
 _MODES = {1: "L", 3: "RGB", 4: "CMYK"}
+# the other markers libjpeg's read_markers takes (APPn aside): DHT, DAC,
+# SOS, DQT, DNL, DRI, COM
+_SEGMENTS = {0xC4, 0xCC, 0xDA, 0xDB, 0xDC, 0xDD, 0xFE}
 
 _LIB = None
 
@@ -140,69 +145,70 @@ FIX_1_501321110, FIX_1_847759065, FIX_1_961570560 = 12299, 15137, 16069
 FIX_2_053119869, FIX_2_562915447, FIX_3_072711026 = 16819, 20995, 25172
 
 
-def _descale(x, n):
-    return (x + (1 << (n - 1))) >> n
+def _w16(x):
+    """int32 -> its low 16 bits, signed (pmullw, paddw)."""
+    return x.astype(np.int16).astype(np.int32)
 
 
 def _idct_1d(x, shift):
-    """One pass of jpeg_idct_islow over the last axis of int64 `x` (8 wide),
-    descaled by `shift` bits."""
-    z2, z3 = x[..., 2], x[..., 6]
-    z1 = (z2 + z3) * FIX_0_541196100
-    tmp2 = z1 + z3 * -FIX_1_847759065
-    tmp3 = z1 + z2 * FIX_0_765366865
-    tmp0 = (x[..., 0] + x[..., 4]) << CONST_BITS
-    tmp1 = (x[..., 0] - x[..., 4]) << CONST_BITS
+    """One pass of libjpeg-turbo's SIMD jpeg_idct_islow (jidctint-sse2.asm,
+    -avx2.asm) over the last axis of `x` (8 int16 values as int32): the
+    C version's products (pmaddwd pairs), but the sums in0 + in4,
+    in0 - in4, in7 + in3 and in5 + in1 wrap at 16 bits, the others at 32
+    (numpy's int32 arithmetic), and the descaled outputs saturate at 16
+    bits (packssdw)."""
+    c = {k: np.int32(v) for k, v in (
+        ("e3a", FIX_0_541196100 + FIX_0_765366865), ("e3b", FIX_0_541196100),
+        ("e2b", FIX_0_541196100 - FIX_1_847759065),
+        ("z3a", FIX_1_175875602 - FIX_1_961570560), ("z", FIX_1_175875602),
+        ("z4b", FIX_1_175875602 - FIX_0_390180644),
+        ("t0", FIX_0_298631336 - FIX_0_899976223), ("m", FIX_0_899976223),
+        ("t3", FIX_1_501321110 - FIX_0_899976223),
+        ("t1", FIX_2_053119869 - FIX_2_562915447), ("n", FIX_2_562915447),
+        ("t2", FIX_3_072711026 - FIX_2_562915447))}
+    in0, in1, in2, in3, in4, in5, in6, in7 = (x[..., k] for k in range(8))
+    tmp3 = in2 * c["e3a"] + in6 * c["e3b"]
+    tmp2 = in2 * c["e3b"] + in6 * c["e2b"]
+    tmp0 = _w16(in0 + in4) << CONST_BITS
+    tmp1 = _w16(in0 - in4) << CONST_BITS
     tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
     tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
-
-    tmp0, tmp1, tmp2, tmp3 = x[..., 7], x[..., 5], x[..., 3], x[..., 1]
-    z1, z2 = tmp0 + tmp3, tmp1 + tmp2
-    z3, z4 = tmp0 + tmp2, tmp1 + tmp3
-    z5 = (z3 + z4) * FIX_1_175875602
-    tmp0 = tmp0 * FIX_0_298631336
-    tmp1 = tmp1 * FIX_2_053119869
-    tmp2 = tmp2 * FIX_3_072711026
-    tmp3 = tmp3 * FIX_1_501321110
-    z1 = z1 * -FIX_0_899976223
-    z2 = z2 * -FIX_2_562915447
-    z3 = z3 * -FIX_1_961570560 + z5
-    z4 = z4 * -FIX_0_390180644 + z5
-    tmp0 = tmp0 + z1 + z3
-    tmp1 = tmp1 + z2 + z4
-    tmp2 = tmp2 + z2 + z3
-    tmp3 = tmp3 + z1 + z4
-    return np.stack([
-        _descale(tmp10 + tmp3, shift), _descale(tmp11 + tmp2, shift),
-        _descale(tmp12 + tmp1, shift), _descale(tmp13 + tmp0, shift),
-        _descale(tmp13 - tmp0, shift), _descale(tmp12 - tmp1, shift),
-        _descale(tmp11 - tmp2, shift), _descale(tmp10 - tmp3, shift)], -1)
-
-
-def _range_limit_table():
-    """jdmaster.c prepare_range_limit_table, post-IDCT part, indexed by the
-    descaled sample (centred on 0) & 1023."""
-    t = np.zeros(1024, np.uint8)
-    t[:128] = np.arange(128, 256)      # 0..127 -> 128..255
-    t[128:512] = 255
-    t[896:] = np.arange(128)           # -128..-1 -> 0..127
-    return t
-
-
-_RANGE_LIMIT = _range_limit_table()
+    z3, z4 = _w16(in7 + in3), _w16(in5 + in1)
+    z3, z4 = z3 * c["z3a"] + z4 * c["z"], z3 * c["z"] + z4 * c["z4b"]
+    t0 = in7 * c["t0"] - in1 * c["m"] + z3
+    t3 = in1 * c["t3"] - in7 * c["m"] + z4
+    t1 = in5 * c["t1"] - in3 * c["n"] + z4
+    t2 = in3 * c["t2"] - in5 * c["n"] + z3
+    out = np.stack([tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                    tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3], -1)
+    out = (out + np.int32(1 << (shift - 1))) >> shift
+    return np.clip(out, -32768, 32767)
 
 
 def idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
     """int16 [..., 64] coefficients (natural order) and a [64] quantisation
-    table -> uint8 [..., 8, 8] samples."""
-    x = coef.astype(np.int64) * qt.astype(np.int64)
+    table -> uint8 [..., 8, 8] samples, as libjpeg-turbo's SIMD
+    jpeg_idct_islow computes them (its results equal jidctint.c's, with
+    the range-limit table, wherever no sum overflows; PIL runs the SIMD
+    code, and on damaged data its 16-bit lanes wrap and saturate): the
+    dequantisation keeps 16 bits (pmullw; the table is stored as int16),
+    a block whose AC coefficients are all zero takes the DC shortcut
+    (dequantised DC << 2, 16 bits), and the output saturates to 0..255."""
+    c = coef.astype(np.int32)
+    x = _w16(c * _w16(np.asarray(qt).astype(np.int32)))
     x = x.reshape(x.shape[:-1] + (8, 8))
-    # pass 1: columns (the vertical frequencies are the block's rows)
-    ws = _idct_1d(np.swapaxes(x, -1, -2), CONST_BITS - PASS1_BITS)
-    ws = np.swapaxes(ws, -1, -2)       # [..., row, col] workspace
-    # pass 2: rows
-    out = _idct_1d(ws, CONST_BITS + PASS1_BITS + 3)
-    return _RANGE_LIMIT[out & 1023]
+    with np.errstate(over="ignore"):
+        # pass 1: columns (the vertical frequencies are the block's rows)
+        ws = np.swapaxes(_idct_1d(np.swapaxes(x, -1, -2),
+                                  CONST_BITS - PASS1_BITS), -1, -2)
+        ac_zero = ~np.any(c.reshape(c.shape[:-1] + (8, 8))[..., 1:, :],
+                          (-1, -2))
+        dc_only = np.broadcast_to(_w16(x[..., :1, :] << PASS1_BITS),
+                                  x.shape)
+        ws = np.where(ac_zero[..., None, None], dc_only, ws)
+        # pass 2: rows
+        out = _idct_1d(ws, CONST_BITS + PASS1_BITS + 3)
+    return (np.clip(out, -128, 127) + 128).astype(np.uint8)
 
 
 # --- upsampling (jdsample.c) ----------------------------------------------
@@ -291,7 +297,12 @@ def _segment(buf, pos):
 class _State:
     """What the markers define, as the decoder reads them."""
 
-    def __init__(self):
+    def __init__(self, max_comps=None):
+        self.max_comps = max_comps      # None: PIL's 1, 3 or 4
+        # libtiff's source manager: the end of the data reads as EOI, and
+        # once a one-scan sequential image's scanlines are out, what
+        # follows is never checked
+        self.tiff = max_comps is not None
         self.qtables = [None] * 4
         self.huff_bits = np.zeros((8, 16), np.uint8)
         self.huff_vals = np.zeros((8, 256), np.uint8)
@@ -310,9 +321,54 @@ def decode_jpeg_like_pil(buf: bytes):
     ("L", "RGB" or "CMYK") and the ``im.info`` entries the port carries
     (``comment``: the last COM segment before the first scan) of
     ``im = PIL.Image.open(...)``."""
+    s = _parse(buf, _State())
+    if s.frame is None:
+        raise JpegError("no frame")
+    info = {} if s.comment is None else {"comment": s.comment}
+    return _output(s), _MODES[len(s.frame["comps"])], info
+
+
+def decode_tiff_jpeg(tables: bytes | None, strip: bytes, to_rgb: bool,
+                     keep: dict):
+    """One strip or tile of a JPEG-in-TIFF file (compression 7), as
+    libtiff's JPEG codec has libjpeg-turbo decode it: the JPEGTables
+    stream (tag 347: SOI, tables, EOI) read first, its DQT and DHT kept for
+    the strip's own (often abbreviated) stream. The colour space is the
+    container's, not the stream's markers': `to_rgb` (photometric YCbCr,
+    JPEGCOLORMODE_RGB) converts three YCbCr components to RGB after the
+    fancy upsampling, which stops at the strip's edges; otherwise
+    (JCS_UNKNOWN) the components pass through unconverted and uninverted,
+    any count up to libjpeg's 10. `keep` (a dict, empty at the first
+    strip) carries the tables from strip to strip, as libtiff's one
+    decompressor keeps those a strip defines for the strips after it.
+    -> (uint8 [h, w, components], frame)."""
+    s = _State(max_comps=10)
+    names = ("qtables", "huff_bits", "huff_vals", "dc_l", "dc_u", "ac_k")
+    if keep:
+        for k in names:
+            setattr(s, k, keep[k].copy() if k != "qtables" else
+                    list(keep[k]))
+    elif tables:
+        _parse(tables, s)
+        s.frame, s.comment, s.restart = None, None, 0
+    s = _parse(strip, s)
+    for k in names:
+        keep[k] = getattr(s, k)
+    if s.frame is None:
+        raise JpegError("no frame")
+    planes = _planes(s)
+    if to_rgb:
+        if len(planes) != 3:
+            raise JpegError(f"YCbCr with {len(planes)} components")
+        return ycc_to_rgb(*planes), s.frame
+    return np.stack(planes, -1), s.frame
+
+
+def _parse(buf: bytes, s):
+    """Read a stream's markers (and decode its scans) into the state
+    `s`."""
     if buf[:2] != b"\xff\xd8":
         raise JpegError("not a JPEG stream (no SOI)")
-    s = _State()
     pos = 2
     while True:
         # next marker, past any fill bytes
@@ -321,6 +377,8 @@ def decode_jpeg_like_pil(buf: bytes):
         while pos < len(buf) and buf[pos] == 0xFF:
             pos += 1
         if pos >= len(buf):
+            if s.tiff:
+                break
             raise JpegError("no EOI marker")
         m = buf[pos]
         pos += 1
@@ -330,6 +388,9 @@ def decode_jpeg_like_pil(buf: bytes):
             continue
         if m in _REFUSED:
             raise _refused(_REFUSED[m])
+        if m not in _FRAMES and m not in _SEGMENTS and not 0xE0 <= m <= 0xEF:
+            raise JpegError(f"unsupported marker 0x{m:02x} (libjpeg stops "
+                            f"there too)")
         seg, nxt = _segment(buf, pos)
         if m == 0xE0 and seg[:5] == b"JFIF\x00":
             s.saw_jfif = True
@@ -351,14 +412,15 @@ def decode_jpeg_like_pil(buf: bytes):
                 s.qtables[tq] = q
                 i += 1 + n
         elif m in _FRAMES:
-            s.frame = _new_frame(seg, *_FRAMES[m])
+            s.frame = _new_frame(seg, *_FRAMES[m], s.max_comps)
         elif m == 0xC4:                                      # DHT
             i = 0
             while i < len(seg):
                 tc, th = seg[i] >> 4, seg[i] & 15
                 counts = np.frombuffer(seg[i + 1:i + 17], np.uint8)
                 n = int(counts.sum())
-                if tc > 1 or th > 3 or counts.size != 16 or n > 256:
+                if tc > 1 or th > 3 or counts.size != 16 or n > 256 \
+                        or i + 17 + n > len(seg):
                     raise JpegError("bad DHT segment")
                 t = 4 * tc + th
                 s.huff_bits[t] = counts
@@ -376,17 +438,21 @@ def decode_jpeg_like_pil(buf: bytes):
                 else:
                     s.dc_l[tb], s.dc_u[tb] = cs & 15, cs >> 4
         elif m == 0xDD:                                      # DRI
+            if len(seg) != 2:
+                raise JpegError("bad DRI length")
             (s.restart,) = struct.unpack_from(">H", seg, 0)
         elif m == 0xDA:                                      # SOS
             if s.frame is None:
                 raise JpegError("SOS before SOF")
+            if not seg or len(seg) != 2 * seg[0] + 4:
+                raise JpegError("bad SOS length")
             nxt = _decode_scan(buf, seg, nxt, s)
             s.frame["scans"] += 1
+            if (s.tiff and s.frame["process"] == "sequential"
+                    and seg[0] == len(s.frame["comps"])):
+                break
         pos = nxt
-    if s.frame is None:
-        raise JpegError("no frame")
-    info = {} if s.comment is None else {"comment": s.comment}
-    return _output(s), _MODES[len(s.frame["comps"])], info
+    return s
 
 
 def decode_jpeg(buf: bytes) -> np.ndarray:
@@ -395,14 +461,18 @@ def decode_jpeg(buf: bytes) -> np.ndarray:
     return decode_jpeg_like_pil(buf)[0]
 
 
-def _new_frame(seg, coding, process):
+def _new_frame(seg, coding, process, max_comps=None):
+    if len(seg) < 6:
+        raise JpegError("bad SOF length")
     prec, h, w, nf = struct.unpack_from(">BHHB", seg, 0)
     if prec != 8:
         raise _refused(f"with {prec}-bit samples")
     if h == 0:
         raise _refused("with its height given by a DNL marker")
-    if nf not in _MODES:
+    if (nf not in _MODES) if max_comps is None else not 1 <= nf <= max_comps:
         raise _refused(f"with {nf} components")
+    if len(seg) != 6 + 3 * nf:
+        raise JpegError("bad SOF length")
     comps = []
     for c in range(nf):
         cid, hv, tq = struct.unpack_from(">BBB", seg, 6 + 3 * c)
@@ -436,11 +506,27 @@ def _new_frame(seg, coding, process):
 _SCAN_ERRORS = {-1: "scan uses an undefined Huffman table",
                 -2: "corrupt entropy-coded data",
                 -3: "missing restart marker",
-                -4: "corrupt arithmetic-coded data"}
+                -4: "corrupt arithmetic-coded data",
+                -6: "bogus Huffman table definition"}
+
+
+def _std_huff_tables(s):
+    """libjpeg-turbo's std_huff_tables at the Huffman decoder's start: the
+    T.81 K.3 tables in DC and AC slots 0 and 1 that no DHT has defined
+    (Motion-JPEG frames leave them out)."""
+    from .jpeg_encode import AC_CHROM, AC_LUM, DC_CHROM, DC_LUM
+    for t, (bits, vals) in ((0, DC_LUM), (1, DC_CHROM), (4, AC_LUM),
+                            (5, AC_CHROM)):
+        if not s.huff_bits[t].any():
+            s.huff_bits[t] = bits
+            s.huff_vals[t] = 0
+            s.huff_vals[t, :len(vals)] = np.frombuffer(bytes(vals), np.uint8)
 
 
 def _decode_scan(buf, seg, pos, s):
     frame = s.frame
+    if frame["scans"] == 0 and frame["coding"] == "huffman":
+        _std_huff_tables(s)
     ns = seg[0]
     by_id = {c["id"]: c for c in frame["comps"]}
     comps, params = [], []
@@ -568,7 +654,8 @@ def _smoothed(c, frame):
     return out
 
 
-def _output(s):
+def _planes(s):
+    """Each component's samples at full size (uint8 [h, w])."""
     frame = s.frame
     w, h = frame["w"], frame["h"]
     smooth = _smoothing_ok(frame)
@@ -589,6 +676,12 @@ def _output(s):
         by, bx = blocks.shape[:2]
         plane = blocks.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
         planes.append(_upsample(plane, c["dw"], c["dh"], hx, vx)[:h, :w])
+    return planes
+
+
+def _output(s):
+    frame = s.frame
+    planes = _planes(s)
     if len(planes) == 1:
         return planes[0]
     lossless = frame["process"] == "lossless"

@@ -1,7 +1,10 @@
 """Test-side writers of the TIFF, BMP and GIF layouts PIL cannot write:
 TIFF strips and tiles, planar configurations 1 and 2, both byte orders,
 fill order 2, 1 to 32 bits per sample, the PackBits, LZW (MSB-first, early
-change) and Deflate codecs with predictor 2; BMP core, info, V4 and V5
+change), Deflate, Zstandard (the system's libzstd) and LZMA (.xz, Python's
+lzma) codecs with predictor 2, YCbCr data units at any subsampling, and
+strips or tiles encoded elsewhere (JPEG) with extra tags; BMP core,
+info, V4 and V5
 headers, 1 to 32 bits, RLE8, RLE4 and bitfields, rows either way up; GIF
 frames at an offset, interlaced, with a local palette, a transparency
 index, LZW (LSB-first) with or without a leading clear code and with a
@@ -157,9 +160,52 @@ def _subblocks(data: bytes) -> bytes:
 # ---------------------------------------------------------------------------
 # TIFF
 
-_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 12: "d", 16: "Q"}
+_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "II", 7: "B", 12: "d", 16: "Q"}
 COMPRESSION = {"none": 1, "packbits": 32773, "lzw": 5, "adobe_deflate": 8,
-               "deflate": 32946}
+               "deflate": 32946, "ojpeg": 6, "jpeg": 7, "lzma": 34925,
+               "zstd": 50000,
+               "webp": 50001, "sgilog": 34676, "thunderscan": 32809}
+
+
+def zstd_compress(raw: bytes, level: int = 3) -> bytes:
+    """One Zstandard frame (the system's libzstd, through ctypes)."""
+    import ctypes
+    import ctypes.util
+    lib = ctypes.CDLL(ctypes.util.find_library("zstd") or "libzstd.so.1")
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compress.restype = ctypes.c_size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
+                                  ctypes.c_char_p, ctypes.c_size_t,
+                                  ctypes.c_int]
+    cap = lib.ZSTD_compressBound(ctypes.c_size_t(len(raw)))
+    out = ctypes.create_string_buffer(cap)
+    n = lib.ZSTD_compress(out, cap, raw, len(raw), level)
+    assert n < cap, "ZSTD_compress failed"
+    return out.raw[:n]
+
+
+def xz_compress(raw: bytes, check: str = "none") -> bytes:
+    """An .xz stream of LZMA2, with the given integrity check."""
+    import lzma
+    filters = [{"id": lzma.FILTER_LZMA2, "preset": 6}]
+    return lzma.compress(raw, format=lzma.FORMAT_XZ, filters=filters,
+                         check={"none": lzma.CHECK_NONE,
+                                "crc32": lzma.CHECK_CRC32,
+                                "crc64": lzma.CHECK_CRC64}[check])
+
+
+def ycbcr_units(block: np.ndarray, sh: int, sv: int) -> bytes:
+    """[rows, cols, 3] YCbCr samples -> libtiff's packed data units: per
+    unit its sh x sv luma samples, then one Cb and one Cr (the unit's
+    top-left chroma); partial units at the edges padded by repetition."""
+    rows, cols, _ = block.shape
+    ur, uc = -(-rows // sv), -(-cols // sh)
+    full = np.pad(block, ((0, ur * sv - rows), (0, uc * sh - cols), (0, 0)),
+                  mode="edge")
+    y = full[..., 0].reshape(ur, sv, uc, sh).transpose(0, 2, 1, 3)
+    out = np.concatenate([y.reshape(ur, uc, sv * sh),
+                          full[::sv, ::sh, 1:]], -1)
+    return np.ascontiguousarray(out, np.uint8).tobytes()
 
 
 def _pack_bits_rows(vals: np.ndarray, bits: int) -> bytes:
@@ -190,11 +236,15 @@ def write_tiff(arr: np.ndarray, *, photometric: int, bits: int,
                compression: str = "none", predictor: int = 1,
                planar: int = 1, layout=("strips", None), order: str = "II",
                fill_order: int = 1, colormap=None, orientation=None,
-               big: bool = False) -> bytes:
+               big: bool = False, chunks=None, tags=None, units=None,
+               xz_check: str = "none", raw_rowbytes=None) -> bytes:
     """arr [H, W, S] of sample values (any integer or float dtype; 1 to 4
     bits as small integers) -> a one-page TIFF (a BigTIFF where `big`).
     layout ("strips", rows_per_strip or None for one strip) or ("tiles",
-    tw, th)."""
+    tw, th). `chunks`: the strips or tiles already encoded (arr then gives
+    only the size); `tags`: more IFD entries {tag: (type, values)};
+    `units` (sh, sv): YCbCr samples packed as data units (tag 530 set);
+    `raw_rowbytes`: uncompressed rows of this many bytes (zero padded)."""
     arr = np.asarray(arr)
     if arr.ndim == 2:
         arr = arr[..., None]
@@ -209,6 +259,12 @@ def write_tiff(arr: np.ndarray, *, photometric: int, bits: int,
     def block_bytes(block: np.ndarray) -> bytes:
         """[rows, cols, s] -> the block's bytes, predictor applied."""
         rows, cols, s = block.shape
+        if units is not None:
+            return ycbcr_units(block, *units)
+        if raw_rowbytes is not None:
+            b = np.ascontiguousarray(block, np.uint8).reshape(rows, -1)
+            return np.pad(b, ((0, 0), (0, raw_rowbytes - b.shape[1]))
+                          ).tobytes()
         if predictor == 2:
             v = block.astype(np.int64) if dt is None or dt.kind != "f" else block
             d = v.copy()
@@ -232,18 +288,25 @@ def write_tiff(arr: np.ndarray, *, photometric: int, bits: int,
             out = packbits_encode(raw)
         elif compression == "lzw":
             out = lzw_encode_tiff(raw)
+        elif compression == "zstd":
+            out = zstd_compress(raw)
+        elif compression == "lzma":
+            out = xz_compress(raw, check=xz_check)
         else:
             out = zlib.compress(raw, 6)
         return _reverse_bits(out) if fill_order == 2 else out
 
     planes = [arr] if planar == 1 else [arr[..., i:i + 1] for i in range(spp)]
-    chunks = []
-    if layout[0] == "strips":
+    if chunks is not None:
+        chunks = [_reverse_bits(c) if fill_order == 2 else c for c in chunks]
+    elif layout[0] == "strips":
+        chunks = []
         rps = layout[1] or h
         for pl in planes:
             for y in range(0, h, rps):
                 chunks.append(compress(block_bytes(pl[y:y + rps])))
     else:
+        chunks = []
         tw, th = layout[1], layout[2]
         for pl in planes:
             for y in range(0, h, th):
@@ -268,6 +331,9 @@ def write_tiff(arr: np.ndarray, *, photometric: int, bits: int,
         entries[320] = (3, [int(v) for v in np.asarray(colormap).reshape(-1)])
     if orientation is not None:
         entries[274] = (3, [orientation])
+    if units is not None:
+        entries[530] = (3, list(units))
+    entries.update(tags or {})
     hsize = 16 if big else 8
     body = bytearray()
     offsets = []
@@ -295,8 +361,10 @@ def write_tiff(arr: np.ndarray, *, photometric: int, bits: int,
     extra_at = ifd_at + struct.calcsize(cnt) + ent * len(tags) + inline
     for t in tags:
         typ, vals = entries[t]
-        data = struct.pack(e + _TYPES[typ] * len(vals), *vals)
-        head = struct.pack(e + "HH" + ("Q" if big else "I"), t, typ, len(vals))
+        vals = list(vals)
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        data = struct.pack(e + _TYPES[typ][0] * len(vals), *vals)
+        head = struct.pack(e + "HH" + ("Q" if big else "I"), t, typ, count)
         if len(data) <= inline:
             ifd += head + data.ljust(inline, b"\0")
         else:

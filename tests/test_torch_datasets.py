@@ -180,7 +180,7 @@ def test_unported_inputs_raise(scenes, tmp_path):
         tds._load_image_any(str(tmp_path / "f.webp")),
         np.asarray(Image.open(tmp_path / "f.webp"), np.float32) / 255.0)
     Image.fromarray(img).save(tmp_path / "f.ppm")
-    with pytest.raises(UnreadableImageError, match="cannot identify"):
+    with pytest.raises(UnreadableImageError, match="PPM is not ported"):
         tds._load_image_any(str(tmp_path / "f.ppm"))
 
 

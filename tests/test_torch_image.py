@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from PIL import Image
+from PIL import Image, UnidentifiedImageError
 
 from irgs_tpu.scene import colmap as jcolmap
 from irgs_tpu.scene import datasets as jds
@@ -153,6 +153,11 @@ def test_mislabelled_file_reads_as_jax(tmp_path, case):
 def test_unidentified_and_queued_files_raise(tmp_path):
     p = tmp_path / "x.png"
     p.write_bytes(b"P6\n1 1\n255\n\x00\x00\x00")
+    with pytest.raises(image.UnreadableImageError, match="PPM is not ported"):
+        image.read_image_like_pil(str(p))
+    p.write_bytes(b"hello, these bytes are no image at all")
+    with pytest.raises(UnidentifiedImageError):
+        Image.open(p)
     with pytest.raises(image.UnreadableImageError, match="cannot identify"):
         image.read_image_like_pil(str(p))
     # WebP, once queued, reads as PIL reads it (by content, named .png); a
@@ -197,3 +202,36 @@ def test_resize_bilinear_matches_jax(src, dst, c):
     assert tuple(got.shape) == (*dst, c)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-6)
+
+
+# each format Pillow writes here that PIL reads and the port does not
+PIL_FORMATS = {"AVIF": "RGB", "BLP": "P", "DDS": "RGB", "DIB": "RGB",
+               "EPS": "RGB", "ICNS": "RGB", "ICO": "RGB", "IM": "RGB",
+               "JPEG2000": "RGB", "MSP": "1", "PCX": "RGB", "PPM": "RGB",
+               "QOI": "RGB", "SGI": "RGB", "SPIDER": "F", "TGA": "RGB",
+               "XBM": "1"}
+
+
+@pytest.mark.parametrize("fmt", sorted(PIL_FORMATS))
+def test_pil_format_names_itself(tmp_path, fmt):
+    """A file PIL identifies (by its plugins' own checks, in Image.OPEN's
+    order) but the port does not read raises "<FORMAT> is not ported",
+    whatever its name."""
+    rng = np.random.default_rng(len(fmt))
+    im = Image.fromarray(rng.integers(0, 256, (16, 16, 3), np.uint8))
+    path = tmp_path / "frame.png"
+    # some savers register the file's extension as their own (SPIDER's
+    # does, process-wide): save to memory and restore the registry
+    extensions = dict(Image.EXTENSION)
+    bio = io.BytesIO()
+    try:
+        im.convert(PIL_FORMATS[fmt]).save(bio, fmt)
+    finally:
+        Image.EXTENSION.clear()
+        Image.EXTENSION.update(extensions)
+    path.write_bytes(bio.getvalue())
+    with Image.open(path) as pim:
+        assert pim.format == fmt
+    with pytest.raises(image.UnreadableImageError,
+                       match=f"{fmt} is not ported"):
+        image.read_image_like_pil(str(path))

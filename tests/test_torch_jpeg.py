@@ -400,5 +400,14 @@ def test_corrupt_streams_raise():
         i = no_dht.index(b"\xff\xc4")
         (n,) = struct.unpack_from(">H", no_dht, i + 2)
         no_dht = no_dht[:i] + no_dht[i + 2 + n:]
+    # libjpeg-turbo fills the DC and AC slots 0 and 1 that no DHT defines
+    # with T.81's standard tables (std_huff_tables), and PIL reads the
+    # stream with them
+    np.testing.assert_array_equal(jpeg.decode_jpeg(no_dht),
+                                  np.asarray(Image.open(io.BytesIO(no_dht))))
+    # a scan naming slot 2, which nothing defines, is refused by both
+    i = no_dht.index(b"\xff\xda")
+    slot2 = no_dht[:i + 6] + b"\x22" + no_dht[i + 7:]
+    assert isinstance(_pil_or_error(slot2), Exception)
     with pytest.raises(jpeg.JpegError, match="Huffman table"):
-        jpeg.decode_jpeg(no_dht)
+        jpeg.decode_jpeg(slot2)
