@@ -195,7 +195,12 @@ Phases (JSON lines; any failure exits non-zero):
                 alpha) and of the four committed TIFF frames (YCbCr
                 JPEG-in-TIFF 4:2:0, Zstandard and LZMA with predictor 2,
                 1297x840; a 1728-wide T.6 page), each held against the
-                SHA-256 of PIL's array. Needs train_cli and eval_cli.
+                SHA-256 of PIL's array; the fixtures of PIL's small readers
+                (tests/data/ppm, tga, ico, qoi, pcx, sgi) among the
+                containers, and the median ms of 5 decodes of each frame
+                of the Targa, Iris and PPM capture and of a 1297x840 P6
+                and uncompressed Targa written from the lossless WebP
+                frame (held equal to it). Needs train_cli and eval_cli.
   webp_colmap   python -m irgs_tpu_torch.train for 5 iterations at the
                 BENCH budgets on the committed COLMAP capture of WebP frames
                 (tests/data/webp/colmap: 4 views at 400², two lossy, one
@@ -208,6 +213,11 @@ Phases (JSON lines; any failure exits non-zero):
                 JPEG-in-TIFF 4:2:0 with JPEGTables, RGB JPEG-in-TIFF, YCbCr
                 LZW at 2x2, RGBA Zstandard tiles with predictor 2), a main
                 path of its own.
+  tga_sgi_ppm_colmap  the same on the committed COLMAP capture of Targa,
+                Iris and PPM frames (tests/data/tga/colmap: the same 4
+                views as Targa RLE RGB, Iris RLE RGB, binary PPM and Targa
+                raw RGBA with a bottom-left origin), a main path of its
+                own.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -3361,9 +3371,12 @@ def phase_parallel(results, tmp):
 JPEG_FIXTURES = os.path.join(ROOT, "tests", "data", "jpeg")
 PNG_FIXTURES = os.path.join(ROOT, "tests", "data", "png")
 PI_FIXTURES = os.path.join(ROOT, "tests", "data", "process_images")
-# the TIFF, BMP, GIF and WebP fixtures: format -> extension
+# the TIFF, BMP, GIF, WebP fixtures and those of PIL's small readers:
+# format -> extension
 CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif",
-                      "webp": ".webp"}
+                      "webp": ".webp", "ppm": ".ppm", "tga": ".tga",
+                      "ico": ".ico", "qoi": ".qoi", "pcx": ".pcx",
+                      "sgi": ".sgi"}
 # re-saves that carry another fixture's coefficients, and so its array
 # (tests/make_jpeg_fixtures.py ARRAY_OF)
 JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
@@ -3395,17 +3408,21 @@ def jpeg_fixtures_exact():
 
 
 def container_fixtures_exact():
-    """Every committed TIFF, BMP, GIF and WebP fixture through the
-    content-sniffing reader (utils/image.read_image_like_pil) -> ({"fmt/name":
-    array, mode, palette and transparency equal to PIL's}, {"fmt/name" of a
-    refused stream: the format's reader raised its own error, naming what
-    is not ported where PIL reads the stream})."""
+    """Every committed TIFF, BMP, GIF, WebP, Netpbm, Targa, ICO/CUR/DIB,
+    QOI, PCX and SGI fixture through the content-sniffing reader
+    (utils/image.read_image_like_pil) -> ({"fmt/name": array, mode, palette
+    and transparency equal to PIL's}, {"fmt/name" of a refused stream: the
+    format's reader (for the small readers the content-sniffing one, as
+    PIL tries its plugins) raised its own error, naming what is not ported
+    where PIL reads the stream})."""
     import numpy as np
     from irgs_tpu_torch.utils import bmp, gif, image, tiff, webp
     readers = {"tiff": (tiff.read_tiff_like_pil, tiff.TiffError),
                "bmp": (bmp.read_bmp_like_pil, bmp.BmpError),
                "gif": (gif.read_gif_like_pil, gif.GifError),
                "webp": (webp.read_webp_like_pil, webp.WebpError)}
+    for fmt in ("ppm", "tga", "ico", "qoi", "pcx", "sgi"):
+        readers[fmt] = (image.read_image_like_pil, ValueError)
     exact, refused = {}, {}
     for fmt, ext in CONTAINER_FIXTURES.items():
         folder = os.path.join(ROOT, "tests", "data", fmt)
@@ -3558,6 +3575,39 @@ def large_frames_ms(fmt="webp", ext=".webp"):
         ms[name], ms_all[name] = _median_ms(
             lambda: image.read_image_like_pil(path))
         sizes[name] = os.path.getsize(path)
+    return ms, ms_all, equal, sizes
+
+
+def small_decode_ms(tmp):
+    """The median ms of 5 decodes of each frame of the committed capture of
+    Targa, Iris and PPM frames (tests/data/tga/colmap), and of a 1297x840
+    binary PPM (P6) and an uncompressed Targa that this run writes from the
+    committed lossless WebP frame -> ({name: median ms}, {name: all ms},
+    {name of a written frame: decoded equal to its source}, {name:
+    bytes})."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import image_streams as ims
+    from irgs_tpu_torch.utils import image
+    paths = {}
+    for name in sorted(os.listdir(os.path.join(SMALL_CAPTURE, "images"))):
+        paths[name] = os.path.join(SMALL_CAPTURE, "images", name)
+    src = image.read_rgb_like_pil(os.path.join(WEBP_FIXTURES, "large",
+                                               "large_lossless.webp"))
+    written = {"large_p6.ppm": ims.write_pnm_raw(src, b"P6", 255),
+               "large_raw.tga": ims.write_tga(src, itype=2, depth=24)}
+    for name, data in written.items():
+        paths[name] = os.path.join(tmp, name)
+        with open(paths[name], "wb") as f:
+            f.write(data)
+    ms, ms_all, sizes = {}, {}, {}
+    for name, path in paths.items():
+        ms[name], ms_all[name] = _median_ms(
+            lambda: image.read_image_like_pil(path))
+        sizes[name] = os.path.getsize(path)
+    equal = {name: list(src.shape) == [840, 1297, 3] and bool(
+        np.array_equal(image.read_image_like_pil(paths[name])[0], src))
+        for name in written}
     return ms, ms_all, equal, sizes
 
 
@@ -4700,6 +4750,9 @@ def phase_images(results, tmp):
     c_ms, c_ms_all, c_equal, c_bytes = container_decode_ms(frame, tmp)
     w_ms, w_ms_all, w_equal, w_bytes = large_frames_ms()
     t_ms, t_ms_all, t_equal, t_bytes = large_frames_ms("tiff", ".tif")
+    a = time.perf_counter()
+    s_ms, s_ms_all, s_equal, s_bytes = small_decode_ms(tmp)
+    small_ms_s = time.perf_counter() - a
 
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
@@ -4723,7 +4776,9 @@ def phase_images(results, tmp):
             "container_bytes": c_bytes, "decode_1297x840_webp_ms": w_ms,
             "decode_1297x840_webp_ms_all": w_ms_all, "webp_bytes": w_bytes,
             "decode_large_tiff_ms": t_ms, "decode_large_tiff_ms_all": t_ms_all,
-            "large_tiff_bytes": t_bytes}
+            "large_tiff_bytes": t_bytes, "decode_small_formats_ms": s_ms,
+            "decode_small_formats_ms_all": s_ms_all,
+            "small_formats_bytes": s_bytes, "small_formats_s": small_ms_s}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4736,7 +4791,7 @@ def phase_images(results, tmp):
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
             crops[f][:2] == want_crop[f] for f in srcs),
-        "containers_bit_for_bit": len(containers) >= 424 and all(
+        "containers_bit_for_bit": len(containers) >= 574 and all(
             containers.values()),
         "containers_refused_raise": bool(container_refused) and all(
             container_refused.values()),
@@ -4746,7 +4801,10 @@ def phase_images(results, tmp):
         "webp_large_frames_equal": len(w_equal) == 3 and all(
             w_equal.values()),
         "tiff_large_frames_equal": len(t_equal) == 4 and all(
-            t_equal.values())}
+            t_equal.values()),
+        "small_formats_large_frames_equal": len(s_equal) == 2 and all(
+            s_equal.values()),
+        "small_formats_capture_timed": len(s_ms) == 6}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4760,6 +4818,7 @@ def phase_images(results, tmp):
 
 WEBP_CAPTURE = os.path.join(WEBP_FIXTURES, "colmap")
 TIFF_CAPTURE = os.path.join(ROOT, "tests", "data", "tiff", "colmap")
+SMALL_CAPTURE = os.path.join(ROOT, "tests", "data", "tga", "colmap")
 CAPTURE_ITERS = 5
 
 
@@ -4769,6 +4828,10 @@ def phase_webp_colmap(results, tmp):
 
 def phase_tiff_colmap(results, tmp):
     _capture_phase(results, tmp, "tiff_colmap", TIFF_CAPTURE)
+
+
+def phase_tga_sgi_ppm_colmap(results, tmp):
+    _capture_phase(results, tmp, "tga_sgi_ppm_colmap", SMALL_CAPTURE)
 
 
 def _capture_phase(results, tmp, phase, capture):
@@ -4853,7 +4916,8 @@ KERNELS = {
                "sh4_stage2": "sh4_stage2_64px",
                "sh4_eval": "sh4_eval_64px",
                "webp_colmap": "webp_colmap_400px",
-               "tiff_colmap": "tiff_colmap_400px"}),
+               "tiff_colmap": "tiff_colmap_400px",
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4878,7 +4942,8 @@ KERNELS = {
                "sh4_stage1": "sh4_stage1_64px",
                "sh4_stage2": "sh4_stage2_64px",
                "webp_colmap": "webp_colmap_400px",
-               "tiff_colmap": "tiff_colmap_400px"}),
+               "tiff_colmap": "tiff_colmap_400px",
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -4905,7 +4970,8 @@ KERNELS = {
                "sh4_stage2": "sh4_stage2_64px_first_pass",
                "sh4_eval": "sh4_eval_64px_first_pass",
                "webp_colmap": "webp_colmap_400px_first_pass",
-               "tiff_colmap": "tiff_colmap_400px_first_pass"}),
+               "tiff_colmap": "tiff_colmap_400px_first_pass",
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -4933,7 +4999,8 @@ KERNELS = {
                "sh4_stage1": "sh4_stage1_largest",
                "sh4_stage2": "sh4_stage2_largest",
                "webp_colmap": "webp_colmap_largest",
-               "tiff_colmap": "tiff_colmap_largest"}),
+               "tiff_colmap": "tiff_colmap_largest",
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -4973,7 +5040,7 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
           "load_reproducer", "run_grid", "overfit", "images", "webp_colmap",
-          "tiff_colmap")
+          "tiff_colmap", "tga_sgi_ppm_colmap")
 
 
 def nvidia_smi_line():
@@ -5040,6 +5107,8 @@ def main():
             "images": lambda: phase_images(results, tmp),
             "webp_colmap": lambda: phase_webp_colmap(results, tmp),
             "tiff_colmap": lambda: phase_tiff_colmap(results, tmp),
+            "tga_sgi_ppm_colmap": lambda: phase_tga_sgi_ppm_colmap(results,
+                                                                   tmp),
         }
         for name in PHASES:
             if name in phases:

@@ -7,9 +7,10 @@ them to the device.
 Images are read by the port's own codecs: EXR through utils/exr.py and
 Radiance .hdr through utils/hdr.py (as cv2 gives it), chosen by the
 extension as the JAX package chooses; every other file through
-utils/image.read_image_like_pil, which picks PNG, JPEG, TIFF, BMP or GIF by
-the file's content, as PIL does, and decodes it to the array PIL gives the
-JAX package. Resizes are utils/resize.py's ports of cv2.resize.
+utils/image.read_image_like_pil, which picks the reader by the file's
+content in PIL's plugin order (PNG, JPEG, TIFF, BMP, DIB, GIF, WebP,
+Netpbm, Targa, ICO, CUR, QOI, PCX, SGI), as PIL does, and decodes it to
+the array PIL gives the JAX package. Resizes are utils/resize.py's ports of cv2.resize.
 """
 
 from __future__ import annotations

@@ -17,7 +17,14 @@ the height is negative. As PIL reads them:
     run loses its last pixel, the word alignment follows the file
     position, pixels no run reaches stay 0, too little data is refused).
 
-Streams PIL refuses raise BmpError.
+`_bitmap` and `_load` are PIL's BmpImageFile._bitmap and its tile: the
+BMP reader, the bare DIB (a BMP without its file header,
+BmpImagePlugin's DibImageFile) and the icon and cursor frames of
+utils/ico.py share them. A file cut in the last row's padding reads, as
+PIL's raw decoder reads it.
+
+Streams PIL refuses raise BmpError (BmpHeaderError, a NotThisFormat, where
+PIL's _open meets the end of the header and PIL tries the next plugin).
 """
 
 from __future__ import annotations
@@ -26,9 +33,16 @@ import struct
 
 import numpy as np
 
+from .image import NotThisFormat, bits_of, check_size
+
 
 class BmpError(ValueError):
     pass
+
+
+class BmpHeaderError(BmpError, NotThisFormat):
+    """The header ends where PIL's _open meets the end of the data (a
+    struct.error there): PIL tries the next plugin."""
 
 
 _BIT2MODE = {1: ("P", "P;1"), 4: ("P", "P;4"), 8: ("P", "P"),
@@ -49,21 +63,12 @@ _MASK_MODES = {
 RAW, RLE8, RLE4, BITFIELDS = 0, 1, 2, 3
 
 
-def _bits_of(rows: np.ndarray, bits: int, width: int) -> np.ndarray:
-    """[H, stride] row bytes -> [H, width] values of `bits` bits, MSB
-    first."""
-    per = 8 // bits
-    shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
-    v = (rows[..., None] >> shifts) & ((1 << bits) - 1)
-    return v.reshape(rows.shape[0], -1)[:, :width]
-
-
 def _unpack(rows: np.ndarray, rawmode: str, width: int) -> np.ndarray:
     """PIL's unpacker `rawmode` on [H, stride] row bytes."""
     if rawmode == "1":
-        return _bits_of(rows, 1, width).astype(bool)
+        return bits_of(rows, 1, width).astype(bool)
     if rawmode in ("P;1", "P;4"):
-        return _bits_of(rows, int(rawmode[2]), width).astype(np.uint8)
+        return bits_of(rows, int(rawmode[2]), width).astype(np.uint8)
     if rawmode in ("P", "L"):
         return np.ascontiguousarray(rows[:, :width])
     if rawmode in ("BGR;15", "BGR;16"):
@@ -135,16 +140,22 @@ def _rle(buf: bytes, pos: int, w: int, h: int, rle4: bool) -> np.ndarray:
     return np.frombuffer(bytes(data[:need]), np.uint8).reshape(h, w)
 
 
-def decode_bmp(buf: bytes, name: str = "BMP"):
-    """(array, mode, info) of a BMP file's bytes."""
-    if not buf.startswith(b"BM") or len(buf) < 18:
-        raise BmpError(f"{name}: not a BMP file")
-    offset = struct.unpack_from("<I", buf, 10)[0]
-    header_size = struct.unpack_from("<I", buf, 14)[0]
-    hd = buf[18:14 + header_size]
-    if header_size < 4 or len(hd) < header_size - 4:
+def _bitmap(buf: bytes, start: int, offset: int, name: str,
+            header: int = 0) -> dict:
+    """BmpImageFile._bitmap on the bitmap header at `start` (a BMP's past its
+    file header, a DIB's at 0, an icon frame's at its offset): the plan of
+    PIL's tile (size, mode, raw mode, run-length flag, where the pixels
+    start, row stride and direction, info). `offset` is a BMP's pixel
+    offset (0: the pixels follow the header and palette); `header` is the
+    offset PIL was asked to seek to (22: a cursor's one 32-bit frame,
+    which PIL reads with its alpha)."""
+    if start + 4 > len(buf):
+        raise BmpHeaderError(f"{name}: short bitmap header")
+    header_size = struct.unpack_from("<I", buf, start)[0]
+    hd = buf[start + 4:start + header_size] if header_size > 4 else b""
+    if len(hd) < header_size - 4:
         raise BmpError(f"{name}: truncated BMP header")
-    pos = 14 + header_size
+    pos = start + 4 + len(hd)
     direction = -1
     masks = None
     if header_size == 12:
@@ -165,7 +176,7 @@ def decode_bmp(buf: bytes, name: str = "BMP"):
                          if len(hd) >= 52 else 0)
             else:
                 if pos + 12 > len(buf):
-                    raise BmpError(f"{name}: truncated bitfield masks")
+                    raise BmpHeaderError(f"{name}: truncated bitfield masks")
                 m = list(struct.unpack_from("<III", buf, pos)) + [0]
                 pos += 12
             masks = tuple(m)
@@ -186,14 +197,19 @@ def decode_bmp(buf: bytes, name: str = "BMP"):
             rawmode = _MASK_MODES[(bits, masks[:3])]
         else:
             raise BmpError(f"{name}: unsupported BMP bitfields layout")
-    elif compression not in (RAW, RLE8, RLE4):
+    elif compression == RAW:
+        if bits == 32 and header == 22:
+            rawmode, mode = "BGRA", "RGBA"
+    elif compression not in (RLE8, RLE4):
         raise BmpError(f"{name}: unsupported BMP compression "
                        f"({compression})")
     info = {"compression": compression}
+    palette = None
     if mode == "P":
         if not 0 < colors <= 65536:
             raise BmpError(f"{name}: unsupported BMP palette size ({colors})")
         pal = buf[pos:pos + padding * colors]
+        pos += len(pal)
         ramp = (0, 255) if colors == 2 else range(colors)
         grey = all(pal[i * padding:i * padding + 3] == bytes([v]) * 3
                    for i, v in enumerate(ramp))
@@ -202,27 +218,72 @@ def decode_bmp(buf: bytes, name: str = "BMP"):
         else:
             n = len(pal) // padding
             p = np.frombuffer(pal[:n * padding], np.uint8).reshape(n, padding)
-            info["palette"] = np.ascontiguousarray(p[:, 2::-1])
-    if compression in (RLE8, RLE4):
-        if mode == "1":
-            raise BmpError(f"{name}: unknown raw mode for a bilevel RLE "
+            palette = np.ascontiguousarray(p[:, 2::-1])
+    return dict(w=w, h=h, mode=mode, rawmode=rawmode, bits=bits,
+                rle=None if compression not in (RLE8, RLE4)
+                else compression == RLE4, data=offset or pos,
+                stride=((w * bits + 31) >> 3) & ~3, direction=direction,
+                info=info, palette=palette)
+
+
+def _load(buf: bytes, bm: dict, h: int, name: str) -> np.ndarray:
+    """The pixels of plan `bm` (from `_bitmap`), `h` rows, as PIL's tile
+    decodes them; the palette, as PIL realizes it, into bm["info"]."""
+    w, mode, rawmode = bm["w"], bm["mode"], bm["rawmode"]
+    if bm["rle"] is not None:
+        # PIL's BmpRleDecoder hands its bytes on as "L" or "P" pixels
+        if mode not in ("L", "P"):
+            raise BmpError(f"{name}: unknown raw mode for a {mode} RLE "
                            f"image")
-        rows = _rle(buf, offset, w, h, compression == RLE4)
-        arr = rows[::-1] if direction == -1 else rows
+        rows = _rle(buf, bm["data"], w, h, bm["rle"])
+        arr = rows[::-1] if bm["direction"] == -1 else rows
     else:
-        stride = ((w * bits + 31) >> 3) & ~3
+        stride = bm["stride"]
         unpack_bits = {"1": 1, "L": 8, "P;1": 1, "P;4": 4, "P": 8,
                        "BGR;15": 16, "BGR;16": 16, "BGR": 24}.get(
                            rawmode, 8 * len(rawmode))
         if (w * unpack_bits + 7) // 8 > stride:
             raise BmpError(f"{name}: decoder configuration error (rows of "
                            f"{stride} bytes for {rawmode})")
-        data = buf[offset:offset + stride * h]
-        if len(data) < stride * h:
+        # PIL's raw decoder skips a row's padding only before the next row:
+        # the last row's padding may be missing
+        data = buf[bm["data"]:bm["data"] + stride * h]
+        if len(data) < stride * (h - 1) + (w * unpack_bits + 7) // 8:
             raise BmpError(f"{name}: image file is truncated")
-        rows = np.frombuffer(data, np.uint8).reshape(h, stride)
-        arr = _unpack(rows[::-1] if direction == -1 else rows, rawmode, w)
-    return np.ascontiguousarray(arr), mode, info
+        rows = np.frombuffer(data.ljust(stride * h, b"\0"),
+                             np.uint8).reshape(h, stride)
+        arr = _unpack(rows[::-1] if bm["direction"] == -1 else rows, rawmode,
+                      w)
+    if bm["palette"] is not None:
+        if len(bm["palette"]) > 256:
+            raise BmpError(f"{name}: invalid palette size "
+                           f"({len(bm['palette'])})")
+        bm["info"]["palette"] = bm["palette"]
+    return np.ascontiguousarray(arr)
+
+
+def decode_bmp(buf: bytes, name: str = "BMP"):
+    """(array, mode, info) of a BMP file's bytes."""
+    if not buf.startswith(b"BM") or len(buf) < 14:
+        raise BmpHeaderError(f"{name}: not a BMP file")
+    bm = _bitmap(buf, 14, struct.unpack_from("<I", buf, 10)[0], name)
+    check_size(bm["w"], bm["h"], name)
+    return _load(buf, bm, bm["h"], name), bm["mode"], bm["info"]
+
+
+def decode_dib(buf: bytes, name: str = "DIB"):
+    """(array, mode, info) of a DIB's bytes: a BMP without its file header,
+    the pixels right after the header and palette (BmpImagePlugin's
+    DibImageFile)."""
+    bm = _bitmap(buf, 0, 0, name)
+    check_size(bm["w"], bm["h"], name)
+    return _load(buf, bm, bm["h"], name), bm["mode"], bm["info"]
+
+
+def read_dib_like_pil(path: str):
+    """(array, mode, info) of ``im = PIL.Image.open(path)`` for a DIB."""
+    with open(path, "rb") as f:
+        return decode_dib(f.read(), path)
 
 
 def read_bmp_like_pil(path: str):

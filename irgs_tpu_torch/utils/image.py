@@ -4,20 +4,31 @@ resampling for the eval CLIs.
 The JAX package reads LDR frames with ``np.asarray(Image.open(p))``
 (irgs_tpu/scene/datasets.py:59-60) and COLMAP frames with
 ``Image.open(p).convert("RGB")`` (irgs_tpu/scene/colmap.py:122). PIL picks
-the decoder from the file's first bytes, whatever its name, and so does
+the decoder from the file's content, whatever its name, and so does
 `read_image_like_pil`; the port's readers (utils/png.py, jpeg.py, tiff.py,
-bmp.py, gif.py, webp.py) return PIL's array together with its mode (and
+bmp.py with DIB, gif.py, webp.py, ppm.py, tga.py, ico.py with CUR,
+qoi.py, pcx.py, sgi.py) return PIL's array together with its mode (and
 palette); `to_rgb_like_pil` then converts as Pillow's Convert.c does for
 each mode.
 
-A file that none of those readers takes is identified as PIL would
-identify it: each of Pillow 12's other plugins in ``Image.OPEN``'s order,
-by its ``_accept`` prefix check (and, for the plugins that have none, the
-first checks of their ``_open``). A format PIL reads and the port does not
-(PPM, TGA, ICO, QOI, PCX, SGI, PSD, JPEG 2000, AVIF, DDS, ...) raises
-`UnreadableImageError` "<FORMAT> is not ported", naming PIL's format;
-bytes that no plugin accepts raise "cannot identify image file", as PIL's
-UnidentifiedImageError.
+Plugins are tried as Image.open tries them in a fresh process (_PLUGINS):
+first the six Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then,
+once none of those took the file, Image.init's whole list in Image.OPEN's
+order. (A process that has called Image.init() before its first open
+tries every plugin in Image.OPEN's order from the start, BMP after AVIF
+and BLP; the fresh order is the one a loader's first frame meets.) A
+plugin whose prefix check passes is tried; where its header parse fails
+as PIL's _open fails (SyntaxError, IndexError, TypeError, KeyError,
+EOFError, struct.error, or no size: `NotThisFormat`), the next plugin is
+tried, as PIL does; errors in the pixel data (PIL's load) raise. A format
+PIL reads and the port does not (PSD, JPEG 2000, AVIF, DDS, ...) raises
+`UnreadableImageError` "<FORMAT> is not ported", naming PIL's format:
+for those plugins only their prefix check (and, where PIL has none, the
+first checks of their _open) is modelled, so a file such a plugin would
+refuse in _open stops there. Bytes that no plugin takes raise "cannot
+identify image file", as PIL's UnidentifiedImageError. The readers that
+predate the fresh order (PNG, JPEG, TIFF, GIF, WebP) raise their own
+errors on a bad header rather than hand the file on.
 """
 
 from __future__ import annotations
@@ -100,75 +111,130 @@ def _imt(head):
             and int(keys[b"width"]) > 0 and int(keys[b"height"]) > 0)
 
 
-def _tga(h):
-    """TgaImagePlugin's header checks."""
-    return (len(h) >= 18 and h[1] in (0, 1) and _i16(h, 12) > 0
-            and _i16(h, 14) > 0 and h[16] in (1, 8, 16, 24, 32)
-            and h[2] in (1, 2, 3, 9, 10, 11))
+def _gbr(head):
+    """GbrImagePlugin's _accept and the checks of its _open: header size,
+    version, a size and a colour depth of 1 or 4 (version 2: "GIMP")."""
+    if len(head) < 20 or _i32be(head) < 20 or _i32be(head, 4) not in (1, 2):
+        return False
+    w, h, depth = (_i32be(head, 8), _i32be(head, 12), _i32be(head, 16))
+    return (w > 0 and h > 0 and depth in (1, 4)
+            and (_i32be(head, 4) == 1 or head[20:24] == b"GIMP"))
 
 
-# Pillow 12's plugins other than the ported ones, in Image.OPEN's order:
-# (format, does PIL's plugin take these first bytes)
-_PIL_FORMATS = (
+# Pillow 12's plugins in the order PIL tries them in a fresh process:
+# (format, its _accept on the file's first 16 bytes -- None where the
+# plugin has none and PIL tries its _open on every file --, the port's
+# reader as "module.function", or None where the port does not read it).
+# For the plugins the port does not read and PIL tries without a prefix
+# check (or whose prefix check a Targa header can pass), the accept
+# function stands for the first checks of their _open and takes the
+# file's first 4,096 bytes (_WHOLE_HEAD).
+_PLUGINS = (
+    ("BMP", lambda h: h.startswith(b"BM"), "bmp.read_bmp_like_pil"),
+    ("DIB", lambda h: _i32(h) in (12, 40, 52, 56, 64, 108, 124),
+     "bmp.read_dib_like_pil"),
+    ("GIF", lambda h: h.startswith((b"GIF87a", b"GIF89a")),
+     "gif.read_gif_like_pil"),
+    ("JPEG", lambda h: h.startswith(b"\xff\xd8\xff"),
+     "jpeg.read_jpeg_like_pil"),
+    ("PPM", lambda h: len(h) >= 2 and h[:1] == b"P" and h[1] in b"0123456fy",
+     "ppm.read_ppm_like_pil"),
+    ("PNG", lambda h: h.startswith(b"\x89PNG\r\n\x1a\n"),
+     "png.read_png_like_pil"),
     ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (
-        b"avif", b"avis", b"mif1", b"msf1")),
-    ("BLP", lambda h: h.startswith((b"BLP1", b"BLP2"))),
-    ("DIB", lambda h: _i32(h) in (12, 40, 52, 56, 64, 108, 124)),
-    ("BUFR", lambda h: h.startswith((b"BUFR", b"ZCZC"))),
-    ("CUR", lambda h: h.startswith(b"\0\0\2\0") and _i16(h, 4) > 0),
-    ("PCX", lambda h: len(h) >= 2 and h[0] == 10 and h[1] in (0, 2, 3, 5)),
-    ("DCX", lambda h: _i32(h) == 0x3ADE68B1),
-    ("DDS", lambda h: h.startswith(b"DDS ")),
-    ("EPS", lambda h: h.startswith(b"%!PS") or _i32(h) == 0xC6D3D0C5),
-    ("FITS", lambda h: h.startswith(b"SIMPLE")),
+        b"avif", b"avis", b"mif1", b"msf1"), None),
+    ("BLP", lambda h: h.startswith((b"BLP1", b"BLP2")), None),
+    ("BUFR", lambda h: h.startswith((b"BUFR", b"ZCZC")), None),
+    ("CUR", lambda h: h.startswith(b"\0\0\2\0"), "ico.read_cur_like_pil"),
+    ("PCX", lambda h: len(h) >= 2 and h[0] == 10 and h[1] in (0, 2, 3, 5),
+     "pcx.read_pcx_like_pil"),
+    ("DCX", lambda h: _i32(h) == 0x3ADE68B1, None),
+    ("DDS", lambda h: h.startswith(b"DDS "), None),
+    ("EPS", lambda h: h.startswith(b"%!PS") or _i32(h) == 0xC6D3D0C5, None),
+    ("FITS", lambda h: h.startswith(b"SIMPLE"), None),
     ("FLI", lambda h: len(h) >= 16 and _i16(h, 4) in (0xAF11, 0xAF12)
-     and _i16(h, 14) in (0, 3)),
-    ("FTEX", lambda h: h.startswith(b"FTEX")),
-    ("GBR", lambda h: len(h) >= 8 and _i32be(h) >= 20
-     and _i32be(h, 4) in (1, 2)),
-    ("GRIB", lambda h: len(h) >= 8 and h.startswith(b"GRIB") and h[7] == 1),
-    ("HDF5", lambda h: h.startswith(b"\x89HDF\r\n\x1a\n")),
+     and _i16(h, 14) in (0, 3), None),
+    ("FTEX", lambda h: h.startswith(b"FTEX"), None),
+    ("GBR", _gbr, None),
+    ("GRIB", lambda h: len(h) >= 8 and h.startswith(b"GRIB") and h[7] == 1,
+     None),
+    ("HDF5", lambda h: h.startswith(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", lambda h: h.startswith(
-        (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"))),
-    ("ICNS", lambda h: h.startswith(b"icns")),
-    ("ICO", lambda h: h.startswith(b"\0\0\1\0")),
-    ("IM", _im),
-    ("IMT", _imt),
+        (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
+     None),
+    ("ICNS", lambda h: h.startswith(b"icns"), None),
+    ("ICO", lambda h: h.startswith(b"\0\0\1\0"), "ico.read_ico_like_pil"),
+    ("IM", _im, None),
+    ("IMT", _imt, None),
     ("IPTC", lambda h: len(h) >= 5 and h[0] == 0x1C
-     and h[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)),
-    ("MCIDAS", lambda h: h.startswith(b"\0\0\0\0\0\0\0\4")),
-    ("MPEG", lambda h: h.startswith(b"\0\0\1\xb3")),
-    ("MSP", lambda h: h.startswith((b"DanM", b"LinS"))),
-    ("PCD", lambda h: h[2048:2052] == b"PCD_"),
-    ("PIXAR", lambda h: h.startswith(b"\200\350\000\000")),
-    ("PPM", lambda h: len(h) >= 2 and h[:1] == b"P" and h[1] in b"0123456fy"),
-    ("PSD", lambda h: h.startswith(b"8BPS")),
-    ("QOI", lambda h: h.startswith(b"qoif")),
-    ("SGI", lambda h: h[:2] == b"\x01\xda"),
-    ("SPIDER", _spider),
-    ("SUN", lambda h: _i32be(h) == 0x59A66A95),
-    ("TGA", _tga),
-    ("WMF", lambda h: h.startswith((b"\xd7\xcd\xc6\x9a\x00\x00",
-                                    b"\x01\x00\x00\x00"))),
-    ("XBM", lambda h: h.lstrip().startswith(b"#define")),
-    ("XPM", lambda h: h.startswith(b"/* XPM */")),
-    ("XVThumb", lambda h: h.startswith(b"P7 332")),
+     and h[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240), None),
+    ("MCIDAS", lambda h: h.startswith(b"\0\0\0\0\0\0\0\4"), None),
+    ("MPEG", lambda h: h.startswith(b"\0\0\1\xb3"), None),
+    ("TIFF", lambda h: h.startswith(_TIFF_PREFIXES),
+     "tiff.read_tiff_like_pil"),
+    ("MSP", lambda h: h.startswith((b"DanM", b"LinS")), None),
+    ("PCD", lambda h: h[2048:2052] == b"PCD_", None),
+    ("PIXAR", lambda h: h.startswith(b"\200\350\000\000"), None),
+    ("PSD", lambda h: h.startswith(b"8BPS"), None),
+    ("QOI", lambda h: h.startswith(b"qoif"), "qoi.read_qoi_like_pil"),
+    ("SGI", lambda h: len(h) >= 2 and h[:2] == b"\x01\xda",
+     "sgi.read_sgi_like_pil"),
+    ("SPIDER", _spider, None),
+    ("SUN", lambda h: _i32be(h) == 0x59A66A95, None),
+    ("TGA", None, "tga.read_tga_like_pil"),
+    ("WEBP", lambda h: h.startswith(b"RIFF") and h[8:12] == b"WEBP"
+     and h[12:16] in (b"VP8 ", b"VP8L", b"VP8X"), "webp.read_webp_like_pil"),
+    ("WMF", lambda h: h.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
+        h.startswith(b"\x01\x00\x00\x00") and h[40:44] == b" EMF"), None),
+    ("XBM", lambda h: h.lstrip().startswith(b"#define"), None),
+    ("XPM", lambda h: h.startswith(b"/* XPM */"), None),
+    ("XVThumb", lambda h: h.startswith(b"P7 332"), None),
 )
-
-
-def _pil_format(head: bytes):
-    """The name of the first of PIL's other plugins that takes a file
-    starting with `head` (its first 2,052 bytes or more), or None."""
-    for name, accepts in _PIL_FORMATS:
-        if accepts(head):
-            return name
-    return None
+_WHOLE_HEAD = {"GBR", "IM", "IMT", "IPTC", "PCD", "SPIDER", "WMF"}
+# Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as many pixels
+# (DecompressionBombError)
+MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
 
 
 class UnreadableImageError(ValueError):
-    """None of the port's readers (PNG, JPEG, TIFF, BMP, GIF, WebP) takes
-    the file: PIL's UnidentifiedImageError where PIL has no reader for it
-    either, else a container PIL reads that is not ported yet."""
+    """No reader of the port takes the file: PIL's UnidentifiedImageError
+    where PIL has no reader for it either, else a format PIL reads that is
+    not ported yet, or an image PIL refuses as a decompression bomb."""
+
+
+class NotThisFormat(ValueError):
+    """A reader's header parse failed where PIL's plugin fails in _open
+    with SyntaxError, IndexError, TypeError, KeyError, EOFError or
+    struct.error, or leaves the image without a size: PIL goes on to the
+    next plugin, and so does `read_image_like_pil`."""
+
+
+def check_size(w: int, h: int, name: str) -> None:
+    """What PIL checks once a plugin's _open is done: a positive size
+    (else the next plugin is tried) and at most twice MAX_IMAGE_PIXELS."""
+    if w <= 0 or h <= 0:
+        raise NotThisFormat(f"{name}: not identified by this plugin "
+                            f"({w}x{h})")
+    if w * h > 2 * MAX_IMAGE_PIXELS:
+        raise UnreadableImageError(
+            f"{name}: image size ({w * h} pixels) exceeds limit of "
+            f"{2 * MAX_IMAGE_PIXELS} pixels, could be decompression bomb "
+            f"DOS attack.")
+
+
+def bits_of(rows: np.ndarray, bits: int, width: int) -> np.ndarray:
+    """[H, stride] row bytes -> [H, width] values of `bits` bits, MSB
+    first."""
+    per = 8 // bits
+    shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
+    v = (rows[..., None] >> shifts) & ((1 << bits) - 1)
+    return v.reshape(rows.shape[0], -1)[:, :width]
+
+
+def _reader(spec: str):
+    import importlib
+    module, func = spec.split(".")
+    return getattr(importlib.import_module(f"{__package__}.{module}"), func)
 
 
 def read_image_like_pil(path: str):
@@ -178,29 +244,17 @@ def read_image_like_pil(path: str):
     them."""
     with open(path, "rb") as f:
         head = f.read(4096)
-    if head.startswith(b"\x89PNG\r\n\x1a\n"):
-        from . import png
-        return png.read_png_like_pil(path)
-    if head.startswith(b"\xff\xd8\xff"):
-        from . import jpeg
-        return jpeg.read_jpeg_like_pil(path)
-    if head.startswith(_TIFF_PREFIXES):
-        from . import tiff
-        return tiff.read_tiff_like_pil(path)
-    if head.startswith(b"BM"):
-        from . import bmp
-        return bmp.read_bmp_like_pil(path)
-    if head.startswith((b"GIF87a", b"GIF89a")):
-        from . import gif
-        return gif.read_gif_like_pil(path)
-    if (head.startswith(b"RIFF") and head[8:12] == b"WEBP"
-            and head[12:16] in (b"VP8 ", b"VP8L", b"VP8X")):
-        from . import webp
-        return webp.read_webp_like_pil(path)
-    name = _pil_format(head)
-    if name is not None:
-        raise UnreadableImageError(f"{path}: {name} is not ported (PIL "
-                                   f"reads it as {name})")
+    for name, accepts, reader in _PLUGINS:
+        if accepts is not None and not accepts(
+                head if name in _WHOLE_HEAD else head[:16]):
+            continue
+        if reader is None:
+            raise UnreadableImageError(f"{path}: {name} is not ported (PIL "
+                                       f"reads it as {name})")
+        try:
+            return _reader(reader)(path)
+        except NotThisFormat:
+            continue
     raise UnreadableImageError(f"cannot identify image file {path}")
 
 

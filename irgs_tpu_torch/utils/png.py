@@ -37,22 +37,35 @@ class PngError(ValueError):
 
 
 def _chunks(buf: bytes):
-    """(type, payload) of every chunk, CRCs checked, up to IEND."""
+    """(type, payload) of every chunk up to IEND, as PIL reads them: the
+    chunks before the first IDAT with their CRCs checked (PIL's _open);
+    from the first IDAT on, as PIL's load reads them, no CRC, and a chunk
+    cut short or a missing IEND ends the stream."""
     if buf[:8] != _SIGNATURE:
         raise PngError("not a PNG file")
-    pos = 8
+    pos, data_seen = 8, False
     while pos + 12 <= len(buf):
         (n,) = struct.unpack_from(">I", buf, pos)
         kind = buf[pos + 4:pos + 8]
         data = buf[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack_from(">I", buf, pos + 8 + n)
-        if len(data) != n or zlib.crc32(kind + data) != crc:
-            raise PngError(f"corrupt {kind!r} chunk")
+        data_seen = data_seen or kind == b"IDAT"
+        if data_seen:
+            if len(data) != n:
+                if kind == b"IDAT":
+                    yield kind, data
+                return
+        else:
+            if pos + 12 + n > len(buf):
+                raise PngError(f"corrupt {kind!r} chunk")
+            (crc,) = struct.unpack_from(">I", buf, pos + 8 + n)
+            if zlib.crc32(kind + data) != crc:
+                raise PngError(f"corrupt {kind!r} chunk")
         pos += 12 + n
         yield kind, data
         if kind == b"IEND":
             return
-    raise PngError("missing IEND")
+    if not data_seen:
+        raise PngError("missing IEND")
 
 
 def _unfilter_average(x: np.ndarray, up: np.ndarray, bpp: int) -> np.ndarray:
@@ -132,10 +145,11 @@ def _decode_image(raw: np.ndarray, w: int, h: int, depth: int, nch: int,
         return 1 + (width * nch * depth + 7) // 8
 
     if not interlace:
-        if raw.size != h * stride(w):
+        # PIL's decoder stops at the last row: more data is not read
+        if raw.size < h * stride(w):
             raise PngError(f"{path}: {raw.size} bytes of image data, "
                            f"expected {h * stride(w)}")
-        rows = _unfilter(raw.reshape(h, stride(w)), bpp)
+        rows = _unfilter(raw[:h * stride(w)].reshape(h, stride(w)), bpp)
         return _unpack(rows, w, depth, nch)
     dtype = np.uint16 if depth == 16 else np.uint8
     img = np.zeros((h, w, nch), dtype)
@@ -150,9 +164,6 @@ def _decode_image(raw: np.ndarray, w: int, h: int, depth: int, nch: int,
         rows = _unfilter(raw[pos:pos + n].reshape(ph, stride(pw)), bpp)
         img[y0::dy, x0::dx] = _unpack(rows, pw, depth, nch)
         pos += n
-    if pos != raw.size:
-        raise PngError(f"{path}: {raw.size} bytes of image data, expected "
-                       f"{pos}")
     return img
 
 
@@ -177,7 +188,10 @@ def _read(path: str):
     [n, 3] or None, tRNS payload or None, info: ``icc_profile`` from the
     last iCCP chunk, as PIL's info holds it once the image is loaded)."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return _decode(f.read(), path)
+
+
+def _decode(buf: bytes, path: str):
     header, idat, palette, trns, info = None, [], None, None, {}
     for kind, data in _chunks(buf):
         if kind == b"iCCP":
@@ -203,7 +217,12 @@ def _read(path: str):
     if interlace not in (0, 1):
         raise PngError(f"{path}: unknown interlace method {interlace}")
     nch = 1 if ctype == 3 else _CHANNELS[ctype]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    # as PIL's ZIP decoder: a stream cut after the last row still reads
+    try:
+        raw = np.frombuffer(zlib.decompressobj().decompress(b"".join(idat)),
+                            np.uint8)
+    except zlib.error as e:
+        raise PngError(f"{path}: broken data stream ({e})") from None
     img = _decode_image(raw, w, h, depth, nch, interlace, path)
     return img, depth, ctype, palette, trns, info
 
@@ -244,7 +263,13 @@ def read_png_like_pil(path: str):
     and 4 bits "L" scaled to 0-255, at 16 bits "I;16"; palette at any depth
     "P" (the indices); 16-bit colour keeps each sample's high byte, and
     16-bit grey + alpha becomes RGBA."""
-    img, depth, ctype, palette, trns, info = _read(path)
+    with open(path, "rb") as f:
+        return decode_png_like_pil(f.read(), path)
+
+
+def decode_png_like_pil(buf: bytes, path: str = "PNG"):
+    """`read_png_like_pil` of a PNG stream's bytes (an icon's frame)."""
+    img, depth, ctype, palette, trns, info = _decode(buf, path)
     t = None if trns is None else _transparency(trns, ctype, depth)
     if t is not None:
         info["transparency"] = t

@@ -1,0 +1,98 @@
+"""ctypes bindings of ``csrc/small_decode.cpp``: the run-length and
+op-stream decoders of PIL's small readers (Targa RLE, PCX RLE, SGI RLE,
+QOI), built with g++ at first use (`native.build_library`). Each returns
+the decoder's line buffers, which the reader unpacks to PIL's mode, and
+raises `SmallCodecError` where PIL's decoder fails ("image file is
+truncated", "buffer overrun when reading image file")."""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import numpy as np
+
+from . import native
+
+SRC = Path(__file__).resolve().parents[1] / "csrc" / "small_decode.cpp"
+_LIB = None
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+class SmallCodecError(ValueError):
+    pass
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(native.build_library(SRC, "small_decode")))
+        i32, i64 = ctypes.c_int, ctypes.c_int64
+        lib.tga_rle_decode.argtypes = [_U8P, i64, i32, i64, i64, _U8P]
+        lib.pcx_decode.argtypes = [_U8P, i64, i64, i32, i64, i64, _U8P]
+        lib.sgi_rle_decode.argtypes = [_U8P, i64, i64, i64, i32, i32, _U8P,
+                                       ctypes.POINTER(ctypes.c_int64)]
+        lib.qoi_decode.argtypes = [_U8P, i64, i64, i32, _U8P]
+        for f in (lib.tga_rle_decode, lib.pcx_decode, lib.sgi_rle_decode,
+                  lib.qoi_decode):
+            f.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(rc: int, what: str) -> None:
+    if rc == 1:
+        raise SmallCodecError(f"{what}: image file is truncated")
+    if rc < 0:
+        raise SmallCodecError(f"{what}: buffer overrun when reading image "
+                              f"file")
+
+
+def _src(data: bytes) -> np.ndarray:
+    return np.frombuffer(data, np.uint8) if data else np.zeros(1, np.uint8)
+
+
+def tga_rle(data: bytes, depth: int, linebytes: int, rows: int) -> np.ndarray:
+    """TgaRleDecode: [rows, linebytes] uint8 lines in the order decoded;
+    `depth` bytes a pixel."""
+    out = np.zeros((rows, linebytes), np.uint8)
+    src = _src(data)
+    _check(_lib().tga_rle_decode(src.ctypes.data_as(_U8P), len(data), depth,
+                                 linebytes, rows, out.ctypes.data_as(_U8P)),
+           "Targa RLE")
+    return out
+
+
+def pcx(data: bytes, xsize: int, bits: int, linebytes: int,
+        rows: int) -> np.ndarray:
+    """PcxDecode: [rows, linebytes] uint8 lines as handed to the unpacker
+    (`bits` bits a pixel for `xsize` pixels)."""
+    out = np.zeros((rows, linebytes), np.uint8)
+    src = _src(data)
+    _check(_lib().pcx_decode(src.ctypes.data_as(_U8P), len(data), xsize, bits,
+                             linebytes, rows, out.ctypes.data_as(_U8P)),
+           "PCX RLE")
+    return out
+
+
+def sgi_rle(data: bytes, xsize: int, ysize: int, bands: int,
+            bpc: int) -> np.ndarray:
+    """SgiRleDecode on the file's bytes past its 512-byte header: [ysize,
+    xsize * bands * bpc] uint8 lines in the order decoded; lines after a
+    row that stopped the decoder stay 0, as PIL leaves them."""
+    out = np.zeros((ysize, xsize * bands * bpc), np.uint8)
+    src = _src(data)
+    rows = ctypes.c_int64(0)
+    _check(_lib().sgi_rle_decode(src.ctypes.data_as(_U8P), len(data), xsize,
+                                 ysize, bands, bpc, out.ctypes.data_as(_U8P),
+                                 ctypes.byref(rows)), "SGI RLE")
+    return out
+
+
+def qoi(data: bytes, npix: int, bands: int) -> np.ndarray:
+    """QoiDecoder: [npix, bands] uint8 pixels."""
+    out = np.zeros((npix, bands), np.uint8)
+    src = _src(data)
+    _check(_lib().qoi_decode(src.ctypes.data_as(_U8P), len(data), npix, bands,
+                             out.ctypes.data_as(_U8P)), "QOI")
+    return out

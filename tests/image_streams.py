@@ -1,4 +1,5 @@
-"""Test-side writers of the TIFF, BMP and GIF layouts PIL cannot write:
+"""Test-side writers of the TIFF, BMP, GIF, Targa, SGI, Netpbm, PCX and
+ICO/CUR layouts PIL cannot write:
 TIFF strips and tiles, planar configurations 1 and 2, both byte orders,
 fill order 2, 1 to 32 bits per sample, the PackBits, LZW (MSB-first, early
 change), Deflate, Zstandard (the system's libzstd) and LZMA (.xz, Python's
@@ -8,10 +9,14 @@ info, V4 and V5
 headers, 1 to 32 bits, RLE8, RLE4 and bitfields, rows either way up; GIF
 frames at an offset, interlaced, with a local palette, a transparency
 index, LZW (LSB-first) with or without a leading clear code and with a
-deferred clear.
+deferred clear; Targa 15/16-bit pixels and colour maps from any index,
+run-length packets across rows; SGI run-length rows (8 and 16 bits,
+shared rows); Netpbm in ASCII, at any maxval, and PFM; PCX at 1 bit in
+2 or 4 planes with padded strides; icons mixing DIB and PNG frames, and
+cursors.
 
 PIL decodes each file written, and its array is the oracle. Used by
-tests/make_{tiff,bmp,gif}_fixtures.py and their tests; pure Python, so
+tests/make_{tiff,bmp,gif,small}_fixtures.py and their tests; pure Python, so
 the images stay small.
 """
 
@@ -555,6 +560,280 @@ def write_gif(idx: np.ndarray, *, screen=None, offset=(0, 0),
 
 
 # ---------------------------------------------------------------------------
+# PIL's small formats: Targa, SGI, Netpbm, PCX, ICO/CUR
+
+
+def _tga_rle(px: np.ndarray, h: int, w: int) -> bytes:
+    """Targa RLE of [h * w, depth] pixel bytes: runs of two or more equal
+    pixels as run packets, which never cross a row (PIL refuses those);
+    literal packets run on across rows."""
+    out = bytearray()
+    seq = [bytes(p) for p in px]
+    lit = []
+
+    def flush():
+        while lit:
+            part = lit[:128]
+            del lit[:128]
+            out.append(len(part) - 1)
+            out.extend(b"".join(part))
+
+    i = 0
+    while i < len(seq):
+        j = i
+        while j + 1 < len(seq) and seq[j + 1] == seq[i] and j + 1 - i < 128 \
+                and (j + 1) // w == i // w:
+            j += 1
+        if j > i:
+            flush()
+            out.append(0x80 | (j - i))
+            out.extend(seq[i])
+            i = j + 1
+        else:
+            lit.append(seq[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def write_tga(arr: np.ndarray, *, itype: int, depth: int, cmap=None,
+              cmap_depth: int = 24, cmap_start: int = 0, id_field=b"",
+              top: bool = False, mirror: bool = False) -> bytes:
+    """A Targa file: `arr` holds what each pixel stores, [H, W] indices,
+    grey or 16-bit words (depth 16, types 2 and 10), [H, W] bool (depth 1),
+    [H, W, 2] grey + alpha, [H, W, 3] RGB or [H, W, 4] RGBA. `cmap`:
+    [n, 3] RGB, [n, 4] RGBA or [n] 16-bit entries of `cmap_depth` bits,
+    from index `cmap_start`. Types 9-11 are run-length coded."""
+    arr = np.asarray(arr)
+    h, w = arr.shape[:2]
+    rows = arr if top else arr[::-1]
+    if mirror:
+        rows = rows[:, ::-1]
+    if depth == 1:
+        data = _pack_bits_rows(np.asarray(rows, np.uint8), 1)
+        px = None
+    elif depth == 16 and itype & 7 == 2:
+        px = np.asarray(rows, "<u2").reshape(-1, 1).view(np.uint8)
+    elif rows.ndim == 3 and rows.shape[2] >= 3:
+        order = [2, 1, 0, 3][:rows.shape[2]]
+        px = np.asarray(rows, np.uint8)[..., order].reshape(h * w, -1)
+    else:
+        px = np.asarray(rows, np.uint8).reshape(h * w, -1)
+    if px is not None:
+        data = _tga_rle(px, h, w) if itype & 8 else px.tobytes()
+    cm = b""
+    n = 0
+    if cmap is not None:
+        c = np.asarray(cmap)
+        n = len(c)
+        if cmap_depth in (15, 16):
+            cm = np.asarray(c, "<u2").tobytes()
+        else:
+            order = [2, 1, 0, 3][:c.shape[1]]
+            cm = np.asarray(c, np.uint8)[:, order].tobytes()
+    desc = (0x20 if top else 0) | (0x10 if mirror else 0) | (
+        8 if depth == 32 or (depth == 16 and itype & 7 == 2) else 0)
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), 1 if cmap is not None
+                       else 0, itype, cmap_start, n,
+                       cmap_depth if cmap is not None else 0, 0, 0, w, h,
+                       depth, desc)
+    return head + bytes(id_field) + cm + data
+
+
+def _sgi_row(vals: np.ndarray, bpc: int) -> bytes:
+    """One SGI RLE row (one channel): runs of equal values and copies, up
+    to 127 each, then a zero count."""
+    out = bytearray()
+
+    def word(v):
+        out.extend(struct.pack(">H", v) if bpc == 2 else bytes([v]))
+
+    v = [int(x) for x in vals]
+    i = 0
+    while i < len(v):
+        j = i
+        while j + 1 < len(v) and v[j + 1] == v[i] and j + 1 - i < 127:
+            j += 1
+        if j - i >= 2:
+            word(j - i + 1)
+            word(v[i])
+            i = j + 1
+            continue
+        k = i
+        while k < len(v) and k - i < 127 and not (
+                k + 2 < len(v) and v[k] == v[k + 1] == v[k + 2]):
+            k += 1
+        word(0x80 | (k - i))
+        for x in v[i:k]:
+            word(x)
+        i = k
+    word(0)
+    return bytes(out)
+
+
+def write_sgi(arr: np.ndarray, *, bpc: int = 1, rle: bool = True,
+              dimension=None, share_rows: bool = True) -> bytes:
+    """An SGI file of [H, W] or [H, W, Z] samples (uint8, or uint16 where
+    bpc is 2), rows stored bottom-up, one plane per channel; RLE rows
+    through offset and length tables (equal rows stored once where
+    `share_rows`)."""
+    arr = np.asarray(arr)
+    h, w = arr.shape[:2]
+    z = 1 if arr.ndim == 2 else arr.shape[2]
+    planes = arr.reshape(h, w, z)[::-1]
+    dim = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHHII4s80sI", 474, 1 if rle else 0, bpc, dim, w,
+                       h, z, 0, 255 if bpc == 1 else 65535, b"",
+                       b"irgs", 0).ljust(512, b"\0")
+    dt = ">u2" if bpc == 2 else np.uint8
+    if not rle:
+        return head + b"".join(np.ascontiguousarray(
+            planes[..., c], dt).tobytes() for c in range(z))
+    starts, lengths, body, seen = [], [], bytearray(), {}
+    table = 512 + 8 * h * z
+    for c in range(z):
+        for y in range(h):
+            row = _sgi_row(planes[y, :, c], bpc)
+            if share_rows and row in seen:
+                at = seen[row]
+            else:
+                at = table + len(body)
+                body += row
+                seen[row] = at
+            starts.append(at)
+            lengths.append(len(row))
+    return (head + struct.pack(f">{h * z}I", *starts)
+            + struct.pack(f">{h * z}I", *lengths) + bytes(body))
+
+
+def write_pnm_plain(arr: np.ndarray, magic: bytes, maxval: int = 255,
+                    comment: bytes = b"", per_line: int = 7) -> bytes:
+    """P1, P2 or P3 in ASCII: [H, W] bool (P1: True is white, written 0),
+    [H, W] or [H, W, 3] samples up to maxval; a comment after the magic and
+    between rows."""
+    arr = np.asarray(arr)
+    head = magic + b"\n" + (b"# " + comment + b"\n" if comment else b"")
+    head += b"%d %d\n" % (arr.shape[1], arr.shape[0])
+    if magic != b"P1":
+        head += b"%d\n" % maxval
+    vals = (~arr).astype(int) if magic == b"P1" else arr.astype(int)
+    lines = []
+    for r, row in enumerate(vals.reshape(arr.shape[0], -1)):
+        tok = [str(v).encode() for v in row]
+        for i in range(0, len(tok), per_line):
+            lines.append(b" ".join(tok[i:i + per_line]))
+        if comment and r == 0:
+            lines.append(b"#" + comment)
+    return head + b"\n".join(lines) + b"\n"
+
+
+def write_pnm_raw(arr: np.ndarray, magic: bytes, maxval: int) -> bytes:
+    """P5 or P6 at any maxval: one byte a sample up to 255, two big-endian
+    bytes above."""
+    arr = np.asarray(arr)
+    head = b"%s\n%d %d\n%d\n" % (magic, arr.shape[1], arr.shape[0], maxval)
+    return head + np.asarray(arr, ">u2" if maxval > 255 else np.uint8
+                             ).tobytes()
+
+
+def write_pfm(arr: np.ndarray, scale: float) -> bytes:
+    """A grey PFM ("Pf"): rows bottom-up, little-endian floats where the
+    scale is negative, big-endian where it is positive."""
+    arr = np.asarray(arr, np.float32)
+    head = b"Pf\n%d %d\n%r\n" % (arr.shape[1], arr.shape[0], scale)
+    return head + np.asarray(arr[::-1], "<f4" if scale < 0 else ">f4"
+                             ).tobytes()
+
+
+def _pcx_rle(line: bytes) -> bytes:
+    out = bytearray()
+    i = 0
+    while i < len(line):
+        j = i
+        while j + 1 < len(line) and line[j + 1] == line[i] and j + 1 - i < 62:
+            j += 1
+        n = j - i + 1
+        if n > 1 or line[i] >= 0xC0:
+            out += bytes([0xC0 | n, line[i]])
+        else:
+            out.append(line[i])
+        i = j + 1
+    return bytes(out)
+
+
+def write_pcx(arr: np.ndarray, *, bits: int, planes: int, version: int = 5,
+              palette=None, header_palette=None, stride=None,
+              origin=(0, 0)) -> bytes:
+    """A PCX file: [H, W] indices (1 bit in 1, 2 or 4 planes, or 8 bits),
+    [H, W] bool (1 bit, 1 plane) or [H, W, 3] RGB (8 bits, 3 planes); each
+    line's planes run-length coded together. `palette`: 256 RGB entries
+    appended after a 12; `header_palette`: 16 RGB entries in the header;
+    `stride`: the header's bytes a plane line (default: even)."""
+    arr = np.asarray(arr)
+    h, w = arr.shape[:2]
+    least = (w * bits + 7) // 8
+    given = stride if stride is not None else least + least % 2
+    real = least if given == least else least + least % 2
+    body = bytearray()
+    for y in range(h):
+        line = b""
+        for p in range(planes):
+            if bits == 1:
+                v = arr[y] if planes == 1 else (arr[y] >> p) & 1
+                b = _pack_bits_rows(np.asarray(v, np.uint8)[None], 1)
+            elif arr.ndim == 3:
+                b = np.asarray(arr[y, :, p], np.uint8).tobytes()
+            else:
+                b = np.asarray(arr[y], np.uint8).tobytes()
+            line += b.ljust(real, b"\0")
+        body += _pcx_rle(line)
+    hp = (np.asarray(header_palette, np.uint8).tobytes()
+          if header_palette is not None else b"").ljust(48, b"\0")
+    x0, y0 = origin
+    head = struct.pack("<BBBBHHHHHH48sBBHH", 10, version, 1, bits, x0, y0,
+                       x0 + w - 1, y0 + h - 1, 72, 72, hp, 0, planes, given,
+                       1).ljust(128, b"\0")
+    tail = b""
+    if palette is not None:
+        tail = b"\x0c" + np.asarray(palette, np.uint8).tobytes()
+    return head + bytes(body) + tail
+
+
+def dib_frame(arr: np.ndarray, *, bits: int, palette=None,
+              and_mask=None) -> bytes:
+    """An icon's DIB frame: the BITMAPINFOHEADER with the height doubled,
+    the palette, the pixels (write_bmp's layouts) and the AND mask (1 bit,
+    rows padded to 32 bits, bottom-up; `and_mask` [H, W] bool, True is
+    transparent; none for 32 bits unless given)."""
+    bmp = write_bmp(arr, bits=bits, palette=palette)[14:]
+    h, w = np.asarray(arr).shape[:2]
+    bmp = bmp[:8] + struct.pack("<i", 2 * h) + bmp[12:]
+    if and_mask is None and bits == 32:
+        return bmp
+    m = np.zeros((h, w), bool) if and_mask is None else np.asarray(and_mask)
+    wp = (w + 31) // 32 * 32
+    padded = np.zeros((h, wp), np.uint8)
+    padded[:, :w] = m
+    return bmp + _pack_bits_rows(padded[::-1], 1)
+
+
+def write_ico(frames, *, cur: bool = False, hotspot=(0, 0)) -> bytes:
+    """An icon (or, with `cur`, a cursor) of `frames`: (payload bytes, w, h,
+    bpp, colours) each, payload a PNG stream or a `dib_frame`; the
+    directory gives w and h modulo 256 and, for a cursor, the hotspot in
+    the planes and bpp fields."""
+    head = struct.pack("<HHH", 0, 2 if cur else 1, len(frames))
+    at = 6 + 16 * len(frames)
+    dirs, body = b"", b""
+    for payload, w, h, bpp, colors in frames:
+        f1, f2 = hotspot if cur else (1, bpp)
+        dirs += struct.pack("<BBBBHHII", w % 256, h % 256, colors, 0, f1, f2,
+                            len(payload), at + len(body))
+        body += payload
+    return head + dirs + body
+
+
+# ---------------------------------------------------------------------------
 # fixtures
 
 
@@ -565,7 +844,6 @@ def save_fixtures(out: str, files, refused, ext: str) -> None:
     ``out/refused/``, with ``refused.json``: `why` None where PIL refuses
     the stream (checked), else what the port does not read yet (PIL reads
     it, checked). Needs PIL: run here, not on a machine without it."""
-    import io
     import json
     import os
     import shutil
@@ -589,10 +867,14 @@ def save_fixtures(out: str, files, refused, ext: str) -> None:
         json.dump(modes, f, indent=0, sort_keys=True)
     notes = {}
     for name, data, why in refused:
-        with open(os.path.join(out, "refused", name + ext), "wb") as f:
+        path = os.path.join(out, "refused", name + ext)
+        with open(path, "wb") as f:
             f.write(data)
         try:
-            with Image.open(io.BytesIO(data)) as im:
+            # by path, as the readers open files (a PCX file shorter than
+            # its palette seeks before the start: refused from a file, read
+            # from memory)
+            with Image.open(path) as im:
                 np.asarray(im)
             pil_reads = True
         except Exception:

@@ -9,6 +9,7 @@ on a handful of the files."""
 import glob
 import io
 import os
+import struct
 
 import numpy as np
 import pytest
@@ -77,3 +78,38 @@ def test_load_image_any_matches_jax(name):
     got = tds._load_image_any(path)
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [1, 4, 8, 24])
+@pytest.mark.parametrize("cut", [1, 2])
+def test_cut_in_the_last_rows_padding_reads_as_pil(bits, cut):
+    """PIL's raw decoder skips a row's padding only before the next row:
+    a file cut inside the last row's padding reads (7 pixels a row: 3, 0,
+    1 and 3 bytes of padding at 1, 4, 8 and 24 bits); one cut into the
+    pixels is refused."""
+    rng = np.random.default_rng(bits)
+    shape = (5, 7, 3) if bits == 24 else (5, 7)
+    pal = rng.integers(0, 256, (1 << bits, 3)) if bits <= 8 else None
+    data = ims.write_bmp(rng.integers(0, min(256, 1 << bits), shape),
+                         bits=bits, palette=pal)[:-cut]
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            want, want_mode = np.asarray(im), im.mode
+    except OSError:                     # the cut reaches the pixels
+        with pytest.raises(bmp.BmpError, match="truncated"):
+            bmp.decode_bmp(data)
+        return
+    arr, mode, _ = bmp.decode_bmp(data)
+    assert mode == want_mode
+    np.testing.assert_array_equal(arr, want)
+
+
+def test_rle_into_rgb_is_refused():
+    """PIL's RLE decoder hands its bytes on as "P" or "L" pixels: a 16-bit
+    header with RLE compression is refused, as PIL refuses it."""
+    data = bytearray(ims.write_bmp(np.zeros((3, 4), np.uint16), bits=16))
+    data[30:34] = struct.pack("<I", 1)
+    with pytest.raises(Exception):
+        np.asarray(Image.open(io.BytesIO(bytes(data))))
+    with pytest.raises(bmp.BmpError, match="RLE"):
+        bmp.decode_bmp(bytes(data))

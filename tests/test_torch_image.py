@@ -15,6 +15,7 @@ way); the resize rtol 1e-5 / atol 1e-6 (float32 sums of a few taps).
 import io
 import os
 import shutil
+import struct
 
 import cv2
 import jax
@@ -24,6 +25,8 @@ import pytest
 import torch
 from PIL import Image, UnidentifiedImageError
 
+import fixture_checks as fc
+import image_streams as ims
 from irgs_tpu.scene import colmap as jcolmap
 from irgs_tpu.scene import datasets as jds
 from irgs_tpu_torch.scene import colmap as tcolmap
@@ -152,9 +155,18 @@ def test_mislabelled_file_reads_as_jax(tmp_path, case):
 
 def test_unidentified_and_queued_files_raise(tmp_path):
     p = tmp_path / "x.png"
-    p.write_bytes(b"P6\n1 1\n255\n\x00\x00\x00")
-    with pytest.raises(image.UnreadableImageError, match="PPM is not ported"):
+    p.write_bytes(b"#define im_width 1\n#define im_height 1\nstatic char "
+                  b"im_bits[] = {0x00};\n")
+    with Image.open(p) as im:
+        assert im.format == "XBM"
+    with pytest.raises(image.UnreadableImageError, match="XBM is not ported"):
         image.read_image_like_pil(str(p))
+    # PPM, once queued, reads as PIL reads it
+    p.write_bytes(b"P6\n1 1\n255\n\x00\x07\x00")
+    arr, mode, _ = image.read_image_like_pil(str(p))
+    with Image.open(p) as im:
+        assert mode == im.mode == "RGB"
+        np.testing.assert_array_equal(arr, np.asarray(im))
     p.write_bytes(b"hello, these bytes are no image at all")
     with pytest.raises(UnidentifiedImageError):
         Image.open(p)
@@ -205,11 +217,36 @@ def test_resize_bilinear_matches_jax(src, dst, c):
 
 
 # each format Pillow writes here that PIL reads and the port does not
-PIL_FORMATS = {"AVIF": "RGB", "BLP": "P", "DDS": "RGB", "DIB": "RGB",
-               "EPS": "RGB", "ICNS": "RGB", "ICO": "RGB", "IM": "RGB",
-               "JPEG2000": "RGB", "MSP": "1", "PCX": "RGB", "PPM": "RGB",
-               "QOI": "RGB", "SGI": "RGB", "SPIDER": "F", "TGA": "RGB",
-               "XBM": "1"}
+PIL_FORMATS = {"AVIF": "RGB", "BLP": "P", "DDS": "RGB", "EPS": "RGB",
+               "ICNS": "RGB", "IM": "RGB", "JPEG2000": "RGB", "MSP": "1",
+               "SPIDER": "F", "XBM": "1"}
+# ... and the ones the port reads as PIL does (CUR: written by hand)
+READ_FORMATS = {"CUR": "RGB", "DIB": "RGB", "ICO": "RGB", "PCX": "RGB",
+                "PPM": "RGB", "QOI": "RGB", "SGI": "RGB", "TGA": "RGB"}
+
+
+def _saved(tmp_path, fmt, mode):
+    """A 16x16 frame of random colours saved by PIL as `fmt` (a cursor by
+    hand: PIL writes none), named frame.png."""
+    rng = np.random.default_rng(len(fmt))
+    im = Image.fromarray(rng.integers(0, 256, (16, 16, 3), np.uint8))
+    path = tmp_path / "frame.png"
+    if fmt == "CUR":
+        dib = ims.dib_frame(np.asarray(im), bits=24,
+                            and_mask=rng.random((16, 16)) < 0.5)
+        path.write_bytes(ims.write_ico([(dib, 16, 16, 24, 0)], cur=True))
+        return path
+    # some savers register the file's extension as their own (SPIDER's
+    # does, process-wide): save to memory and restore the registry
+    extensions = dict(Image.EXTENSION)
+    bio = io.BytesIO()
+    try:
+        im.convert(mode).save(bio, fmt)
+    finally:
+        Image.EXTENSION.clear()
+        Image.EXTENSION.update(extensions)
+    path.write_bytes(bio.getvalue())
+    return path
 
 
 @pytest.mark.parametrize("fmt", sorted(PIL_FORMATS))
@@ -217,21 +254,70 @@ def test_pil_format_names_itself(tmp_path, fmt):
     """A file PIL identifies (by its plugins' own checks, in Image.OPEN's
     order) but the port does not read raises "<FORMAT> is not ported",
     whatever its name."""
-    rng = np.random.default_rng(len(fmt))
-    im = Image.fromarray(rng.integers(0, 256, (16, 16, 3), np.uint8))
-    path = tmp_path / "frame.png"
-    # some savers register the file's extension as their own (SPIDER's
-    # does, process-wide): save to memory and restore the registry
-    extensions = dict(Image.EXTENSION)
-    bio = io.BytesIO()
-    try:
-        im.convert(PIL_FORMATS[fmt]).save(bio, fmt)
-    finally:
-        Image.EXTENSION.clear()
-        Image.EXTENSION.update(extensions)
-    path.write_bytes(bio.getvalue())
+    path = _saved(tmp_path, fmt, PIL_FORMATS[fmt])
     with Image.open(path) as pim:
         assert pim.format == fmt
     with pytest.raises(image.UnreadableImageError,
                        match=f"{fmt} is not ported"):
         image.read_image_like_pil(str(path))
+
+
+@pytest.mark.parametrize("fmt", sorted(READ_FORMATS))
+def test_pil_format_reads_as_pil(tmp_path, fmt):
+    """A file of a format the port reads, whatever its name, gives PIL's
+    array, mode, palette and convert("RGB")."""
+    path = _saved(tmp_path, fmt, READ_FORMATS[fmt])
+    with Image.open(path) as pim:
+        assert pim.format == fmt
+    assert fc.check_as_pil(str(path))
+
+
+def test_plugins_in_pils_fresh_order():
+    """The dispatcher's table is Pillow's plugin list in the order a fresh
+    process tries it: Image.preinit's six, then the rest of Image.OPEN."""
+    assert [n.upper() for n, _, _ in image._PLUGINS] == fc.fresh_order()
+
+
+# files one plugin accepts by its prefix and whose header its _open then
+# refuses, so that PIL tries the next plugin: what each comes to
+FALL_THROUGH = {
+    # an uncompressed Targa with an empty colour map starts as a cursor
+    # with no entries: CUR refuses it, TGA reads it
+    "targa_past_cur": (lambda: fc_bytes("tga", "pil_RGB_top"), "TGA"),
+    "cursor_cut": (lambda: b"\0\0\2\0\1\0" + bytes(10), None),
+    "icon_empty": (lambda: b"\0\0\1\0\0\0" + bytes(30), None),
+    "ppm_zero_width": (lambda: b"P6\n0 4\n255\n" + bytes(30), None),
+    "ppm_unknown_magic": (lambda: b"P6x\n1 1\n255\n" + bytes(3), None),
+    "qoi_cut_header": (lambda: b"qoif\0\0\0\1\0\0\0\1", None),
+    "sgi_cut_header": (lambda: b"\x01\xda\0\1\0\2\0\3", None),
+    "pcx_empty_box": (lambda: b"\x0a\x05\x01\x08" + struct.pack(
+        "<HHHH", 9, 0, 2, 2) + bytes(120), None),
+    "dib_cut_masks": (lambda: struct.pack("<IiiHHI", 40, 2, 2, 1, 32, 3)
+                      + bytes(20), None),
+}
+
+
+def fc_bytes(fmt, name):
+    with open(os.path.join(DATA, fmt, name + "." + fmt), "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("case", sorted(FALL_THROUGH))
+def test_failed_header_falls_through(tmp_path, case):
+    """PIL moves on to the next plugin where an _open fails in its header
+    (SyntaxError, IndexError, TypeError, struct.error, no size), and so
+    does the port: a Targa that starts as an empty cursor reads as PIL
+    reads it; the others end, as in PIL, unidentified."""
+    make, fmt = FALL_THROUGH[case]
+    path = tmp_path / "frame.png"
+    path.write_bytes(make())
+    if fmt is None:
+        with pytest.raises(UnidentifiedImageError):
+            Image.open(path, formats=fc.fresh_order())
+        with pytest.raises(image.UnreadableImageError,
+                           match="cannot identify"):
+            image.read_image_like_pil(str(path))
+    else:
+        with Image.open(path, formats=fc.fresh_order()) as im:
+            assert im.format == fmt
+        assert fc.check_as_pil(str(path))

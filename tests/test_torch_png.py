@@ -219,3 +219,54 @@ def test_icc_profile_is_read_as_pil_reads_it(where, tmp_path):
 def _png_chunk(kind, data):
     return (struct.pack(">I", len(data)) + kind + data
             + struct.pack(">I", zlib.crc32(kind + data)))
+
+
+def _damaged_after_data(kind):
+    """A PNG whose bytes after the image data are damaged as PIL's load
+    never reads them: an IDAT CRC, the IEND chunk, the zlib stream's
+    Adler-32, data past the last row."""
+    rng = np.random.default_rng(len(kind))
+    img = rng.integers(0, 256, (7, 9, 3)).astype(np.uint8)
+    bio = io.BytesIO()
+    Image.fromarray(img).save(bio, "PNG")
+    data = bytearray(bio.getvalue())
+    i = data.index(b"IDAT")
+    (n,) = struct.unpack_from(">I", data, i - 4)
+    if kind == "idat_crc":
+        data[i + 4 + n] ^= 1
+    elif kind == "no_iend":
+        data = data[:-12]
+    elif kind == "iend_cut":
+        data = data[:-5]
+    elif kind in ("adler32", "past_last_row"):
+        raw = zlib.decompress(bytes(data[i + 4:i + 4 + n]))
+        if kind == "past_last_row":
+            raw += bytes(20)
+        z = bytearray(zlib.compress(raw))
+        if kind == "adler32":
+            z[-1] ^= 0x40
+        chunk = struct.pack(">I", len(z)) + b"IDAT" + bytes(z)
+        chunk += struct.pack(">I", zlib.crc32(b"IDAT" + bytes(z)))
+        data = data[:i - 4] + chunk + data[i + 8 + n:]
+    return bytes(data)
+
+
+@pytest.mark.parametrize("kind", ["idat_crc", "no_iend", "iend_cut",
+                                  "adler32", "past_last_row"])
+def test_damage_after_the_image_data_reads_as_pil(kind, tmp_path):
+    """What PIL's load never reads (PngImagePlugin checks CRCs only of the
+    chunks before the first IDAT; its ZIP decoder stops at the last row)
+    does not stop the port either; a bad Adler-32 in the IDAT chunk that
+    ends the rows is refused by both."""
+    path = tmp_path / "f.png"
+    path.write_bytes(_damaged_after_data(kind))
+    try:
+        with Image.open(path) as im:
+            want, mode = np.asarray(im), im.mode
+    except OSError:     # a bad Adler-32 in the chunk that ends the rows
+        with pytest.raises(png.PngError, match="broken data stream"):
+            png.read_png_like_pil(str(path))
+        return
+    arr, got_mode, _ = png.read_png_like_pil(str(path))
+    assert got_mode == mode
+    np.testing.assert_array_equal(arr, want)
