@@ -200,24 +200,37 @@ Phases (JSON lines; any failure exits non-zero):
                 containers, and the median ms of 5 decodes of each frame
                 of the Targa, Iris and PPM capture and of a 1297x840 P6
                 and uncompressed Targa written from the lossless WebP
-                frame (held equal to it). Needs train_cli and eval_cli.
-  webp_colmap   python -m irgs_tpu_torch.train for 5 iterations at the
+                frame (held equal to it); the median ms of 5 decodes of the
+                eight committed 1297x840 legacy TIFF frames (old-style
+                JPEG and LZW, planar YCbCr and 16-bit RGB, float predictor
+                3, 12-bit grey, ThunderScan; a 1728-wide RLEW page), each
+                held against the SHA-256 of PIL's array, and of each frame
+                of the legacy TIFF capture. Needs train_cli and eval_cli.
+  webp_colmap   python -m irgs_tpu_torch.train for 3 iterations at the
                 BENCH budgets on the committed COLMAP capture of WebP frames
                 (tests/data/webp/colmap: 4 views at 400², two lossy, one
                 lossless, one lossy with alpha; 4,096 points), a main path
                 of its own: the blends and the gather held at their first
                 inputs, the scatter-add at its largest; load time, ms per
                 step and peak memory.
-  tiff_colmap   the same on the committed COLMAP capture of TIFF frames
-                (tests/data/tiff/colmap: the same 4 views as YCbCr
+  tiff_colmap   the same, 3 iterations, on the committed COLMAP capture of
+                TIFF frames (tests/data/tiff/colmap: the same 4 views as YCbCr
                 JPEG-in-TIFF 4:2:0 with JPEGTables, RGB JPEG-in-TIFF, YCbCr
                 LZW at 2x2, RGBA Zstandard tiles with predictor 2), a main
                 path of its own.
   tga_sgi_ppm_colmap  the same on the committed COLMAP capture of Targa,
                 Iris and PPM frames (tests/data/tga/colmap: the same 4
                 views as Targa RLE RGB, Iris RLE RGB, binary PPM and Targa
-                raw RGBA with a bottom-left origin), a main path of its
-                own.
+                raw RGBA with a bottom-left origin; 5 iterations), a main
+                path of its own.
+  tiff_legacy_colmap  the same, 3 iterations, on the committed COLMAP
+                capture of legacy TIFF frames (tests/data/tiff/
+                legacy_colmap: the same 4 views as old-style JPEG YCbCr
+                4:2:0 with its tables in JPEGQTables/DCTables/ACTables and
+                a restart interval per 16-row strip, old-style LZW RGB,
+                YCbCr 1x1 LZW in planar configuration 2, 16-bit RGB LZW
+                with predictor 2 in planar configuration 2), a main path of
+                its own.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -3552,15 +3565,15 @@ def container_decode_ms(frame, tmp):
 WEBP_FIXTURES = os.path.join(ROOT, "tests", "data", "webp")
 
 
-def large_frames_ms(fmt="webp", ext=".webp"):
+def large_frames_ms(fmt="webp", ext=".webp", folder=None):
     """The committed large frames of tests/data/<fmt>/large/ (three
-    1297x840 WebP; four TIFF) -> ({name: median ms of 5 decodes}, {name: all
-    ms}, {name: mode, shape and SHA-256 of the array equal to PIL's (bool
-    as 0/1 bytes)}, {name: bytes})."""
+    1297x840 WebP; four TIFF), or of `folder` -> ({name: median ms of 5
+    decodes}, {name: all ms}, {name: mode, shape and SHA-256 of the array
+    equal to PIL's (bool as 0/1 bytes)}, {name: bytes})."""
     import hashlib
 
     import numpy as np
-    folder = os.path.join(ROOT, "tests", "data", fmt, "large")
+    folder = folder or os.path.join(ROOT, "tests", "data", fmt, "large")
     from irgs_tpu_torch.utils import image
     with open(os.path.join(folder, "large.json")) as f:
         want = json.load(f)
@@ -4751,6 +4764,16 @@ def phase_images(results, tmp):
     w_ms, w_ms_all, w_equal, w_bytes = large_frames_ms()
     t_ms, t_ms_all, t_equal, t_bytes = large_frames_ms("tiff", ".tif")
     a = time.perf_counter()
+    lt_ms, lt_ms_all, lt_equal, lt_bytes = large_frames_ms(
+        "tiff", ".tif", LEGACY_TIFF_LARGE)
+    from irgs_tpu_torch.utils import image
+    lc_ms = {}
+    for name in sorted(os.listdir(os.path.join(LEGACY_TIFF_CAPTURE,
+                                               "images"))):
+        path = os.path.join(LEGACY_TIFF_CAPTURE, "images", name)
+        lc_ms[name] = _median_ms(lambda: image.read_image_like_pil(path))[0]
+    legacy_ms_s = time.perf_counter() - a
+    a = time.perf_counter()
     s_ms, s_ms_all, s_equal, s_bytes = small_decode_ms(tmp)
     small_ms_s = time.perf_counter() - a
 
@@ -4778,7 +4801,11 @@ def phase_images(results, tmp):
             "decode_large_tiff_ms": t_ms, "decode_large_tiff_ms_all": t_ms_all,
             "large_tiff_bytes": t_bytes, "decode_small_formats_ms": s_ms,
             "decode_small_formats_ms_all": s_ms_all,
-            "small_formats_bytes": s_bytes, "small_formats_s": small_ms_s}
+            "small_formats_bytes": s_bytes, "small_formats_s": small_ms_s,
+            "decode_large_legacy_tiff_ms": lt_ms,
+            "decode_large_legacy_tiff_ms_all": lt_ms_all,
+            "large_legacy_tiff_bytes": lt_bytes,
+            "decode_legacy_capture_ms": lc_ms, "legacy_tiff_s": legacy_ms_s}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4802,6 +4829,8 @@ def phase_images(results, tmp):
             w_equal.values()),
         "tiff_large_frames_equal": len(t_equal) == 4 and all(
             t_equal.values()),
+        "legacy_tiff_large_frames_equal": len(lt_equal) == 8 and all(
+            lt_equal.values()),
         "small_formats_large_frames_equal": len(s_equal) == 2 and all(
             s_equal.values()),
         "small_formats_capture_timed": len(s_ms) == 6}
@@ -4819,7 +4848,14 @@ def phase_images(results, tmp):
 WEBP_CAPTURE = os.path.join(WEBP_FIXTURES, "colmap")
 TIFF_CAPTURE = os.path.join(ROOT, "tests", "data", "tiff", "colmap")
 SMALL_CAPTURE = os.path.join(ROOT, "tests", "data", "tga", "colmap")
-CAPTURE_ITERS = 5
+LEGACY_TIFF_CAPTURE = os.path.join(ROOT, "tests", "data", "tiff",
+                                   "legacy_colmap")
+LEGACY_TIFF_LARGE = os.path.join(ROOT, "tests", "data", "tiff", "legacy",
+                                 "large")
+# training iterations of each capture phase (the WebP and TIFF captures cut
+# from 5 to 3 to keep the whole smoke in its time)
+CAPTURE_ITERS = {"webp_colmap": 3, "tiff_colmap": 3,
+                 "tga_sgi_ppm_colmap": 5, "tiff_legacy_colmap": 3}
 
 
 def phase_webp_colmap(results, tmp):
@@ -4834,11 +4870,16 @@ def phase_tga_sgi_ppm_colmap(results, tmp):
     _capture_phase(results, tmp, "tga_sgi_ppm_colmap", SMALL_CAPTURE)
 
 
+def phase_tiff_legacy_colmap(results, tmp):
+    _capture_phase(results, tmp, "tiff_legacy_colmap", LEGACY_TIFF_CAPTURE)
+
+
 def _capture_phase(results, tmp, phase, capture):
     """python -m irgs_tpu_torch.train on a committed COLMAP capture (four
-    400² frames, 4,096 points) for CAPTURE_ITERS iterations at CLI_BENCH's
-    budgets, as the main path `phase` (main_path: the blends and the gather
-    held at their first inputs, the scatter-add at its largest)."""
+    400² frames, 4,096 points) for CAPTURE_ITERS[phase] iterations at
+    CLI_BENCH's budgets, as the main path `phase` (main_path: the blends
+    and the gather held at their first inputs, the scatter-add at its
+    largest)."""
     import numpy as np
     import torch
     from irgs_tpu_torch.scene import datasets as ds
@@ -4854,7 +4895,7 @@ def _capture_phase(results, tmp, phase, capture):
             StepMeter() as meter:
         launches, cli_s = run_cli(
             ["-s", capture, "-m", run, "--iterations",
-             str(CAPTURE_ITERS), "--checkpoint_interval", "0",
+             str(CAPTURE_ITERS[phase]), "--checkpoint_interval", "0",
              "--vis_interval", "0", *CLI_BENCH])
     log = list(read_log(run).values())
     steps = [st["ms"] for st in meter.steps[1:]]
@@ -4864,7 +4905,7 @@ def _capture_phase(results, tmp, phase, capture):
     checks["frames_finite"] = all(bool(np.isfinite(im).all())
                                   for im in images)
     checks["points_4096"] = n_points == 4096
-    checks["steps"] = len(meter.steps) == CAPTURE_ITERS
+    checks["steps"] = len(meter.steps) == CAPTURE_ITERS[phase]
     line = {"phase": phase, "load_s": load_s, "cli_s": cli_s,
             "ms_per_step": [st["ms"] for st in meter.steps],
             "ms_per_step_median_after_first": statistics.median(steps)
@@ -4917,7 +4958,8 @@ KERNELS = {
                "sh4_eval": "sh4_eval_64px",
                "webp_colmap": "webp_colmap_400px",
                "tiff_colmap": "tiff_colmap_400px",
-               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px"}),
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
+               "tiff_legacy_colmap": "tiff_legacy_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4943,7 +4985,8 @@ KERNELS = {
                "sh4_stage2": "sh4_stage2_64px",
                "webp_colmap": "webp_colmap_400px",
                "tiff_colmap": "tiff_colmap_400px",
-               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px"}),
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
+               "tiff_legacy_colmap": "tiff_legacy_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -4971,7 +5014,8 @@ KERNELS = {
                "sh4_eval": "sh4_eval_64px_first_pass",
                "webp_colmap": "webp_colmap_400px_first_pass",
                "tiff_colmap": "tiff_colmap_400px_first_pass",
-               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px_first_pass"}),
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px_first_pass",
+               "tiff_legacy_colmap": "tiff_legacy_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -5000,7 +5044,8 @@ KERNELS = {
                "sh4_stage2": "sh4_stage2_largest",
                "webp_colmap": "webp_colmap_largest",
                "tiff_colmap": "tiff_colmap_largest",
-               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_largest"}),
+               "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_largest",
+               "tiff_legacy_colmap": "tiff_legacy_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -5040,7 +5085,7 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
           "load_reproducer", "run_grid", "overfit", "images", "webp_colmap",
-          "tiff_colmap", "tga_sgi_ppm_colmap")
+          "tiff_colmap", "tga_sgi_ppm_colmap", "tiff_legacy_colmap")
 
 
 def nvidia_smi_line():
@@ -5107,6 +5152,8 @@ def main():
             "images": lambda: phase_images(results, tmp),
             "webp_colmap": lambda: phase_webp_colmap(results, tmp),
             "tiff_colmap": lambda: phase_tiff_colmap(results, tmp),
+            "tiff_legacy_colmap": lambda: phase_tiff_legacy_colmap(results,
+                                                                   tmp),
             "tga_sgi_ppm_colmap": lambda: phase_tga_sgi_ppm_colmap(results,
                                                                    tmp),
         }

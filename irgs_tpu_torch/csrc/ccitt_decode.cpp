@@ -4,7 +4,10 @@
 //   mode 0  modified Huffman, rows byte-aligned (Fax3DecodeRLE);
 //   mode 1  T.4 one-dimensional, an EOL before each row (Fax3Decode1D);
 //   mode 2  T.4 two-dimensional, EOL + tag bit (Fax3Decode2D);
-//   mode 3  T.6 (Fax4Decode).
+//   mode 3  T.6 (Fax4Decode);
+//   mode 4  modified Huffman, rows word-aligned (CCITT RLEW, 32771: the
+//           same Fax3DecodeRLE with FAXMODE_WORDALIGN; the alignment
+//           counts from the strip's first byte).
 // The bit reader, the code tables (indexed LSB-first, as mkg3states builds
 // them) and the row expansion follow libtiff's macros: NeedBits pads with
 // zeros at the end of the data while any bits are left, a code that no
@@ -230,7 +233,7 @@ extern "C" {
 // which the 2D decoders swap row by row and keep from strip to strip.
 uint32_t ccitt_runs(int64_t width, int mode) {
   uint32_t nruns = (uint32_t)((width + 1 + 31) / 32 * 32);
-  if (mode >= 2) nruns *= 2;
+  if (mode == 2 || mode == 3) nruns *= 2;
   return 2 * nruns;
 }
 
@@ -260,7 +263,7 @@ int ccitt_decode(const uint8_t* data, int64_t len, int mode, int64_t width,
     ~Keep() { *flag = d->noeol; }
   } keep{&d, noeol};
   const int64_t rowbytes = (width + 7) / 8;
-  const bool two_d = mode >= 2;
+  const bool two_d = mode == 2 || mode == 3;
   uint32_t nruns = ccitt_runs(width, mode) / 2;
   uint32_t* curruns = runs + (state[1] ? nruns : 0);
   uint32_t* refruns = two_d ? runs + (state[1] ? 0 : nruns) : nullptr;
@@ -527,7 +530,7 @@ int ccitt_decode(const uint8_t* data, int64_t len, int mode, int64_t width,
     };
 
     bool ok = true;
-    if (mode == 0) {                       // Fax3DecodeRLE
+    if (mode == 0 || mode == 4) {          // Fax3DecodeRLE
       ok = expand1d();
       if (overflow) return -1;
       if (!ok) {
@@ -537,8 +540,12 @@ int ccitt_decode(const uint8_t* data, int64_t len, int mode, int64_t width,
       }
       fill_runs(buf, thisrun, pa, lastx);
       written[row] = 1;
-      int n = d.avail - (d.avail & ~7);    // byte-align each row
-      d.clr(n);
+      if (mode == 0) {                     // byte-align each row
+        d.clr(d.avail - (d.avail & ~7));
+      } else {                             // RLEW: word-align each row
+        d.clr(d.avail - (d.avail & ~15));
+        if (d.avail == 0 && ((d.cp - data) & 1)) ++d.cp;
+      }
     } else if (mode == 1) {                // Fax3Decode1D
       if (!d.noeol && sync_eol() == 0) {
         cleanup();

@@ -8,6 +8,7 @@
 //                     first code after CLEAR must be a literal; a stream
 //                     that ends (EOI or no more bits) before `need` bytes
 //                     is refused, bytes past `need` are ignored;
+//   tiff_lzw_compat_decode  libtiff's LZWDecodeCompat, old-style LZW;
 //   packbits_decode   libtiff's PackBitsDecode (tif_packbits.c): a run
 //                     past `need` is cut, a stream short of `need` is
 //                     refused;
@@ -103,6 +104,95 @@ int64_t tiff_lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst,
     int64_t take = len < need - out ? len : need - out;
     for (int64_t i = 0; i < take; ++i) dst[out + i] = str[i];
     out += take;
+  }
+  return out < need ? -2 : need;
+}
+
+// libtiff's LZWDecodeCompat, for old-style streams (the first byte 0, the
+// second's low bit set): codes LSB-first, 9 to 12 bits widened one code
+// late (after entry 2^n - 1; before the first CLEAR, after entry 510), no
+// KwKwK shortcut past the next free entry (such a code has no string),
+// the first code a CLEAR. Returns `need` on success; -1: corrupt table or
+// code, -2: not enough data.
+int64_t tiff_lzw_compat_decode(const uint8_t* src, int64_t n, uint8_t* dst,
+                               int64_t need) {
+  std::vector<Entry> tab(TIFF_CSIZE);
+  for (int i = 0; i < 256; ++i) tab[i] = {-1, 1, uint8_t(i), uint8_t(i)};
+  for (int i = 256; i < TIFF_CSIZE; ++i) tab[i] = {-1, 0, 0, 0};
+  int nbits = 9;
+  int64_t nbitsmask = (1 << nbits) - 1;
+  int64_t free_ent = TIFF_FIRST, maxcode = nbitsmask - 1;
+  int64_t old = -1;
+  uint64_t nextdata = 0;
+  int nextbits = 0;
+  int64_t pos = 0, out = 0;
+  uint64_t bitsleft = uint64_t(n) * 8;
+  auto next_code = [&]() -> int {
+    nextdata |= uint64_t(pos < n ? src[pos] : 0) << nextbits;
+    ++pos;
+    nextbits += 8;
+    if (nextbits < nbits) {
+      nextdata |= uint64_t(pos < n ? src[pos] : 0) << nextbits;
+      ++pos;
+      nextbits += 8;
+    }
+    int code = int(nextdata & uint64_t(nbitsmask));
+    nextdata >>= nbits;
+    nextbits -= nbits;
+    bitsleft -= nbits;
+    return code;
+  };
+  std::vector<uint8_t> str;
+  while (out < need) {
+    if (bitsleft < uint64_t(nbits)) break;   // not terminated with EOI
+    int code = next_code();
+    if (code == TIFF_EOI) break;
+    if (code == TIFF_CLEAR) {
+      bool ended = false;
+      do {
+        for (int i = TIFF_FIRST; i < TIFF_CSIZE; ++i) tab[i] = {-1, 0, 0, 0};
+        free_ent = TIFF_FIRST;
+        nbits = 9;
+        nbitsmask = (1 << nbits) - 1;
+        maxcode = nbitsmask;
+        if (bitsleft < uint64_t(nbits)) {
+          ended = true;
+          break;
+        }
+        code = next_code();
+      } while (code == TIFF_CLEAR);
+      if (ended || code == TIFF_EOI) break;
+      if (code > TIFF_CLEAR) return -1;
+      dst[out++] = uint8_t(code);
+      old = code;
+      continue;
+    }
+    if (old < 0 || free_ent >= TIFF_CSIZE) return -1;
+    Entry& e = tab[free_ent];
+    e.next = int32_t(old);
+    e.first = tab[old].first;
+    e.length = tab[old].length + 1;
+    e.value = code < free_ent ? tab[code].first : e.first;
+    if (++free_ent > maxcode) {
+      if (++nbits > 12) nbits = 12;
+      nbitsmask = (1 << nbits) - 1;
+      maxcode = nbitsmask;
+    }
+    old = code;
+    if (code >= 256) {
+      const Entry& c = tab[code];
+      if (c.length == 0) return -1;
+      int64_t len = c.length;
+      str.resize(len);
+      int64_t k = len;
+      for (int64_t i = code; i >= 0 && k > 0; i = tab[i].next)
+        str[--k] = tab[i].value;
+      int64_t take = len < need - out ? len : need - out;
+      for (int64_t i = 0; i < take; ++i) dst[out + i] = str[i];
+      out += take;
+    } else {
+      dst[out++] = uint8_t(code);
+    }
   }
   return out < need ? -2 : need;
 }

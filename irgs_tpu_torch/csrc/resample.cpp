@@ -12,6 +12,9 @@
 //                          sums from 1 << 21, clip8 of >> 22;
 //   16 bits (I;16)         double sums, ROUND_UP, and the low and high
 //                          bytes each clipped as CLIP8 does;
+//   32 bits (I)            double sums, ROUND_UP to int32 (a sum past
+//                          int32's range gives INT_MIN, as x86's
+//                          truncating conversion does);
 //   the horizontal pass first over the rows the vertical pass reads, then
 //   the vertical pass, each only when its size changes.
 // Built with g++ at first use; plain C ABI.
@@ -88,14 +91,21 @@ inline int round_up(double f) {
   return static_cast<int>(f >= 0.0 ? f + 0.5F : f - 0.5F);
 }
 
-// One pass over uint8 [rows, cols, bands] (16 bits: bands = 1, samples
-// uint16 read as two bytes): `horizontal` resamples along cols.
-template <bool kSixteen>
+inline int32_t round_up_32(double f) {
+  const double t = f >= 0.0 ? f + 0.5F : f - 0.5F;
+  if (!(t > -2147483649.0 && t < 2147483648.0)) return INT32_MIN;
+  return static_cast<int32_t>(t);
+}
+
+// One pass over uint8 [rows, cols, bands] (kBits 16: bands = 1, samples
+// uint16 read as two bytes; kBits 32: bands = 1, int32 samples):
+// `horizontal` resamples along cols.
+template <int kBits>
 void pass(const uint8_t* in, uint8_t* out, int rows_out, int cols_out,
           int cols_in, int bands, int ksize, const std::vector<int>& bounds,
           const std::vector<double>& kd, const std::vector<int32_t>& ki,
           bool horizontal, int offset) {
-  const int bpp = kSixteen ? 2 : bands;
+  const int bpp = kBits == 8 ? bands : kBits / 8;
   for (int yy = 0; yy < rows_out; ++yy) {
     for (int xx = 0; xx < cols_out; ++xx) {
       const int idx = horizontal ? xx : yy;
@@ -107,7 +117,16 @@ void pass(const uint8_t* in, uint8_t* out, int rows_out, int cols_out,
         return in[(r * cols_in + c) * bpp + b];
       };
       uint8_t* o = out + (static_cast<int64_t>(yy) * cols_out + xx) * bpp;
-      if (kSixteen) {
+      if (kBits == 32) {
+        auto src32 = [&](int t) -> int32_t {
+          const int64_t r = horizontal ? yy + offset : mn + t;
+          const int64_t c = horizontal ? mn + t : xx;
+          return reinterpret_cast<const int32_t*>(in)[r * cols_in + c];
+        };
+        double ss = 0.0;
+        for (int t = 0; t < n; ++t) ss += src32(t) * kd[kofs + t];
+        *reinterpret_cast<int32_t*>(o) = round_up_32(ss);
+      } else if (kBits == 16) {
         double ss = 0.0;
         for (int t = 0; t < n; ++t)
           ss += (src(t, 0) + (src(t, 1) << 8)) * kd[kofs + t];
@@ -129,10 +148,11 @@ void pass(const uint8_t* in, uint8_t* out, int rows_out, int cols_out,
 
 extern "C" {
 
-// in: [in_h, in_w, bands] uint8 (sixteen: [in_h, in_w] uint16, little-
-// endian, bands = 1) -> out [out_h, out_w, bands]. Returns 0.
+// in: [in_h, in_w, bands] uint8; bits 16: [in_h, in_w] uint16, little-
+// endian, bands = 1; bits 32: [in_h, in_w] int32, bands = 1 -> out
+// [out_h, out_w, bands] of the same type. Returns 0.
 int resample_lanczos(const uint8_t* in, int in_w, int in_h, int bands,
-                     int sixteen, uint8_t* out, int out_w, int out_h) {
+                     int bits, uint8_t* out, int out_w, int out_h) {
   std::vector<int> bh, bv;
   std::vector<double> kh, kv;
   const int ksh = precompute_coeffs(in_w, 0.0f, static_cast<float>(in_w),
@@ -141,7 +161,8 @@ int resample_lanczos(const uint8_t* in, int in_w, int in_h, int bands,
                                     out_h, bv, kv);
   const bool need_h = out_w != in_w, need_v = out_h != in_h;
   const std::vector<int32_t> ih = normalize_8bpc(kh), iv = normalize_8bpc(kv);
-  const int bpp = sixteen ? 2 : bands;
+  const int bpp = bits == 8 ? bands : bits / 8;
+  auto pass_of = bits == 32 ? &pass<32> : bits == 16 ? &pass<16> : &pass<8>;
   const int ybox_first = bv[0];
   const int ybox_last = bv[out_h * 2 - 2] + bv[out_h * 2 - 1];
   std::vector<uint8_t> tmp;
@@ -151,22 +172,14 @@ int resample_lanczos(const uint8_t* in, int in_w, int in_h, int bands,
     for (int i = 0; i < out_h; ++i) bv[i * 2] -= ybox_first;
     const int rows = ybox_last - ybox_first;
     tmp.assign(static_cast<size_t>(rows) * out_w * bpp, 0);
-    if (sixteen)
-      pass<true>(in, tmp.data(), rows, out_w, in_w, 1, ksh, bh, kh, ih, true,
-                 ybox_first);
-    else
-      pass<false>(in, tmp.data(), rows, out_w, in_w, bands, ksh, bh, kh, ih,
-                  true, ybox_first);
+    pass_of(in, tmp.data(), rows, out_w, in_w, bands, ksh, bh, kh, ih, true,
+            ybox_first);
     cur = tmp.data();
     cur_h = rows;
     cur_w = out_w;
   }
   if (need_v) {
-    if (sixteen)
-      pass<true>(cur, out, out_h, cur_w, cur_w, 1, ksv, bv, kv, iv, false, 0);
-    else
-      pass<false>(cur, out, out_h, cur_w, cur_w, bands, ksv, bv, kv, iv,
-                  false, 0);
+    pass_of(cur, out, out_h, cur_w, cur_w, bands, ksv, bv, kv, iv, false, 0);
   } else {
     const size_t n = static_cast<size_t>(cur_h) * cur_w * bpp;
     for (size_t i = 0; i < n; ++i) out[i] = cur[i];

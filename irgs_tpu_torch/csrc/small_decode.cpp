@@ -1,7 +1,8 @@
 // Run-length and op-stream decoders of PIL's small readers, for
 // irgs_tpu_torch/utils/small_codecs.py: Targa RLE (TgaRleDecode.c), PCX RLE
 // (PcxDecode.c), SGI RLE (SgiRleDecode.c) and QOI (QoiImagePlugin's
-// QoiDecoder). Each writes the decoder's line buffers as PIL hands them to
+// QoiDecoder), and libtiff's ThunderScan decoder for the TIFF reader.
+// Each writes the decoder's line buffers as PIL hands them to
 // its unpacker (the caller unpacks them to the mode), keeps the quirks
 // that decide what a damaged stream gives (a Targa run packet may not cross
 // a row, a literal one may; a PCX line is compacted band by band when its
@@ -233,6 +234,85 @@ int qoi_decode(const uint8_t* src, int64_t n, int64_t npix, int bands,
     put(v);
   }
   return kDone;
+}
+
+// ThunderScan (TIFF compression 32809), libtiff's ThunderDecode
+// (tif_thunder.c), row by row from the strip's codes: runs of the last
+// pixel (none written where the run reaches the row's end), two 3-bit or
+// three 2-bit deltas, raw 4-bit values; each row starts from the last
+// pixel 0, its pixels packed two a byte. `rows` rows of `cols` pixels into
+// out (rows * ceil(cols / 2) bytes) and, per byte, whether libtiff wrote it
+// (wrote). Returns 0, or -1 where a row's codes give too few or too many
+// pixels (libtiff fails the strip).
+int thunder_decode(const uint8_t* src, int64_t n, int64_t rows, int64_t cols,
+                   uint8_t* out, uint8_t* wrote) {
+  static const int two[4] = {0, 1, 0, -1};
+  static const int three[8] = {0, 1, 2, 3, 0, -3, -2, -1};
+  const int64_t rowbytes = (cols + 1) / 2;
+  int64_t pos = 0;
+  for (int64_t r = 0; r < rows; ++r) {
+    uint8_t* op = out + r * rowbytes;
+    uint8_t* wp = wrote + r * rowbytes;
+    unsigned last = 0;
+    int64_t npix = 0;
+    auto set = [&](unsigned v) {
+      last = v & 0xf;
+      if (npix < cols) {
+        if (npix++ & 1) {
+          *op++ |= uint8_t(last);
+          ++wp;
+        } else {
+          op[0] = uint8_t(last << 4);
+          wp[0] = 1;
+        }
+      }
+    };
+    while (pos < n && npix < cols) {
+      int v = src[pos++];
+      int d;
+      switch (v & 0xc0) {
+        case 0x00: {                                  // a run
+          int64_t k = v;
+          if (npix & 1) {
+            op[0] |= uint8_t(last);
+            last = *op++;
+            ++wp;
+            ++npix;
+            --k;
+          } else {
+            last |= last << 4;
+          }
+          npix += k;
+          if (npix < cols)
+            for (; k > 0; k -= 2) {
+              *op++ = uint8_t(last);
+              *wp++ = 1;
+            }
+          if (k == -1) {
+            --op;
+            --wp;
+            *op &= 0xf0;
+          }
+          last &= 0xf;
+          break;
+        }
+        case 0x40:                                    // 2-bit deltas
+          if ((d = (v >> 4) & 3) != 2) set(unsigned(int(last) + two[d]));
+          if ((d = (v >> 2) & 3) != 2) set(unsigned(int(last) + two[d]));
+          if ((d = v & 3) != 2) set(unsigned(int(last) + two[d]));
+          break;
+        case 0x80:                                    // 3-bit deltas
+          if ((d = (v >> 3) & 7) != 4) set(unsigned(int(last) + three[d]));
+          if ((d = v & 7) != 4) set(unsigned(int(last) + three[d]));
+          break;
+        default:                                      // raw
+          set(unsigned(v));
+          break;
+      }
+    }
+    if (npix != cols) return -1;
+  }
+  return 0;
 }
 
 }  // extern "C"

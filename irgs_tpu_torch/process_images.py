@@ -14,8 +14,11 @@ folder), opens each file named .png, .jpg or .jpeg by its content, as PIL
 does, downscales it by an integer factor with PIL's LANCZOS
 (NEAREST for palette and 1-bit images), crops as ``Image.crop`` does (zeros
 past the edge) and saves it flat into `out_dir` under its own name: PNG in
-its own mode (palette and transparency kept), JPEG as PIL's default save
-writes it. No device is touched.
+its own mode (palette and transparency kept; modes I and I;16B as 16-bit
+grey, I clipped to 0..65535), JPEG as PIL's default save writes it. A mode
+the format cannot hold (F, PA, LAB; I and I;16 as JPEG) stops the walk at
+that file with PIL's OSError, after the files before it were written. No
+device is touched.
 """
 
 from __future__ import annotations
@@ -63,16 +66,43 @@ def crop_like_pil(arr: np.ndarray, box) -> np.ndarray:
     return out
 
 
+# of the modes the readers return, those PIL's PNG and JPEG plugins save
+# (PngImagePlugin._OUTMODES, JpegImagePlugin.RAWMODE)
+_WRITES = {".png": {"1", "L", "LA", "P", "RGB", "RGBA", "I", "I;16", "I;16B"},
+           ".jpg": {"1", "L", "RGB", "CMYK"}}
+_WRITES[".jpeg"] = _WRITES[".jpg"]
+
+
+def writable(path: str, mode: str) -> bool:
+    """Whether ``im.save(path)`` writes an image of `mode` (else OSError)."""
+    return mode in _WRITES.get(os.path.splitext(path)[1].lower(), ())
+
+
 def save_like_pil(path: str, arr: np.ndarray, mode: str,
                   info: dict | None = None) -> None:
-    """``im.save(path)`` by the path's extension: PNG or JPEG."""
+    """``im.save(path)`` by the path's extension: PNG or JPEG. A mode the
+    format cannot hold raises PIL's OSError("cannot write mode M as PNG"),
+    and leaves the path as Image.save does: removed where the save
+    created it, empty where it was there before (PIL opens the file for
+    writing before its plugin refuses the mode)."""
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        png.write_png_like_pil(path, arr, mode, info)
-    elif ext in (".jpg", ".jpeg"):
-        jpeg_encode.write_jpeg(path, arr, mode, info)
-    else:
+    if ext not in _WRITES:
         raise NotImplementedError(f"{path}: only PNG and JPEG are written")
+    existed = os.path.exists(path)
+    try:
+        if not writable(path, mode):
+            raise OSError(f"cannot write mode {mode} as "
+                          f"{'PNG' if ext == '.png' else 'JPEG'}")
+        if ext == ".png":
+            png.write_png_like_pil(path, arr, mode, info)
+        else:
+            jpeg_encode.write_jpeg(path, arr, mode, info)
+    except Exception:
+        if existed:
+            open(path, "wb").close()
+        elif os.path.exists(path):
+            os.remove(path)
+        raise
 
 
 def crop(args):
@@ -85,12 +115,17 @@ def crop(args):
                 continue
             arr, mode, info = image.read_image_like_pil(
                 os.path.join(root, fn))
+            out = os.path.join(args.out_dir, fn)
             h, w = arr.shape[:2]
             if args.downscale > 1:
                 w, h = w // args.downscale, h // args.downscale
-                arr = resize_lanczos_like_pil(arr, mode, (w, h))
+                # PIL resizes every mode it reads; where the save below
+                # refuses the mode, the resized values are never read
+                arr = (resize_lanczos_like_pil(arr, mode, (w, h))
+                       if writable(out, mode) else
+                       np.zeros((h, w) + arr.shape[2:], arr.dtype))
             arr = crop_like_pil(arr, (left, top, w - right, h - bottom))
-            save_like_pil(os.path.join(args.out_dir, fn), arr, mode, info)
+            save_like_pil(out, arr, mode, info)
             n += 1
     print(f"processed {n} images -> {args.out_dir}")
 

@@ -5,8 +5,9 @@ rescale. Host-side numpy; frames stay in host RAM until the trainer moves
 them to the device.
 
 Images are read by the port's own codecs: EXR through utils/exr.py and
-Radiance .hdr through utils/hdr.py (as cv2 gives it), chosen by the
-extension as the JAX package chooses; every other file through
+.hdr through utils/imread.py (what cv2.imread gives, by content: Radiance,
+or PNG, JPEG, TIFF, BMP, WebP, GIF, PNM and PFM under that name), chosen by
+the extension as the JAX package chooses; every other file through
 utils/image.read_image_like_pil, which picks the reader by the file's
 content in PIL's plugin order (PNG, JPEG, TIFF, BMP, DIB, GIF, WebP,
 Netpbm, Targa, ICO, CUR, QOI, PCX, SGI), as PIL does, and decodes it to
@@ -48,17 +49,22 @@ def _nerfpp_norm(cams: list[Camera]):
 
 
 def _load_image_any(path: str):
-    """RGB(A) image -> float [H, W, C]: EXR and HDR as stored (HDR as RGB,
-    as the JAX package flips cv2's BGR), any other file as the JAX
-    package's np.asarray(PIL.Image.open(path), float32) / 255 (grey as
-    [H, W])."""
+    """RGB(A) image -> float [H, W, C]: EXR as stored; a .hdr path as the
+    JAX package's cv2.imread(path, IMREAD_UNCHANGED) gives it, whatever its
+    content (utils/imread.py: BGR flipped to RGB, the samples' own dtype
+    cast to float32 without a division by 255; OSError where cv2 gives
+    None); any other file as the JAX package's np.asarray(PIL.Image.open(
+    path), float32) / 255 (grey as [H, W])."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         from ..utils import exr
         return exr.read_exr_rgb(path)
     if ext == ".hdr":
-        from ..utils import hdr
-        return hdr.read_hdr(path)
+        from ..utils.imread import imread_unchanged
+        img = imread_unchanged(path)
+        if img.ndim == 3 and img.shape[-1] >= 3:
+            img[..., :3] = img[..., 2::-1]  # BGR -> RGB
+        return np.asarray(img, np.float32)
     from ..utils.image import read_image_like_pil
     return np.asarray(read_image_like_pil(path)[0], np.float32) / 255.0
 

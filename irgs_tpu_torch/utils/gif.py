@@ -16,7 +16,9 @@ rows in the four interlace passes where the frame is interlaced. A frame
 whose data ends, or whose END code comes, before its last pixel is
 refused, as PIL refuses it (image file is truncated); so is a broken code.
 
-Streams PIL refuses raise GifError.
+Streams PIL refuses raise GifError; GifHeaderError (a NotThisFormat) where
+PIL's _open fails and Image.open tries the next plugin: everything before
+the first frame's LZW data.
 """
 
 from __future__ import annotations
@@ -26,17 +28,24 @@ import struct
 import numpy as np
 
 from . import lzw
+from .image import NotThisFormat, check_size
 
 
 class GifError(ValueError):
     pass
 
 
+class GifHeaderError(GifError, NotThisFormat):
+    """PIL's GifImageFile._open, which reads up to the first frame's LZW
+    code size, fails with SyntaxError, EOFError, IndexError or
+    struct.error: Image.open tries the next plugin."""
+
+
 def _palette(p: bytes):
     """PIL's _is_palette_needed: the palette [n, 3], or None where every
     entry i is (i, i, i)."""
     if len(p) % 3:
-        raise GifError("truncated palette")
+        raise GifHeaderError("truncated palette")
     a = np.frombuffer(p, np.uint8).reshape(-1, 3)
     ramp = np.arange(len(a)).astype(np.uint8)[:, None]
     if len(a) <= 256 and np.array_equal(a, np.broadcast_to(ramp, a.shape)):
@@ -63,7 +72,7 @@ def _blocks(buf: bytes, pos: int):
 def decode_gif(buf: bytes, name: str = "GIF"):
     """(array, mode, info) of a GIF file's bytes: its first frame."""
     if not buf.startswith((b"GIF87a", b"GIF89a")) or len(buf) < 13:
-        raise GifError(f"{name}: not a GIF file")
+        raise GifHeaderError(f"{name}: not a GIF file")
     sw, sh = struct.unpack_from("<HH", buf, 6)
     flags = buf[10]
     pos = 13
@@ -89,8 +98,8 @@ def decode_gif(buf: bytes, name: str = "GIF"):
             pos += 2 + size
             if label == 0xF9 and first is not None and first[0] & 1:
                 if len(first) < 4:
-                    raise GifError(f"{name}: short graphic control "
-                                   f"extension")
+                    raise GifHeaderError(f"{name}: short graphic "
+                                         f"control extension")
                 transparency = first[3]
             if label != 0xFE or first is not None:
                 # PIL reads on to an empty block, even after an empty
@@ -98,7 +107,8 @@ def decode_gif(buf: bytes, name: str = "GIF"):
                 _, pos = _blocks(buf, pos)
         elif s == 0x2C:                                 # image descriptor
             if pos + 9 > len(buf):
-                raise GifError(f"{name}: truncated image descriptor")
+                raise GifHeaderError(f"{name}: truncated image "
+                                     f"descriptor")
             x0, y0, fw, fh, fflags = struct.unpack_from("<HHHHB", buf, pos)
             pos += 9
             interlace = bool(fflags & 64)
@@ -109,17 +119,21 @@ def decode_gif(buf: bytes, name: str = "GIF"):
                 if frame_pal is None:
                     frame_pal = False
             if pos >= len(buf):
-                raise GifError(f"{name}: image file is truncated")
+                raise GifHeaderError(f"{name}: no LZW code size")
             bits = buf[pos]
             pos += 1
             frame = (x0, y0, fw, fh, interlace, bits, pos)
             break
     if frame is None:
-        raise GifError(f"{name}: image not found in GIF frame")
+        raise GifHeaderError(f"{name}: image not found in GIF frame")
     x0, y0, fw, fh, interlace, bits, pos = frame
     pal = frame_pal if frame_pal is not None else global_pal
     mode = "P" if pal is not None and pal is not False else "L"
     w, h = max(sw, x0 + fw), max(sh, y0 + fh)
+    try:
+        check_size(w, h, name)
+    except NotThisFormat as err:
+        raise GifHeaderError(str(err)) from None
     if bits > 12:
         raise GifError(f"{name}: decoder configuration error (LZW code "
                        f"size {bits})")

@@ -11,6 +11,10 @@ line is parsed as ``sscanf(line, "-Y %d +X %d")`` parses it (text after it
 is ignored) and both sizes must be positive. Then flat or run-length-
 encoded scanlines, decoded as Greg Ward's rgbe.c decodes them: value =
 mantissa · 2^(exponent - 136), 0 where the exponent byte is 0.
+
+A ``.hdr`` path whose bytes are not Radiance is another format to cv2,
+which decodes by content: the datasets loader reads such paths through
+utils/imread.py, of which this reader is the Radiance branch.
 """
 
 from __future__ import annotations
@@ -102,9 +106,13 @@ def _rgbe_to_float(rgbe: np.ndarray) -> np.ndarray:
 
 
 def read_hdr(path: str) -> np.ndarray:
-    """A .hdr image -> float32 [H, W, 3], RGB."""
+    """A Radiance .hdr image -> float32 [H, W, 3], RGB."""
     with open(path, "rb") as f:
-        buf = f.read()
+        return decode_hdr(f.read())
+
+
+def decode_hdr(buf: bytes) -> np.ndarray:
+    """`read_hdr` of a Radiance file's bytes."""
     h, w, pos = _parse_header(buf)
     n = h * w
     rgbe = np.empty((n, 4), np.uint8)

@@ -26,9 +26,13 @@ PIL reads and the port does not (PSD, JPEG 2000, AVIF, DDS, ...) raises
 for those plugins only their prefix check (and, where PIL has none, the
 first checks of their _open) is modelled, so a file such a plugin would
 refuse in _open stops there. Bytes that no plugin takes raise "cannot
-identify image file", as PIL's UnidentifiedImageError. The readers that
-predate the fresh order (PNG, JPEG, TIFF, GIF, WebP) raise their own
-errors on a bad header rather than hand the file on.
+identify image file", as PIL's UnidentifiedImageError. The PNG, JPEG,
+TIFF and GIF readers model their plugin's _open up to the pixel data (PNG:
+the chunks before IDAT with their CRCs; JPEG: the markers up to the first
+SOS; TIFF: the IFD as PIL loads it and _setup's checks; GIF: the blocks up
+to the first frame's LZW code size) and hand the file on where it fails
+so. WebP's _open fails only with OSError (libwebp's demuxer), which PIL
+does not hand on, so a bad WebP header raises.
 """
 
 from __future__ import annotations
@@ -277,7 +281,9 @@ def to_rgb_like_pil(arr: np.ndarray, mode: str, palette=None) -> np.ndarray:
       RGB    as is;                    RGBA    alpha dropped;
       CMYK   cmyk2rgb: each of R, G, B is 255 - K - C (M, Y) * (255 - K)
              / 255, rounded as MULDIV255.
-    CIELab (LAB) raises: PIL converts it, the port does not yet.
+    CIELab (LAB) raises: PIL converts it through LittleCMS (ImageCms's
+    built-in LAB profile to sRGB, an optimized 8-bit transform), which the
+    port does not emulate.
     """
     arr = np.asarray(arr)
     if mode == "1":

@@ -63,6 +63,7 @@ from pathlib import Path
 import numpy as np
 
 from . import native
+from .image import NotThisFormat, check_size
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "jpeg_decode.cpp"
 
@@ -362,6 +363,29 @@ def decode_tiff_jpeg(tables: bytes | None, strip: bytes, to_rgb: bool,
             raise JpegError(f"YCbCr with {len(planes)} components")
         return ycc_to_rgb(*planes), s.frame
     return np.stack(planes, -1), s.frame
+
+
+def decode_raw_components(stream: bytes):
+    """A baseline or progressive stream as libjpeg's raw_data_out gives it
+    (old-style JPEG-in-TIFF, tif_ojpeg.c's OJPEGDecodeRaw): each
+    component's IDCT output at its own sampling, whole MCUs (no
+    upsampling, no colour conversion) -> ([uint8 [rows, cols]], frame)."""
+    s = _parse(stream, _State(max_comps=10))
+    if s.frame is None:
+        raise JpegError("no frame")
+    frame = s.frame
+    if frame["process"] == "lossless":
+        raise _refused("lossless raw components")
+    smooth = _smoothing_ok(frame)
+    planes = []
+    for c in frame["comps"]:
+        if c["qt"] is None:
+            raise JpegError(f"component {c['id']} has no scan")
+        coef = _smoothed(c, frame) if smooth else c["coef"]
+        blocks = idct_islow(coef, c["qt"])
+        by, bx = blocks.shape[:2]
+        planes.append(blocks.transpose(0, 2, 1, 3).reshape(by * 8, bx * 8))
+    return planes, frame
 
 
 def _parse(buf: bytes, s):
@@ -710,10 +734,96 @@ def _output(s):
     return ycc_to_rgb(*planes)
 
 
+class JpegHeaderError(JpegError, NotThisFormat):
+    """PIL's JpegImageFile._open fails with SyntaxError, IndexError or
+    struct.error: Image.open tries the next plugin."""
+
+# markers PIL's MARKER table lists, and those whose handler reads a
+# segment (Skip, APP, COM, SOF, DQT)
+_PIL_MARKERS = set(range(0xFFC0, 0xFFFF))
+_PIL_SEGMENT = ({0xFFC4, 0xFFCC, 0xFFDA, 0xFFDB, 0xFFDC, 0xFFDD, 0xFFDF,
+                 0xFFFE} | set(range(0xFFE0, 0xFFF0)))
+_PIL_SOF = set(range(0xFFC0, 0xFFD0)) - {0xFFC4, 0xFFC8, 0xFFCC} | {0xFFDE}
+
+
+def _pil_open(buf: bytes) -> None:
+    """PIL's JpegImageFile._open up to the first SOS: JpegHeaderError where it
+    fails as the next plugin's turn (a marker it does not know, the file
+    ending before the scan, SOF samples of other than 8 bits or a layer
+    count other than 1, 3 and 4, a SOF whose layers are cut mid-way, a
+    short DQT, JFIF or Adobe segment, no SOF at all), JpegError where a
+    segment runs past the file (PIL's OSError)."""
+    pos, s = 3, b"\xff"
+    size = mode = None
+    while True:
+        if not s:
+            raise JpegHeaderError("the file ends before the first scan")
+        if s[0] != 0xFF:
+            s, pos = buf[pos:pos + 1], pos + 1
+            continue
+        s, pos = s + buf[pos:pos + 1], pos + 1
+        if len(s) < 2:
+            raise JpegHeaderError("the file ends before the first scan")
+        i = s[0] << 8 | s[1]
+        if i in _PIL_MARKERS:
+            if i in _PIL_SEGMENT or i in _PIL_SOF:
+                if pos + 2 > len(buf):
+                    raise JpegHeaderError("the file ends in a segment length")
+                n = (buf[pos] << 8 | buf[pos + 1]) - 2
+                seg = buf[pos + 2:pos + 2 + max(n, 0)]
+                if len(seg) < n:
+                    raise JpegError("truncated segment (truncated file read)")
+                pos += 2 + max(n, 0)
+                short = False
+                if i in _PIL_SOF:
+                    if len(seg) < 6:
+                        raise JpegHeaderError("short SOF segment")
+                    if seg[0] != 8:
+                        raise JpegHeaderError(f"cannot handle {seg[0]}-bit "
+                                              f"layers")
+                    if seg[5] not in _MODES:
+                        raise JpegHeaderError(f"cannot handle {seg[5]}-layer "
+                                              f"images")
+                    # PIL unpacks the layers three bytes at a time
+                    short = (len(seg) - 6) % 3 != 0
+                    size = (seg[3] << 8 | seg[4], seg[1] << 8 | seg[2])
+                    mode = _MODES[seg[5]]
+                elif i == 0xFFDB:
+                    q = seg
+                    while q:
+                        n_q = 1 + (1 if q[0] < 16 else 2) * 64
+                        short = short or len(q) < n_q
+                        q = q[n_q:]
+                elif i == 0xFFE0 and seg.startswith(b"JFIF"):
+                    short = len(seg) < 7
+                elif i == 0xFFEE and seg.startswith(b"Adobe"):
+                    short = len(seg) < 7
+                if short:
+                    raise JpegHeaderError(f"short {i:#x} segment")
+            if i == 0xFFDA:
+                break
+            s, pos = buf[pos:pos + 1], pos + 1
+        elif i in (0, 0xFFFF):
+            s = b"\xff"
+        elif i == 0xFF00:
+            s, pos = buf[pos:pos + 1], pos + 1
+        else:
+            raise JpegHeaderError("no marker found")
+    if mode is None:
+        raise JpegHeaderError("no frame before the first scan")
+    try:
+        check_size(*size, "JPEG")
+    except NotThisFormat as err:
+        raise JpegHeaderError(str(err)) from None
+
+
 def read_jpeg_like_pil(path: str):
-    """(array, mode, info) of a JPEG file, as decode_jpeg_like_pil."""
+    """(array, mode, info) of a JPEG file, as decode_jpeg_like_pil, after
+    the header checks of PIL's _open (`_pil_open`)."""
     with open(path, "rb") as f:
-        return decode_jpeg_like_pil(f.read())
+        buf = f.read()
+    _pil_open(buf)
+    return decode_jpeg_like_pil(buf)
 
 
 def read_jpeg(path: str) -> np.ndarray:

@@ -1,6 +1,6 @@
 """ctypes binding of ``csrc/lzw_decode.cpp``, the host decoders that the TIFF
 and GIF readers share: TIFF's LZW (codes MSB-first, widened one code early,
-as libtiff), PackBits, and GIF's LZW (codes LSB-first, as Pillow's
+as libtiff; old-style streams LSB-first, widened one code late), PackBits, and GIF's LZW (codes LSB-first, as Pillow's
 GifDecode.c). The library is built with g++ at first use
 (`native.build_library`)."""
 
@@ -24,7 +24,8 @@ def _lib():
     if _LIB is None:
         lib = ctypes.CDLL(str(native.build_library(SRC, "lzw_decode")))
         i64 = ctypes.c_int64
-        for f in (lib.tiff_lzw_decode, lib.packbits_decode):
+        for f in (lib.tiff_lzw_decode, lib.tiff_lzw_compat_decode,
+                  lib.packbits_decode):
             f.argtypes = [_U8P, i64, _U8P, i64]
             f.restype = i64
         lib.gif_lzw_decode.argtypes = [_U8P, i64, ctypes.c_int, _U8P, i64,
@@ -46,6 +47,12 @@ def tiff_lzw(data: bytes, need: int) -> bytes | int:
     """A TIFF LZW strip or tile -> its first `need` bytes, or the decoder's
     negative code (-3: old-style LZW)."""
     return _strip(_lib().tiff_lzw_decode, data, need)
+
+
+def tiff_lzw_compat(data: bytes, need: int) -> bytes | int:
+    """An old-style (LSB-first) TIFF LZW strip or tile -> its first `need`
+    bytes, or the decoder's negative code."""
+    return _strip(_lib().tiff_lzw_compat_decode, data, need)
 
 
 def packbits(data: bytes, need: int) -> bytes | int:

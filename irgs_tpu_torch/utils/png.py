@@ -27,6 +27,8 @@ import zlib
 
 import numpy as np
 
+from .image import NotThisFormat, check_size
+
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}            # colour type -> samples/pixel
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}          # channels -> colour type
@@ -36,36 +38,74 @@ class PngError(ValueError):
     pass
 
 
+class PngHeaderError(PngError, NotThisFormat):
+    """PIL's PngImageFile._open fails with SyntaxError or struct.error:
+    Image.open tries the next plugin."""
+
+_IS_CID = re.compile(rb"\w\w\w\w")
+# chunk -> bytes its PngStream handler unpacks before any other check
+# (short ones raise struct.error or IndexError in PIL's _open)
+_NEEDS = {b"gAMA": 4, b"pHYs": 8, b"sRGB": 1}
+
+
 def _chunks(buf: bytes):
     """(type, payload) of every chunk up to IEND, as PIL reads them: the
-    chunks before the first IDAT with their CRCs checked (PIL's _open);
-    from the first IDAT on, as PIL's load reads them, no CRC, and a chunk
-    cut short or a missing IEND ends the stream."""
+    chunks before the first IDAT as PIL's _open reads them (a chunk type
+    that is not four word characters, a CRC that is wrong or cut, a header
+    cut before a chunk's length, a short tRNS, gAMA, pHYs or sRGB payload,
+    an IHDR with a filter method: PngHeaderError, the next plugin's turn;
+    a payload cut short: PngError, as PIL's OSError); from the first IDAT
+    on, as PIL's load reads them, no CRC, and a chunk cut short or a
+    missing IEND ends the stream."""
     if buf[:8] != _SIGNATURE:
-        raise PngError("not a PNG file")
-    pos, data_seen = 8, False
-    while pos + 12 <= len(buf):
+        raise PngHeaderError("not a PNG file")
+    pos, ctype = 8, None
+    while True:                                        # PIL's _open
+        head = buf[pos:pos + 8]
+        if len(head) < 4:
+            raise PngHeaderError("broken PNG file (no chunk header)")
+        (n,) = struct.unpack_from(">I", head)
+        kind = head[4:]
+        if not _IS_CID.match(kind):
+            raise PngHeaderError(f"broken PNG file (corrupt chunk type "
+                                 f"{kind!r})")
+        if kind in (b"IDAT", b"IEND"):
+            break
+        data = buf[pos + 8:pos + 8 + n]
+        if len(data) < n:
+            raise PngError(f"corrupt {kind!r} chunk (truncated file read)")
+        if kind == b"IHDR":
+            if n < 13:
+                raise PngError("truncated IHDR chunk")
+            ctype = data[9]
+            if data[11]:
+                raise PngHeaderError("unknown filter category")
+        short = len(data) < _NEEDS.get(kind, 0)
+        if kind == b"tRNS" and ctype in (0, 2):
+            short = len(data) < (2 if ctype == 0 else 6)
+        if kind == b"iCCP":
+            short = data.find(b"\0") + 1 >= len(data)
+        if short:
+            raise PngHeaderError(f"broken PNG file (short {kind!r} chunk)")
+        crc = buf[pos + 8 + n:pos + 12 + n]
+        if len(crc) < 4 or zlib.crc32(kind + data) != struct.unpack(">I",
+                                                                    crc)[0]:
+            raise PngHeaderError(f"broken PNG file (corrupt {kind!r} chunk: "
+                                 f"bad header checksum)")
+        pos += 12 + n
+        yield kind, data
+    while pos + 12 <= len(buf):                        # PIL's load
         (n,) = struct.unpack_from(">I", buf, pos)
         kind = buf[pos + 4:pos + 8]
         data = buf[pos + 8:pos + 8 + n]
-        data_seen = data_seen or kind == b"IDAT"
-        if data_seen:
-            if len(data) != n:
-                if kind == b"IDAT":
-                    yield kind, data
-                return
-        else:
-            if pos + 12 + n > len(buf):
-                raise PngError(f"corrupt {kind!r} chunk")
-            (crc,) = struct.unpack_from(">I", buf, pos + 8 + n)
-            if zlib.crc32(kind + data) != crc:
-                raise PngError(f"corrupt {kind!r} chunk")
+        if len(data) != n:
+            if kind == b"IDAT":
+                yield kind, data
+            return
         pos += 12 + n
         yield kind, data
         if kind == b"IEND":
             return
-    if not data_seen:
-        raise PngError("missing IEND")
 
 
 def _unfilter_average(x: np.ndarray, up: np.ndarray, bpp: int) -> np.ndarray:
@@ -197,7 +237,7 @@ def _decode(buf: bytes, path: str):
         if kind == b"iCCP":
             info["icc_profile"] = _icc_profile(data, path)
         elif kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
+            header = struct.unpack_from(">IIBBBBB", data)
         elif kind == b"PLTE":
             if len(data) % 3 or not 3 <= len(data) <= 768:
                 raise PngError(f"{path}: bad PLTE chunk")
@@ -206,12 +246,18 @@ def _decode(buf: bytes, path: str):
             trns = bytes(data)
         elif kind == b"IDAT":
             idat.append(data)
+    # no IHDR, or one PIL has no mode for, leaves PIL's image without a
+    # mode or a size: the next plugin's turn
     if header is None:
-        raise PngError(f"{path}: no IHDR")
+        raise PngHeaderError(f"{path}: no IHDR")
     w, h, depth, ctype, _comp, _filt, interlace = header
     if ctype not in _DEPTHS or depth not in _DEPTHS[ctype]:
-        raise PngError(f"{path}: colour type {ctype} at {depth} bits is not "
-                       "a PNG image type")
+        raise PngHeaderError(f"{path}: colour type {ctype} at {depth} bits "
+                             f"is not a PNG image type")
+    try:
+        check_size(w, h, path)
+    except NotThisFormat as err:
+        raise PngHeaderError(str(err)) from None
     if ctype == 3 and palette is None:
         raise PngError(f"{path}: palette image without PLTE")
     if interlace not in (0, 1):
@@ -385,7 +431,8 @@ def _pack(values: np.ndarray, depth: int) -> np.ndarray:
 def write_png_like_pil(path: str, img: np.ndarray, mode: str,
                        info: dict | None = None) -> None:
     """Write an image of PIL mode `mode` as ``PIL.Image.save(path)`` stores
-    it: "1" at 1 bit, "L", "LA", "RGB", "RGBA" at 8, "I;16" at 16 bits, and
+    it: "1" at 1 bit, "L", "LA", "RGB", "RGBA" at 8, "I;16" and "I;16B"
+    at 16 bits, "I" at 16 bits clipped to 0..65535 (PIL's I;16B packer), and
     "P" with its palette (``info["palette"]``, [n, 3]) at the depth PIL picks
     from the palette's length (1 bit up to 2 entries, 2 up to 4, 4 up to 16,
     else 8); the ``transparency`` of ``info`` as a tRNS chunk and its
@@ -409,7 +456,9 @@ def write_png_like_pil(path: str, img: np.ndarray, mode: str,
         rows = _pack(img & ((1 << depth) - 1), depth) if depth < 8 else img
         ctype = 3
         extra = _chunk(b"PLTE", pal[:colors].tobytes())
-    elif mode == "I;16":
+    elif mode in ("I;16", "I;16B", "I"):
+        if mode == "I":
+            img = np.clip(img, 0, 65535)
         rows = img.astype(">u2").view(np.uint8).reshape(h, 2 * w)
         depth, ctype = 16, 0
     elif mode in ("L", "LA", "RGB", "RGBA"):
@@ -424,7 +473,7 @@ def write_png_like_pil(path: str, img: np.ndarray, mode: str,
             if not isinstance(t, bytes):
                 t = b"\xff" * max(0, min(255, int(t))) + b"\0"
             extra += _chunk(b"tRNS", t[:colors])
-        elif mode in ("1", "L", "I;16"):
+        elif mode in ("1", "L", "I", "I;16"):
             extra += _chunk(b"tRNS", struct.pack(">H", max(0, min(65535,
                                                                  int(t)))))
         elif mode == "RGB":

@@ -1,5 +1,5 @@
 """cv2.resize on float images, in numpy, as OpenCV computes it; and PIL's
-Lanczos resize of 8- and 16-bit images (`resize_lanczos_like_pil`).
+Lanczos resize of 8-, 16- and 32-bit images (`resize_lanczos_like_pil`).
 
 The JAX package resizes dataset frames and masks with ``cv2.resize``
 (irgs_tpu/scene/datasets.py:197-198 for Stanford-ORB's 512² frames,
@@ -235,15 +235,17 @@ def _resample_lib():
 
 
 def _lanczos(arr: np.ndarray, w: int, h: int) -> np.ndarray:
-    sixteen = arr.dtype == np.uint16
-    src = np.ascontiguousarray(arr.astype("<u2") if sixteen else arr)
+    """uint8 [H, W(, bands)], little-endian uint16 [H, W] or int32 [H, W]
+    -> the same type at [h, w]."""
+    bits = arr.dtype.itemsize * 8
+    src = np.ascontiguousarray(arr)
     bands = 1 if arr.ndim == 2 else arr.shape[2]
     out = np.empty((h, w) + arr.shape[2:], src.dtype)
     u8p = ctypes.POINTER(ctypes.c_uint8)
     _resample_lib().resample_lanczos(
-        src.ctypes.data_as(u8p), arr.shape[1], arr.shape[0], bands,
-        int(sixteen), out.ctypes.data_as(u8p), w, h)
-    return out.astype(np.uint16) if sixteen else out
+        src.ctypes.data_as(u8p), arr.shape[1], arr.shape[0], bands, bits,
+        out.ctypes.data_as(u8p), w, h)
+    return out
 
 
 def _nearest(arr: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -270,8 +272,14 @@ def resize_lanczos_like_pil(arr: np.ndarray, mode: str, size) -> np.ndarray:
 
     Modes "1" and "P" resample with NEAREST, as PIL does; "LA" and "RGBA"
     are premultiplied by alpha (MULDIV255) before and divided after (PIL's
-    "La"/"RGBa" modes); "L", "RGB", "CMYK" go through the 8-bit Lanczos of
-    csrc/resample.cpp, "I;16" through its 16-bit one."""
+    "La"/"RGBa" modes); "L", "RGB", "CMYK", "PA" (the palette indices too)
+    and "LAB" (a and b as signed bytes, as PIL's Resample.c reads them) go
+    band by band through the 8-bit Lanczos of csrc/resample.cpp, "I;16"
+    through its 16-bit one, "I;16B" through the same reading each sample's
+    bytes little-endian (PIL's Resample.c does, and the result is stored
+    back in the image's big-endian order), "I" through its 32-bit one. "F"
+    raises: no caller reads a float resize (PIL cannot save mode F as PNG
+    or JPEG)."""
     w, h = int(size[0]), int(size[1])
     arr = np.asarray(arr)
     if (w, h) == (arr.shape[1], arr.shape[0]):
@@ -289,7 +297,15 @@ def resize_lanczos_like_pil(arr: np.ndarray, mode: str, size) -> np.ndarray:
                       np.minimum(255 * out[..., :-1] // safe, 255))
         return np.concatenate([un, alpha], -1).astype(np.uint8)
     if mode == "I;16":
-        return _lanczos(arr.astype(np.uint16), w, h)
-    if mode in ("L", "RGB", "CMYK"):
+        return _lanczos(arr.astype("<u2"), w, h).astype(np.uint16)
+    if mode == "I;16B":
+        raw = np.ascontiguousarray(arr, ">u2").view("<u2")
+        return _lanczos(raw, w, h).view(">u2")
+    if mode == "I":
+        return _lanczos(arr.astype(np.int32), w, h)
+    if mode == "LAB":
+        sign = np.array([0, 0x80, 0x80], np.uint8)
+        return _lanczos(arr.astype(np.uint8) ^ sign, w, h) ^ sign
+    if mode in ("L", "RGB", "CMYK", "PA"):
         return _lanczos(arr.astype(np.uint8), w, h)
     raise NotImplementedError(f"LANCZOS resize of mode {mode}")

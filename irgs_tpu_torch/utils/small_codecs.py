@@ -1,9 +1,10 @@
-"""ctypes bindings of ``csrc/small_decode.cpp``: the run-length and
-op-stream decoders of PIL's small readers (Targa RLE, PCX RLE, SGI RLE,
-QOI), built with g++ at first use (`native.build_library`). Each returns
-the decoder's line buffers, which the reader unpacks to PIL's mode, and
-raises `SmallCodecError` where PIL's decoder fails ("image file is
-truncated", "buffer overrun when reading image file")."""
+"""ctypes bindings of ``csrc/small_decode.cpp``: the run-length and op-stream
+decoders of PIL's small readers (Targa RLE, PCX RLE, SGI RLE, QOI) and the
+TIFF reader's ThunderScan, built with g++ at first use
+(`native.build_library`). Each returns the decoder's line buffers, which
+the reader unpacks to PIL's mode, and raises `SmallCodecError` where PIL's
+decoder fails ("image file is truncated", "buffer overrun when reading
+image file")."""
 
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ def _lib():
         lib.sgi_rle_decode.argtypes = [_U8P, i64, i64, i64, i32, i32, _U8P,
                                        ctypes.POINTER(ctypes.c_int64)]
         lib.qoi_decode.argtypes = [_U8P, i64, i64, i32, _U8P]
+        lib.thunder_decode.argtypes = [_U8P, i64, i64, i64, _U8P, _U8P]
         for f in (lib.tga_rle_decode, lib.pcx_decode, lib.sgi_rle_decode,
-                  lib.qoi_decode):
+                  lib.qoi_decode, lib.thunder_decode):
             f.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -96,3 +98,20 @@ def qoi(data: bytes, npix: int, bands: int) -> np.ndarray:
     _check(_lib().qoi_decode(src.ctypes.data_as(_U8P), len(data), npix, bands,
                              out.ctypes.data_as(_U8P)), "QOI")
     return out
+
+
+def thunder(data: bytes, rows: int, cols: int):
+    """A ThunderScan strip of `rows` rows of `cols` 4-bit pixels -> (the
+    rows packed two pixels a byte, bool [rows, cols]: the pixels whose byte
+    libtiff wrote), or None where libtiff fails the strip."""
+    src = np.frombuffer(data, np.uint8)
+    rowbytes = (cols + 1) // 2
+    out = np.zeros(max(rows * rowbytes, 1), np.uint8)
+    wrote = np.zeros(max(rows * rowbytes, 1), np.uint8)
+    rc = _lib().thunder_decode(src.ctypes.data_as(_U8P), len(src), rows,
+                               cols, out.ctypes.data_as(_U8P),
+                               wrote.ctypes.data_as(_U8P))
+    if rc < 0:
+        return None
+    w = wrote[:rows * rowbytes].reshape(rows, rowbytes).astype(bool)
+    return out[:rows * rowbytes].tobytes(), np.repeat(w, 2, 1)[:, :cols]

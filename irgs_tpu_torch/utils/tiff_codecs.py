@@ -19,7 +19,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _LIBS = {}
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 # ccitt_decode's modes
-CCITT_RLE, CCITT_G3_1D, CCITT_G3_2D, CCITT_G4 = 0, 1, 2, 3
+CCITT_RLE, CCITT_G3_1D, CCITT_G3_2D, CCITT_G4, CCITT_RLEW = 0, 1, 2, 3, 4
 _ZSTD_ERRORS = {-1: "corrupt data", -2: "a dictionary id (not ported)",
                 -3: "a window too large", -4: "not a Zstandard frame"}
 _XZ_ERRORS = {-1: "corrupt data", -2: "a filter other than delta and LZMA2 "

@@ -81,6 +81,106 @@ def lzw_encode_tiff(data: bytes) -> bytes:
     return bytes(out)
 
 
+def lzw_encode_tiff_compat(data: bytes) -> bytes:
+    """Old-style TIFF LZW (libtiff's LZWDecodeCompat reads it): CLEAR
+    first, codes LSB-first, 9 to 12 bits widened one code late, CLEAR
+    before the table fills, EOI last."""
+    out = bytearray()
+    acc, nacc = 0, 0
+    nbits = 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += nbits
+        while nacc >= 8:
+            out.append(acc & 0xFF)
+            acc >>= 8
+            nacc -= 8
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    put(256)
+    w = b""
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        if nxt == 4093:
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, nbits = 258, 9
+        else:
+            table[wc] = nxt
+            nxt += 1
+            if nxt > (1 << nbits):
+                nbits += 1
+        w = bytes([b])
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt > (1 << nbits):
+            nbits += 1
+    put(257)
+    if nacc:
+        out.append(acc & 0xFF)
+    return bytes(out)
+
+
+def thunderscan_encode(rows: np.ndarray) -> bytes:
+    """4-bit grey rows [H, W] -> ThunderScan codes (libtiff's
+    tif_thunder.c reads them): runs of the last pixel (never one that
+    reaches the row's end, which libtiff does not write), three 2-bit
+    deltas, two 3-bit deltas, else the raw value; each row starts from
+    the last pixel 0."""
+    out = bytearray()
+    for row in np.asarray(rows, np.int64):
+        last, x, w = 0, 0, len(row)
+        while x < w:
+            run = 0
+            while x + run < w - 1 and run < 63 and row[x + run] == last:
+                run += 1
+            if run >= 2:
+                out.append(run)
+                x += run
+                continue
+            d = [int(v) - int(p) for p, v in zip(
+                [last] + list(row[x:x + 2]), row[x:x + 3])]
+            if len(d) == 3 and all(-1 <= v <= 1 for v in d) and all(
+                    0 <= v <= 15 for v in row[x:x + 3]):
+                code = {0: 0, 1: 1, -1: 3}
+                out.append(0x40 | code[d[0]] << 4 | code[d[1]] << 2
+                           | code[d[2]])
+                last, x = int(row[x + 2]), x + 3
+                continue
+            if len(d) >= 2 and all(-3 <= v <= 3 for v in d[:2]):
+                code = {0: 0, 1: 1, 2: 2, 3: 3, -3: 5, -2: 6, -1: 7}
+                out.append(0x80 | code[d[0]] << 3 | code[d[1]])
+                last, x = int(row[x + 1]), x + 2
+                continue
+            out.append(0xC0 | int(row[x]))
+            last, x = int(row[x]), x + 1
+    return bytes(out)
+
+
+def fp_predict(block: np.ndarray) -> bytes:
+    """Float rows [rows, cols, spp] -> libtiff's floating-point predictor
+    3 (fpDiff): each row's samples split into byte planes, most
+    significant first, then differenced byte by byte at a stride of spp."""
+    rows, cols, spp = block.shape
+    bps = block.dtype.itemsize
+    out = bytearray()
+    for r in block:
+        be = np.ascontiguousarray(r.reshape(-1), r.dtype.newbyteorder(">"))
+        planes = be.view(np.uint8).reshape(-1, bps).T.reshape(-1)
+        d = planes.astype(np.int64).copy()
+        d[spp:] = planes[spp:].astype(np.int64) - planes[:-spp]
+        out += (d & 0xFF).astype(np.uint8).tobytes()
+    return bytes(out)
+
+
 def packbits_encode(data: bytes) -> bytes:
     out = bytearray()
     i, n = 0, len(data)

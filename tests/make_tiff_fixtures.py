@@ -15,7 +15,11 @@ the reader. ``refused/`` holds streams PIL refuses and streams PIL reads
 that the port does not yet (``refused/refused.json`` says which).
 ``large/`` holds the four frames the chip smoke times and the SHA-256 of
 PIL's arrays; ``colmap/`` a COLMAP capture of four TIFF frames (the views
-of tests/data/webp/colmap/ in four codecs).
+of tests/data/webp/colmap/ in four codecs). ``legacy/`` holds the layouts
+the reader once refused (tests/test_torch_tiff_legacy.py) and, in
+``legacy/large/``, their 1297x840 frames with the SHA-256 of PIL's
+arrays; ``legacy_colmap/`` the same four views as old-style JPEG, old-style
+LZW, planar YCbCr and planar 16-bit RGB with predictor 2.
 
     python tests/make_tiff_fixtures.py
 """
@@ -202,6 +206,112 @@ def jpeg_tiff(img: np.ndarray, layout, sampling=(2, 2), tables=True,
     return ims.write_tiff(img, photometric=photometric, bits=8,
                           compression="jpeg", layout=layout, chunks=streams,
                           tags=extra, **kw)
+
+
+def _jpeg_segments(stream: bytes):
+    """A baseline JPEG stream -> ({marker: [segment payloads]}, its
+    entropy-coded data split at the restart markers)."""
+    segs, pos = {}, 2
+    while True:
+        m = stream[pos + 1]
+        n = int.from_bytes(stream[pos + 2:pos + 4], "big")
+        segs.setdefault(m, []).append(stream[pos + 4:pos + 2 + n])
+        pos += 2 + n
+        if m == 0xDA:
+            break
+    data = stream[pos:stream.rindex(b"\xff\xd9")]
+    parts, start, i = [], 0, 0
+    while i < len(data) - 1:
+        if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7:
+            parts.append(data[start:i])
+            start = i = i + 2
+            continue
+        i += 1
+    parts.append(data[start:])
+    return segs, parts
+
+
+def _tiff_with_blobs(img_shape, blobs, entries_of) -> bytes:
+    """A little-endian one-page TIFF: `blobs` laid out after the header
+    (each at an even offset), then the IFD of `entries_of(offsets)`
+    ({tag: (type, values)})."""
+    import struct
+    body, offsets = bytearray(), []
+    for b in blobs:
+        offsets.append(8 + len(body))
+        body += b + bytes(len(b) % 2)
+    entries = entries_of(offsets)
+    ifd_at = 8 + len(body)
+    tags = sorted(entries)
+    ifd = bytearray(struct.pack("<H", len(tags)))
+    extra = bytearray()
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    codes = {3: "H", 4: "I"}
+    for t in tags:
+        typ, vals = entries[t]
+        data = struct.pack("<" + codes[typ] * len(vals), *vals)
+        head = struct.pack("<HHI", t, typ, len(vals))
+        if len(data) <= 4:
+            ifd += head + data.ljust(4, b"\0")
+        else:
+            ifd += head + struct.pack("<I", extra_at + len(extra))
+            extra += data
+    ifd += bytes(4)
+    return b"II*\0" + struct.pack("<I", ifd_at) + bytes(body + ifd + extra)
+
+
+def ojpeg_tiff(img: np.ndarray, kind: str = "jif", rps=None,
+               sampling=(2, 2), quality=90, subsampling_tag=True) -> bytes:
+    """An old-style JPEG (compression 6) YCbCr TIFF of a PIL-encoded
+    baseline stream. kind "jif": one strip holding the whole stream,
+    JPEGInterchangeFormat(Length) pointing at it; "tables": the stream's
+    tables in JPEGQTables, JPEGDCTables and JPEGACTables (JPEGProc 1), each
+    strip one restart interval of the entropy-coded data (libtiff puts the
+    RST markers back)."""
+    h, w = img.shape[:2]
+    rps = rps or h
+    sh, sv = sampling
+    sub = {(1, 1): 0, (2, 1): 1, (2, 2): 2}[sampling]
+    kw = {}
+    if rps < h:
+        kw["restart_marker_blocks"] = -(-w // (8 * sh)) * (rps // (8 * sv))
+    bio = io.BytesIO()
+    Image.fromarray(img).save(bio, "JPEG", quality=quality, subsampling=sub,
+                              **kw)
+    stream = bio.getvalue()
+    base = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]),
+            259: (3, [6]), 262: (3, [6]), 277: (3, [3]), 278: (4, [rps])}
+    if subsampling_tag:
+        base[530] = (3, [sh, sv])
+    if kind == "jif":
+        return _tiff_with_blobs(img.shape, [stream], lambda o: {
+            **base, 273: (4, o), 279: (4, [len(stream)]),
+            513: (4, o), 514: (4, [len(stream)])})
+    segs, parts = _jpeg_segments(stream)
+    qts = {}
+    for p in segs[0xDB]:
+        while p:
+            qts[p[0] & 15], p = p[1:65], p[65:]
+    dcs, acs = {}, {}
+    for p in segs[0xC4]:
+        while p:
+            n = 17 + sum(p[1:17])
+            (acs if p[0] >> 4 else dcs)[p[0] & 15] = p[1:n]
+            p = p[n:]
+    sof = segs[0xC0][0]
+    tq = [sof[6 + 3 * c + 2] for c in range(3)]
+    sos = segs[0xDA][0]
+    td = [sos[2 + 2 * c] >> 4 for c in range(3)]
+    ta = [sos[2 + 2 * c] & 15 for c in range(3)]
+    tables = [qts[t] for t in tq] + [dcs[t] for t in td] + [acs[t]
+                                                           for t in ta]
+    blobs = tables + parts
+
+    def entries(o):
+        return {**base, 273: (4, o[9:]), 279: (4, [len(p) for p in parts]),
+                512: (3, [1]), 519: (4, o[0:3]), 520: (4, o[3:6]),
+                521: (4, o[6:9])}
+    return _tiff_with_blobs(img.shape, blobs, entries)
 
 
 def _photo(h, w, seed):
@@ -428,13 +538,6 @@ def refused():
         ("thunderscan", ims.write_tiff(
             img[..., 0] >> 4, photometric=1, bits=4, compression="thunderscan",
             chunks=[bytes(img[..., 0] >> 4)]), "ThunderScan (32809)"),
-        ("ycbcr_lzw_planar2", ims.write_tiff(
-            ycc, photometric=6, bits=8, compression="lzw", planar=2,
-            tags={530: (3, [1, 1])}), "YCbCr in planar configuration 2"),
-        ("ycbcr_lzw_44_odd_units", ims.write_tiff(
-            ycc[:, :20], photometric=6, bits=8, compression="lzw",
-            units=(4, 4), layout=("strips", 8)),
-         "YCbCr 4x4 strips whose unit rows libtiff reads in part"),
         ("grey12_jpeg", _jpeg12(), "12-bit JPEG"),
     ]
     # each `why` stands where PIL reads the stream, else None
@@ -454,11 +557,30 @@ def refused():
         ("bigtiff_mm", ims.write_tiff(rgb, photometric=2, bits=8, big=True,
                                       order="MM"), None),
         ("ycbcr", ycbcr, None),
+    ] + unported
+
+
+def legacy():
+    """(name, bytes) of the layouts the reader once refused, now checked
+    against PIL by tests/test_torch_tiff_legacy.py (tests/data/tiff/
+    legacy/, no .npy: the YCbCr 4x4 file has pixels PIL reads from memory
+    libtiff never wrote)."""
+    rng = np.random.default_rng(15)
+    _samples(rng, 8, 3), _samples(rng, 4, 1), _samples(rng, 4, 1)
+    rng.integers(0, 65536, (3, 16))
+    img = _photo(20, 24, 2)
+    ycc = np.asarray(Image.fromarray(img).convert("YCbCr"))
+    return [
         ("rgb16_planar2_raw", ims.write_tiff(_samples(rng, 16, 3),
                                              photometric=2, bits=16,
-                                             planar=2),
-         "16-bit planes uncompressed"),
-    ] + unported
+                                             planar=2)),
+        ("ycbcr_lzw_planar2", ims.write_tiff(
+            ycc, photometric=6, bits=8, compression="lzw", planar=2,
+            tags={530: (3, [1, 1])})),
+        ("ycbcr_lzw_44_odd_units", ims.write_tiff(
+            ycc[:, :20], photometric=6, bits=8, compression="lzw",
+            units=(4, 4), layout=("strips", 8))),
+    ]
 
 
 def _pil_reads(data: bytes) -> bool:
@@ -544,7 +666,8 @@ CAPTURE_FRAMES = (("view_000.tif", "ycbcr_jpeg_420"),
                   ("view_003.tif", "rgba_zstd_p2_tiles"))
 
 
-def write_colmap_capture(root: str) -> None:
+def write_colmap_capture(root: str, frames=CAPTURE_FRAMES,
+                         encode=None) -> None:
     import shutil
     import struct
     import sys
@@ -562,13 +685,14 @@ def write_colmap_capture(root: str) -> None:
                                                  "images.bin"))
     with open(os.path.join(root, "sparse", "0", "images.bin"), "wb") as f:
         f.write(struct.pack("<Q", len(images)))
-        for (iid, im), (name, kind) in zip(sorted(images.items()),
-                                           CAPTURE_FRAMES):
+        for (iid, im), (name, kind) in zip(sorted(images.items()), frames):
             with Image.open(os.path.join(src, "images", im["name"])) as pim:
                 pim.load()
                 arr = np.asarray(pim)
             rgb = np.ascontiguousarray(arr[..., :3])
-            if kind == "ycbcr_jpeg_420":
+            if encode is not None:
+                data = encode(rgb, kind)
+            elif kind == "ycbcr_jpeg_420":
                 data = jpeg_tiff(rgb, ("strips", 16), (2, 2))
             elif kind == "rgb_jpeg":
                 data = pil_tiff(Image.fromarray(rgb), compression="jpeg")
@@ -591,8 +715,119 @@ def write_colmap_capture(root: str) -> None:
             f.write(struct.pack("<Q", 0))
 
 
+# the legacy layouts' 1297x840 frames the chip smoke times (a 1728-wide
+# page for RLEW), with the SHA-256 of PIL's arrays
+def _legacy_tests():
+    """tests/test_torch_tiff_legacy.py, whose writers make the legacy
+    layouts (it imports the port: the repository goes on the path)."""
+    import sys
+    sys.path.insert(0, os.path.dirname(HERE))
+    import test_torch_tiff_legacy as tl
+    return tl
+
+
+def legacy_large_frames():
+    import make_webp_fixtures as mw
+    tl = _legacy_tests()
+    frame = mw.photo(840, 1297, 5, noise=0.0, scale=16.0)
+    grey = np.asarray(Image.fromarray(frame).convert("L"))
+    ycc = np.asarray(Image.fromarray(frame).convert("YCbCr"))
+    page = _page(1100, 1728, 7)
+    f32 = grey.astype(np.float32)[..., None] / 7.0
+    rows = 64
+    return [
+        ("large_ojpeg", ojpeg_tiff(frame, "tables", rps=16)),
+        ("large_old_lzw_p2", tl._old_lzw(frame, predictor=2, rps=rows)),
+        ("large_ycbcr_lzw_planar2", ims.write_tiff(
+            ycc, photometric=6, bits=8, compression="lzw", planar=2,
+            layout=("strips", rows), tags={530: (3, [1, 1])})),
+        ("large_rgb16_lzw_p2_planar2", ims.write_tiff(
+            frame.astype(np.uint16) * 257, photometric=2, bits=16,
+            planar=2, compression="lzw", predictor=2,
+            layout=("strips", rows))),
+        ("large_float_p3", ims.write_tiff(
+            f32, photometric=1, bits=32, sample_format=3,
+            compression="adobe_deflate", layout=("strips", rows),
+            chunks=[zlib_compress(ims.fp_predict(f32[y:y + rows]))
+                    for y in range(0, 840, rows)], tags={317: (3, [3])})),
+        ("large_grey12", ims.write_tiff(
+            grey[..., None].astype(np.uint16) * 16, photometric=1, bits=12,
+            compression="adobe_deflate", layout=("strips", rows),
+            chunks=[zlib_compress(tl.pack12(grey[y:y + rows].astype(
+                np.int64) * 16)) for y in range(0, 840, rows)])),
+        ("large_thunderscan", ims.write_tiff(
+            (grey >> 4)[..., None], photometric=1, bits=4,
+            compression="thunderscan", layout=("strips", rows),
+            chunks=[ims.thunderscan_encode(grey[y:y + rows] >> 4)
+                    for y in range(0, 840, rows)])),
+        ("large_rlew", tl._rlew(page)),
+    ]
+
+
+def zlib_compress(raw: bytes) -> bytes:
+    import zlib
+    return zlib.compress(raw, 6)
+
+
+LEGACY_LARGE_NAMES = (("large_ojpeg", "old-style JPEG 4:2:0, 16-row strips"),
+                      ("large_old_lzw_p2", "old-style LZW RGB, predictor 2"),
+                      ("large_ycbcr_lzw_planar2", "YCbCr 1x1 planar, LZW"),
+                      ("large_rgb16_lzw_p2_planar2",
+                       "16-bit RGB planar, LZW, predictor 2"),
+                      ("large_float_p3", "float grey, Deflate, predictor 3"),
+                      ("large_grey12", "12-bit grey, Deflate"),
+                      ("large_thunderscan", "4-bit grey ThunderScan"),
+                      ("large_rlew", "CCITT RLEW page, 1728 wide"))
+
+
+def save_legacy_large(out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    notes = {}
+    for name, data in legacy_large_frames():
+        path = os.path.join(out, name + ".tif")
+        with open(path, "wb") as f:
+            f.write(data)
+        with Image.open(path) as im:
+            arr = np.asarray(im)
+            notes[name] = {"mode": im.mode, "shape": list(arr.shape),
+                           "sha256": sha256_of(arr)}
+    with open(os.path.join(out, "large.json"), "w") as f:
+        json.dump(notes, f, indent=0, sort_keys=True)
+
+
+# the legacy capture: the same four views in the layouts this reader once
+# refused
+LEGACY_CAPTURE_FRAMES = (("view_000.tif", "ojpeg_ycbcr_420"),
+                         ("view_001.tif", "old_lzw_rgb"),
+                         ("view_002.tif", "ycbcr_lzw_planar2"),
+                         ("view_003.tif", "rgb16_lzw_p2_planar2"))
+
+
+def legacy_capture_frame(rgb: np.ndarray, kind: str) -> bytes:
+    tl = _legacy_tests()
+    if kind == "ojpeg_ycbcr_420":
+        return ojpeg_tiff(rgb, "tables", rps=16)
+    if kind == "old_lzw_rgb":
+        return tl._old_lzw(rgb, rps=64)
+    if kind == "ycbcr_lzw_planar2":
+        return ims.write_tiff(
+            np.asarray(Image.fromarray(rgb).convert("YCbCr")), photometric=6,
+            bits=8, compression="lzw", planar=2, layout=("strips", 64),
+            tags={530: (3, [1, 1])})
+    return ims.write_tiff(rgb.astype(np.uint16) * 257, photometric=2,
+                          bits=16, planar=2, compression="lzw", predictor=2,
+                          layout=("strips", 64))
+
+
 if __name__ == "__main__":
     ims.save_fixtures(OUT, variants(), refused(), ".tif")
     save_large(os.path.join(OUT, "large"))
+    os.makedirs(os.path.join(OUT, "legacy"), exist_ok=True)
+    for name, data in legacy():
+        with open(os.path.join(OUT, "legacy", name + ".tif"), "wb") as f:
+            f.write(data)
     write_colmap_capture(os.path.join(OUT, "colmap"))
+    save_legacy_large(os.path.join(OUT, "legacy", "large"))
+    write_colmap_capture(os.path.join(OUT, "legacy_colmap"),
+                         LEGACY_CAPTURE_FRAMES, legacy_capture_frame)
     print(f"wrote {len(variants())} fixtures to {OUT}")

@@ -10,7 +10,7 @@ import os
 
 import numpy as np
 import pytest
-from PIL import Image
+from PIL import Image, UnidentifiedImageError
 
 from irgs_tpu.scene import datasets as jds
 from irgs_tpu.utils import exr as jexr
@@ -153,11 +153,10 @@ def test_downscale_r2_matches_cv2_inter_area(scenes):
 
 def test_unported_inputs_raise(scenes, tmp_path):
     """What the port does not read raises: a folder of no known layout, a
-    JPEG frame PIL refuses too (12-bit samples), and an image format the
+    JPEG frame PIL cannot identify (12-bit samples), and an image format the
     port has no codec for yet (IM). A progressive JPEG frame, a BMP frame,
     a WebP frame and a PPM frame, which the port once refused, now read as
     PIL reads them."""
-    from irgs_tpu_torch.utils import jpeg
     with pytest.raises(ValueError, match="recognize"):
         tds.load_scene(str(tmp_path))
     img = np.zeros((8, 8, 3), np.uint8)
@@ -169,7 +168,11 @@ def test_unported_inputs_raise(scenes, tmp_path):
     data = (tmp_path / "p.jpg").read_bytes()
     i = data.index(b"\xff\xc2")
     (tmp_path / "t.jpg").write_bytes(data[:i + 4] + bytes([12]) + data[i + 5:])
-    with pytest.raises(jpeg.JpegError, match="12-bit"):
+    # PIL's JPEG plugin refuses 12-bit samples in its _open, and no other
+    # plugin takes the file
+    with pytest.raises(UnidentifiedImageError):
+        Image.open(tmp_path / "t.jpg")
+    with pytest.raises(UnreadableImageError, match="cannot identify"):
         tds._load_image_any(str(tmp_path / "t.jpg"))
     Image.fromarray(img).save(tmp_path / "f.bmp")
     np.testing.assert_array_equal(

@@ -1,0 +1,181 @@
+"""A ``.hdr`` path whose bytes are not Radiance, as the JAX loader reads it
+(``cv2.imread(path, IMREAD_UNCHANGED)``, BGR flipped, float32 without a
+division by 255): utils/imread.imread_unchanged against cv2.imread on PNG,
+JPEG, TIFF, BMP, WebP, GIF, PNM and PFM content of every layout it reads,
+and the port's ``_load_image_any`` against the JAX one on the same files.
+Content cv2 cannot decode (EXR with OpenEXR off, Targa, QOI, bytes no
+decoder takes, a header its decoder refuses) raises OSError in both;
+content cv2 decodes and the port does not (PAM) raises "not ported".
+
+Tolerance: bit for bit (both decode the same bytes the same way).
+"""
+
+import io
+
+import cv2
+import numpy as np
+import pytest
+from PIL import Image
+
+from irgs_tpu.scene import datasets as jds
+from irgs_tpu_torch.scene import datasets as tds
+from irgs_tpu_torch.utils import exr, image
+from irgs_tpu_torch.utils.imread import imread_unchanged
+
+
+def _pil(im, fmt, **kw):
+    b = io.BytesIO()
+    im.save(b, fmt, **kw)
+    return b.getvalue()
+
+
+def _contents():
+    rng = np.random.default_rng(18)
+    rgb = rng.integers(0, 256, (12, 17, 3), dtype=np.uint8)
+    rgba = np.dstack([rgb, rgb[..., :1]])
+    grey = rgb[..., 0]
+    u16 = rng.integers(0, 65536, (12, 17, 3)).astype(np.uint16)
+    pal = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE,
+                                       colors=5)
+    greypal = Image.fromarray(grey // 2).convert("P")
+    greypal.putpalette([i // 2 for i in range(256) for _ in range(3)])
+    f32 = rng.random((12, 17)).astype(np.float32)
+    c = {
+        "png_rgb": _pil(Image.fromarray(rgb), "PNG"),
+        "png_rgba": _pil(Image.fromarray(rgba), "PNG"),
+        "png_L": _pil(Image.fromarray(grey), "PNG"),
+        "png_LA": _pil(Image.fromarray(rgb[..., :2].copy(), "LA"), "PNG"),
+        "png_1": _pil(Image.fromarray(grey > 128), "PNG"),
+        "png_I16": _pil(Image.fromarray(u16[..., 0]), "PNG"),
+        "png_P": _pil(pal, "PNG"),
+        "png_P_trns": _pil(pal, "PNG", transparency=1),
+        "png_L_trns": _pil(Image.fromarray(grey), "PNG", transparency=7),
+        "png_rgb_trns": _pil(Image.fromarray(rgb), "PNG", transparency=tuple(
+            int(v) for v in rgb[0, 0])),
+        "jpg_rgb": _pil(Image.fromarray(rgb), "JPEG"),
+        "jpg_L": _pil(Image.fromarray(grey), "JPEG"),
+        "jpg_cmyk": _pil(Image.fromarray(rgb).convert("CMYK"), "JPEG"),
+        "tif_rgb": _pil(Image.fromarray(rgb), "TIFF"),
+        "tif_rgba": _pil(Image.fromarray(rgba), "TIFF"),
+        "tif_L": _pil(Image.fromarray(grey), "TIFF"),
+        "tif_1": _pil(Image.fromarray(grey > 128), "TIFF"),
+        "tif_I16": _pil(Image.fromarray(u16[..., 0]), "TIFF"),
+        "tif_F": _pil(Image.fromarray(f32), "TIFF"),
+        "tif_lzw": _pil(Image.fromarray(rgb), "TIFF", compression="tiff_lzw"),
+        "tif_P": _pil(pal, "TIFF"),
+        "bmp_rgb": _pil(Image.fromarray(rgb), "BMP"),
+        "bmp_L": _pil(Image.fromarray(grey), "BMP"),
+        "bmp_P": _pil(pal, "BMP"),
+        "bmp_grey_palette": _pil(greypal, "BMP"),
+        "bmp_1": _pil(Image.fromarray(grey > 128), "BMP"),
+        "webp_lossy": _pil(Image.fromarray(rgb), "WEBP"),
+        "webp_lossless_alpha": _pil(Image.fromarray(rgba), "WEBP",
+                                    lossless=True),
+        "gif": _pil(pal, "GIF"),
+        "gif_trns": _pil(pal, "GIF", transparency=1),
+        "ppm_P6": _pil(Image.fromarray(rgb), "PPM"),
+        "ppm_P5": _pil(Image.fromarray(grey), "PPM"),
+        "ppm_P4": _pil(Image.fromarray(grey > 128), "PPM"),
+        "ppm_P5_16": _pil(Image.fromarray(u16[..., 0].astype(np.int32), "I"),
+                          "PPM"),
+        "ppm_P2_100": b"P2\n3 2\n100\n0 50 100 1 2 300\n",
+        "ppm_P2_1000": b"P2\n# a comment\n3 1\n1000\n0 500 1000\n",
+        "ppm_P3": b"P3\n2 1\n255\n1 2 3 4 5 6\n",
+        "ppm_P1": b"P1\n3 2\n010\n1 1 0\n",
+        "ppm_P5_200": b"P5\n4 1\n200\n" + bytes([0, 1, 100, 250]),
+        "ppm_P6_16": b"P6\n2 1\n65535\n" + np.array(
+            [1, 2, 3, 60000, 5, 6], ">u2").tobytes(),
+        "pfm_Pf": _pil(Image.fromarray(f32, "F"), "PPM"),
+        "pfm_PF_scaled": b"PF\n3 2\n-2.5\n" + (rng.random(18) * 9).astype(
+            "<f4").tobytes(),
+        "pfm_Pf_big_endian": b"Pf\n2 2\n3.0\n" + rng.random(4).astype(
+            ">f4").tobytes(),
+    }
+    c["tif_rgba16"] = _tiff16(u16, rng)
+    return c
+
+
+def _tiff16(u16, rng):
+    """A 16-bit RGBA TIFF, unassociated alpha, written byte by byte."""
+    a = rng.integers(0, 65536, u16.shape[:2] + (1,)).astype(np.uint16)
+    data = np.concatenate([u16, a], -1).astype("<u2").tobytes()
+    h, w = u16.shape[:2]
+    entries = [(256, 3, 1, w), (257, 3, 1, h), (258, 3, 4, None),
+               (262, 3, 1, 2), (273, 4, 1, None), (277, 3, 1, 4),
+               (278, 3, 1, h), (279, 4, 1, len(data)), (338, 3, 1, 2)]
+    ifd_at = 8
+    extra_at = ifd_at + 2 + 12 * len(entries) + 4
+    data_at = extra_at + 8
+    out = bytearray(b"II*\0" + ifd_at.to_bytes(4, "little"))
+    out += len(entries).to_bytes(2, "little")
+    for tag, typ, n, v in entries:
+        if tag == 258:
+            v = extra_at
+        elif tag == 273:
+            v = data_at
+        out += (tag.to_bytes(2, "little") + typ.to_bytes(2, "little")
+                + n.to_bytes(4, "little") + v.to_bytes(4, "little"))
+    out += bytes(4) + np.array([16] * 4, "<u2").tobytes() + data
+    return bytes(out)
+
+
+CONTENTS = _contents()
+
+
+@pytest.mark.parametrize("name", sorted(CONTENTS))
+def test_hdr_path_by_content_as_cv2(tmp_path, name):
+    path = str(tmp_path / f"{name}.hdr")
+    with open(path, "wb") as f:
+        f.write(CONTENTS[name])
+    want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    assert want is not None, name
+    got = imread_unchanged(path)
+    assert got.dtype == want.dtype and got.shape == want.shape, (
+        got.dtype, got.shape, want.dtype, want.shape)
+    np.testing.assert_array_equal(got, want)
+    j, t = jds._load_image_any(path), tds._load_image_any(path)
+    assert t.dtype == j.dtype == np.float32
+    np.testing.assert_array_equal(t, j)
+
+
+def _unreadable():
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 256, (6, 7, 3), dtype=np.uint8)
+    return {
+        "garbage": b"hello world" * 10,
+        "targa": _pil(Image.fromarray(rgb), "TGA"),
+        "qoi": _pil(Image.fromarray(rgb), "QOI"),
+        "tiff_pil_only_magic": b"MM\x2a\x00" + bytes(40),
+        "ppm_bad_header": b"P6\nx 1\n255\n" + bytes(3),
+        "ppm_truncated": b"P6\n4 4\n255\n" + bytes(10),
+        "radiance_no_format": b"#?RADIANCE\n\n-Y 1 +X 1\n" + bytes(4),
+    }
+
+
+UNREADABLE = _unreadable()
+
+
+@pytest.mark.parametrize("name", sorted(UNREADABLE) + ["exr"])
+def test_hdr_path_cv2_cannot_read(tmp_path, name):
+    path = str(tmp_path / f"{name}.hdr")
+    if name == "exr":
+        exr.write_exr(str(tmp_path / "e.exr"), np.ones((2, 3, 3), np.float32))
+        (tmp_path / f"{name}.hdr").write_bytes(
+            (tmp_path / "e.exr").read_bytes())
+    else:
+        (tmp_path / f"{name}.hdr").write_bytes(UNREADABLE[name])
+    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is None
+    with pytest.raises(IOError):
+        jds._load_image_any(path)
+    with pytest.raises(OSError):
+        tds._load_image_any(path)
+
+
+def test_hdr_path_cv2_reads_and_port_does_not(tmp_path):
+    path = str(tmp_path / "pam.hdr")
+    (tmp_path / "pam.hdr").write_bytes(
+        b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n"
+        + bytes(range(6)))
+    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
+    with pytest.raises(image.UnreadableImageError, match="not ported"):
+        tds._load_image_any(path)

@@ -5,6 +5,7 @@ tests/make_png_fixtures.py), `crop` and `split-grid` write files that PIL
 decodes to the same arrays, modes, palettes, transparency and ICC
 profiles, and that equal the root script's byte for byte."""
 
+import io
 import os
 import shutil
 import subprocess
@@ -139,3 +140,104 @@ def test_crop_keeps_trns_byte_for_byte(tmp_path, args):
 def test_crop_box_raises_as_pil():
     with pytest.raises(ValueError, match="right"):
         PI.crop_like_pil(np.zeros((4, 4), np.uint8), (3, 0, 1, 2))
+
+
+def _odd_mode_files():
+    """name -> bytes of a 40x30 file PIL opens in mode I, I;16B, F, PA or
+    LAB: P5 and P2 at maxval 65535 (I), a PFM (F), TIFFs as PIL saves
+    them."""
+    rng = np.random.default_rng(18)
+    v = rng.integers(0, 65536, (30, 40))
+    v[0, :4] = (0, 65535, 1, 65534)
+    files = {
+        "p5_I": b"P5\n40 30\n65535\n" + v.astype(">u2").tobytes(),
+        "p2_I": b"P2\n40 30\n65535\n" + " ".join(map(str, v.ravel())).encode(),
+    }
+    out = {}
+    for name, im in (
+            ("pfm_F", Image.fromarray(rng.random((30, 40)).astype(np.float32),
+                                      "F")),
+            ("tif_I", Image.fromarray(
+                rng.integers(-3000, 70000, (30, 40)).astype(np.int32), "I")),
+            ("tif_I16B", Image.frombytes("I;16B", (40, 30),
+                                         v.astype(">u2").tobytes())),
+            ("tif_F", Image.fromarray((rng.random((30, 40)) * 300).astype(
+                np.float32), "F")),
+            ("tif_PA", Image.frombytes("PA", (40, 30), rng.integers(
+                0, 256, (30, 40, 2), dtype=np.uint8).tobytes())),
+            ("tif_LAB", Image.frombytes("LAB", (40, 30), rng.integers(
+                0, 256, (30, 40, 3), dtype=np.uint8).tobytes()))):
+        buf = io.BytesIO()
+        if name == "tif_PA":
+            im.putpalette(list(range(256)) * 3)
+        im.save(buf, "PPM" if name.startswith("pfm") else "TIFF")
+        out[name] = buf.getvalue()
+    files.update(out)
+    return files
+
+
+@pytest.mark.parametrize("name,ext", [
+    ("p5_I", ".png"), ("p2_I", ".png"), ("tif_I", ".png"),
+    ("tif_I16B", ".png"), ("p5_I", ".jpg"), ("tif_I16B", ".jpeg"),
+    ("pfm_F", ".png"), ("tif_F", ".png"), ("tif_PA", ".png"),
+    ("tif_LAB", ".png"), ("tif_LAB", ".jpg")])
+def test_crop_modes_I_F_PA_LAB_as_root_script(tmp_path, name, ext):
+    """`crop --downscale 4` over a folder whose middle file opens in mode
+    I, I;16B, F, PA or LAB: the files the root script writes (16-bit grey
+    PNGs, I clipped to 0..65535) are written byte for byte, and where PIL
+    cannot save the mode, both stop at that file with the same OSError,
+    after the file before it and with no file left for it."""
+    src = tmp_path / "in"
+    src.mkdir()
+    rng = np.random.default_rng(1)
+    for n in ("a.png", "c.png"):
+        Image.fromarray(rng.integers(0, 255, (30, 40, 3), dtype=np.uint8)
+                        ).save(src / n)
+    (src / f"b{ext}").write_bytes(_odd_mode_files()[name])
+    args = ["--downscale", "4", "--crop", "1", "0", "0", "1"]
+    root = subprocess.run([sys.executable, os.path.join(ROOT,
+                                                        "process_images.py"),
+                           "crop", str(src), str(tmp_path / "root"), *args],
+                          capture_output=True, text=True)
+    err = None
+    try:
+        PI.main(["crop", str(src), str(tmp_path / "port"), *args])
+    except OSError as e:
+        err = e
+    names = sorted(os.listdir(tmp_path / "root"))
+    assert names == sorted(os.listdir(tmp_path / "port"))
+    if root.returncode:
+        assert err is not None and f"OSError: {err}" in root.stderr, (
+            err, root.stderr[-300:])
+        assert names == ["a.png"]
+    else:
+        assert err is None and names == ["a.png", f"b{ext}", "c.png"]
+    for n in names:
+        _same(str(tmp_path / "root" / n), str(tmp_path / "port" / n))
+
+
+@pytest.mark.parametrize("mode", ["I", "I_extremes", "I;16B", "PA", "LAB"])
+@pytest.mark.parametrize("sizes", [(40, 30, 10, 7), (13, 9, 30, 20),
+                                   (57, 31, 9, 31)])
+def test_lanczos_modes_I_PA_LAB_as_pil(mode, sizes):
+    """PIL's LANCZOS of modes I (double sums rounded to int32, INT_MIN past
+    its range), I;16B (the samples' bytes read little-endian), PA and LAB
+    (a and b signed)."""
+    from irgs_tpu_torch.utils.resize import resize_lanczos_like_pil
+    W, H, w, h = sizes
+    rng = np.random.default_rng(W * h)
+    if mode.startswith("I") and mode != "I;16B":
+        arr = rng.integers(-3000, 70000, (H, W)).astype(np.int32)
+        if mode == "I_extremes":
+            arr = rng.integers(-2 ** 31, 2 ** 31, (H, W)).astype(np.int32)
+            arr[:, ::3] = 2 ** 31 - 1
+        im = Image.fromarray(arr, "I")
+        mode = "I"
+    else:
+        arr = (rng.integers(0, 65536, (H, W)).astype(">u2") if mode == "I;16B"
+               else rng.integers(0, 256, (H, W, len(mode)), dtype=np.uint8))
+        im = Image.frombytes(mode, (W, H), arr.tobytes())
+    ref = np.asarray(im.resize((w, h), Image.LANCZOS))
+    got = resize_lanczos_like_pil(arr, mode, (w, h))
+    assert got.dtype == ref.dtype
+    np.testing.assert_array_equal(got, ref)
