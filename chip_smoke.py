@@ -205,7 +205,12 @@ Phases (JSON lines; any failure exits non-zero):
                 JPEG and LZW, planar YCbCr and 16-bit RGB, float predictor
                 3, 12-bit grey, ThunderScan; a 1728-wide RLEW page), each
                 held against the SHA-256 of PIL's array, and of each frame
-                of the legacy TIFF capture. Needs train_cli and eval_cli.
+                of the legacy TIFF capture; the median ms of 5 decodes of
+                the two committed 1297x840 JPEG 2000 frames (5/3 lossless,
+                9/7 with 3 quality layers), each held against the SHA-256
+                of PIL's array, and of each frame of the JPEG 2000 capture
+                (the JPEG 2000 fixtures are held among the containers).
+                Needs train_cli and eval_cli.
   webp_colmap   python -m irgs_tpu_torch.train for 3 iterations at the
                 BENCH budgets on the committed COLMAP capture of WebP frames
                 (tests/data/webp/colmap: 4 views at 400², two lossy, one
@@ -221,8 +226,8 @@ Phases (JSON lines; any failure exits non-zero):
   tga_sgi_ppm_colmap  the same on the committed COLMAP capture of Targa,
                 Iris and PPM frames (tests/data/tga/colmap: the same 4
                 views as Targa RLE RGB, Iris RLE RGB, binary PPM and Targa
-                raw RGBA with a bottom-left origin; 5 iterations), a main
-                path of its own.
+                raw RGBA with a bottom-left origin; 3 iterations, cut from
+                5 to make room for jp2_colmap), a main path of its own.
   tiff_legacy_colmap  the same, 3 iterations, on the committed COLMAP
                 capture of legacy TIFF frames (tests/data/tiff/
                 legacy_colmap: the same 4 views as old-style JPEG YCbCr
@@ -231,6 +236,12 @@ Phases (JSON lines; any failure exits non-zero):
                 YCbCr 1x1 LZW in planar configuration 2, 16-bit RGB LZW
                 with predictor 2 in planar configuration 2), a main path of
                 its own.
+  jp2_colmap    the same, 3 iterations, on the committed COLMAP capture of
+                JPEG 2000 frames (tests/data/jp2/colmap: the same 4 views
+                as a 5/3 lossless JP2, a 9/7 JP2 with 3 quality layers in
+                RPCL order with 64x64 precincts, a 128x128-tiled raw J2K
+                codestream with SOP/EPH and BYPASS|TERMALL code-blocks, a
+                12-bit RGB JP2), a main path of its own.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -3389,7 +3400,7 @@ PI_FIXTURES = os.path.join(ROOT, "tests", "data", "process_images")
 CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif",
                       "webp": ".webp", "ppm": ".ppm", "tga": ".tga",
                       "ico": ".ico", "qoi": ".qoi", "pcx": ".pcx",
-                      "sgi": ".sgi"}
+                      "sgi": ".sgi", "jp2": ""}   # JPEG 2000: names end .jp2/.j2k
 # re-saves that carry another fixture's coefficients, and so its array
 # (tests/make_jpeg_fixtures.py ARRAY_OF)
 JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
@@ -3422,7 +3433,7 @@ def jpeg_fixtures_exact():
 
 def container_fixtures_exact():
     """Every committed TIFF, BMP, GIF, WebP, Netpbm, Targa, ICO/CUR/DIB,
-    QOI, PCX and SGI fixture through the content-sniffing reader
+    QOI, PCX, SGI and JPEG 2000 fixture through the content-sniffing reader
     (utils/image.read_image_like_pil) -> ({"fmt/name": array, mode, palette
     and transparency equal to PIL's}, {"fmt/name" of a refused stream: the
     format's reader (for the small readers the content-sniffing one, as
@@ -3434,7 +3445,7 @@ def container_fixtures_exact():
                "bmp": (bmp.read_bmp_like_pil, bmp.BmpError),
                "gif": (gif.read_gif_like_pil, gif.GifError),
                "webp": (webp.read_webp_like_pil, webp.WebpError)}
-    for fmt in ("ppm", "tga", "ico", "qoi", "pcx", "sgi"):
+    for fmt in ("ppm", "tga", "ico", "qoi", "pcx", "sgi", "jp2"):
         readers[fmt] = (image.read_image_like_pil, ValueError)
     exact, refused = {}, {}
     for fmt, ext in CONTAINER_FIXTURES.items():
@@ -4776,6 +4787,13 @@ def phase_images(results, tmp):
     a = time.perf_counter()
     s_ms, s_ms_all, s_equal, s_bytes = small_decode_ms(tmp)
     small_ms_s = time.perf_counter() - a
+    a = time.perf_counter()
+    j_ms, j_ms_all, j_equal, j_bytes = large_frames_ms("jp2", "")
+    jc_ms = {}
+    for name in sorted(os.listdir(os.path.join(JP2_CAPTURE, "images"))):
+        path = os.path.join(JP2_CAPTURE, "images", name)
+        jc_ms[name] = _median_ms(lambda: image.read_image_like_pil(path))[0]
+    jp2_ms_s = time.perf_counter() - a
 
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
@@ -4805,7 +4823,10 @@ def phase_images(results, tmp):
             "decode_large_legacy_tiff_ms": lt_ms,
             "decode_large_legacy_tiff_ms_all": lt_ms_all,
             "large_legacy_tiff_bytes": lt_bytes,
-            "decode_legacy_capture_ms": lc_ms, "legacy_tiff_s": legacy_ms_s}
+            "decode_legacy_capture_ms": lc_ms, "legacy_tiff_s": legacy_ms_s,
+            "decode_large_jp2_ms": j_ms, "decode_large_jp2_ms_all": j_ms_all,
+            "large_jp2_bytes": j_bytes, "decode_jp2_capture_ms": jc_ms,
+            "jp2_s": jp2_ms_s}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4818,7 +4839,7 @@ def phase_images(results, tmp):
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
             crops[f][:2] == want_crop[f] for f in srcs),
-        "containers_bit_for_bit": len(containers) >= 574 and all(
+        "containers_bit_for_bit": len(containers) >= 574 + 98 and all(
             containers.values()),
         "containers_refused_raise": bool(container_refused) and all(
             container_refused.values()),
@@ -4833,7 +4854,10 @@ def phase_images(results, tmp):
             lt_equal.values()),
         "small_formats_large_frames_equal": len(s_equal) == 2 and all(
             s_equal.values()),
-        "small_formats_capture_timed": len(s_ms) == 6}
+        "small_formats_capture_timed": len(s_ms) == 6,
+        "jp2_large_frames_equal": len(j_equal) == 2 and all(
+            j_equal.values()),
+        "jp2_capture_timed": len(jc_ms) == 4}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4852,10 +4876,12 @@ LEGACY_TIFF_CAPTURE = os.path.join(ROOT, "tests", "data", "tiff",
                                    "legacy_colmap")
 LEGACY_TIFF_LARGE = os.path.join(ROOT, "tests", "data", "tiff", "legacy",
                                  "large")
-# training iterations of each capture phase (the WebP and TIFF captures cut
-# from 5 to 3 to keep the whole smoke in its time)
+JP2_CAPTURE = os.path.join(ROOT, "tests", "data", "jp2", "colmap")
+# training iterations of each capture phase (the WebP, TIFF and Targa/Iris/
+# PPM captures cut from 5 to 3 to keep the whole smoke in its time)
 CAPTURE_ITERS = {"webp_colmap": 3, "tiff_colmap": 3,
-                 "tga_sgi_ppm_colmap": 5, "tiff_legacy_colmap": 3}
+                 "tga_sgi_ppm_colmap": 3, "tiff_legacy_colmap": 3,
+                 "jp2_colmap": 3}
 
 
 def phase_webp_colmap(results, tmp):
@@ -4872,6 +4898,10 @@ def phase_tga_sgi_ppm_colmap(results, tmp):
 
 def phase_tiff_legacy_colmap(results, tmp):
     _capture_phase(results, tmp, "tiff_legacy_colmap", LEGACY_TIFF_CAPTURE)
+
+
+def phase_jp2_colmap(results, tmp):
+    _capture_phase(results, tmp, "jp2_colmap", JP2_CAPTURE)
 
 
 def _capture_phase(results, tmp, phase, capture):
@@ -4959,7 +4989,8 @@ KERNELS = {
                "webp_colmap": "webp_colmap_400px",
                "tiff_colmap": "tiff_colmap_400px",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
-               "tiff_legacy_colmap": "tiff_legacy_colmap_400px"}),
+               "tiff_legacy_colmap": "tiff_legacy_colmap_400px",
+               "jp2_colmap": "jp2_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -4986,7 +5017,8 @@ KERNELS = {
                "webp_colmap": "webp_colmap_400px",
                "tiff_colmap": "tiff_colmap_400px",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
-               "tiff_legacy_colmap": "tiff_legacy_colmap_400px"}),
+               "tiff_legacy_colmap": "tiff_legacy_colmap_400px",
+               "jp2_colmap": "jp2_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -5015,7 +5047,8 @@ KERNELS = {
                "webp_colmap": "webp_colmap_400px_first_pass",
                "tiff_colmap": "tiff_colmap_400px_first_pass",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px_first_pass",
-               "tiff_legacy_colmap": "tiff_legacy_colmap_400px_first_pass"}),
+               "tiff_legacy_colmap": "tiff_legacy_colmap_400px_first_pass",
+               "jp2_colmap": "jp2_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -5045,7 +5078,8 @@ KERNELS = {
                "webp_colmap": "webp_colmap_largest",
                "tiff_colmap": "tiff_colmap_largest",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_largest",
-               "tiff_legacy_colmap": "tiff_legacy_colmap_largest"}),
+               "tiff_legacy_colmap": "tiff_legacy_colmap_largest",
+               "jp2_colmap": "jp2_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -5085,7 +5119,8 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "extract_mesh", "tracer_options", "parallel", "datasets", "e2e",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
           "load_reproducer", "run_grid", "overfit", "images", "webp_colmap",
-          "tiff_colmap", "tga_sgi_ppm_colmap", "tiff_legacy_colmap")
+          "tiff_colmap", "tga_sgi_ppm_colmap", "tiff_legacy_colmap",
+          "jp2_colmap")
 
 
 def nvidia_smi_line():
@@ -5156,6 +5191,7 @@ def main():
                                                                    tmp),
             "tga_sgi_ppm_colmap": lambda: phase_tga_sgi_ppm_colmap(results,
                                                                    tmp),
+            "jp2_colmap": lambda: phase_jp2_colmap(results, tmp),
         }
         for name in PHASES:
             if name in phases:

@@ -6,12 +6,12 @@ them to the device.
 
 Images are read by the port's own codecs: EXR through utils/exr.py and
 .hdr through utils/imread.py (what cv2.imread gives, by content: Radiance,
-or PNG, JPEG, TIFF, BMP, WebP, GIF, PNM and PFM under that name), chosen by
-the extension as the JAX package chooses; every other file through
-utils/image.read_image_like_pil, which picks the reader by the file's
-content in PIL's plugin order (PNG, JPEG, TIFF, BMP, DIB, GIF, WebP,
-Netpbm, Targa, ICO, CUR, QOI, PCX, SGI), as PIL does, and decodes it to
-the array PIL gives the JAX package. Resizes are utils/resize.py's ports of cv2.resize.
+or PNG, JPEG, TIFF, BMP, WebP, GIF, PNM, PFM and JPEG 2000 under that
+name), chosen by the extension as the JAX package chooses; every other file
+through utils/image.read_image_like_pil, which picks the reader by the
+file's content in PIL's plugin order (PNG, JPEG, TIFF, BMP, DIB, GIF, WebP,
+Netpbm, Targa, ICO, CUR, QOI, PCX, SGI, JPEG 2000), as PIL does, and
+decodes it to the array PIL gives the JAX package. Resizes are utils/resize.py's ports of cv2.resize.
 """
 
 from __future__ import annotations
@@ -52,9 +52,10 @@ def _load_image_any(path: str):
     """RGB(A) image -> float [H, W, C]: EXR as stored; a .hdr path as the
     JAX package's cv2.imread(path, IMREAD_UNCHANGED) gives it, whatever its
     content (utils/imread.py: BGR flipped to RGB, the samples' own dtype
-    cast to float32 without a division by 255; OSError where cv2 gives
-    None); any other file as the JAX package's np.asarray(PIL.Image.open(
-    path), float32) / 255 (grey as [H, W])."""
+    cast to float32 without a division by 255, so a 12- or 16-bit JPEG 2000
+    stays in 0..65535; OSError where cv2 gives None); any other file as the
+    JAX package's np.asarray(PIL.Image.open(path), float32) / 255 (grey as
+    [H, W]; JPEG 2000 in PIL's mode, above 8 bits I;16 or rounded to 8)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".exr":
         from ..utils import exr

@@ -7,9 +7,9 @@ The JAX package reads LDR frames with ``np.asarray(Image.open(p))``
 the decoder from the file's content, whatever its name, and so does
 `read_image_like_pil`; the port's readers (utils/png.py, jpeg.py, tiff.py,
 bmp.py with DIB, gif.py, webp.py, ppm.py, tga.py, ico.py with CUR,
-qoi.py, pcx.py, sgi.py) return PIL's array together with its mode (and
-palette); `to_rgb_like_pil` then converts as Pillow's Convert.c does for
-each mode.
+qoi.py, pcx.py, sgi.py, jpeg2000.py for JP2 and J2K) return PIL's array
+together with its mode (and palette); `to_rgb_like_pil` then converts as
+Pillow's Convert.c does for each mode.
 
 Plugins are tried as Image.open tries them in a fresh process (_PLUGINS):
 first the six Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then,
@@ -21,7 +21,7 @@ plugin whose prefix check passes is tried; where its header parse fails
 as PIL's _open fails (SyntaxError, IndexError, TypeError, KeyError,
 EOFError, struct.error, or no size: `NotThisFormat`), the next plugin is
 tried, as PIL does; errors in the pixel data (PIL's load) raise. A format
-PIL reads and the port does not (PSD, JPEG 2000, AVIF, DDS, ...) raises
+PIL reads and the port does not (PSD, AVIF, DDS, ...) raises
 `UnreadableImageError` "<FORMAT> is not ported", naming PIL's format:
 for those plugins only their prefix check (and, where PIL has none, the
 first checks of their _open) is modelled, so a file such a plugin would
@@ -31,7 +31,8 @@ TIFF and GIF readers model their plugin's _open up to the pixel data (PNG:
 the chunks before IDAT with their CRCs; JPEG: the markers up to the first
 SOS; TIFF: the IFD as PIL loads it and _setup's checks; GIF: the blocks up
 to the first frame's LZW code size) and hand the file on where it fails
-so. WebP's _open fails only with OSError (libwebp's demuxer), which PIL
+so, as does the JPEG 2000 reader (Jpeg2KImagePlugin._open: the JP2 boxes
+or SIZ, and the first COM). WebP's _open fails only with OSError (libwebp's demuxer), which PIL
 does not hand on, so a bad WebP header raises.
 """
 
@@ -128,7 +129,10 @@ def _gbr(head):
 # Pillow 12's plugins in the order PIL tries them in a fresh process:
 # (format, its _accept on the file's first 16 bytes -- None where the
 # plugin has none and PIL tries its _open on every file --, the port's
-# reader as "module.function", or None where the port does not read it).
+# reader as "module.function", or None where the port does not read it:
+# AVIF, BLP, BUFR, DCX, DDS, EPS, FITS, FLI, FTEX, GBR, GRIB, HDF5, ICNS,
+# IM, IMT, IPTC, MCIDAS, MPEG, MSP, PCD, PIXAR, PSD, SPIDER, SUN, WMF, XBM,
+# XPM, XVThumb).
 # For the plugins the port does not read and PIL tries without a prefix
 # check (or whose prefix check a Targa header can pass), the accept
 # function stands for the first checks of their _open and takes the
@@ -165,7 +169,7 @@ _PLUGINS = (
     ("HDF5", lambda h: h.startswith(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", lambda h: h.startswith(
         (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
-     None),
+     "jpeg2000.read_jpeg2000_like_pil"),
     ("ICNS", lambda h: h.startswith(b"icns"), None),
     ("ICO", lambda h: h.startswith(b"\0\0\1\0"), "ico.read_ico_like_pil"),
     ("IM", _im, None),

@@ -27,15 +27,20 @@ the same with the port's readers, as OpenCV's decoders differ from PIL's:
                 unassociated alpha premultiplied as that interface does;
                 16-bit and float grey, RGB and RGBA as stored;
   GIF           the first frame's palette expanded, BGRA where it has a
-                transparent index (its pixels the background colour).
+                transparent index (its pixels the background colour);
+  JPEG 2000     JP2 or a raw codestream through utils/jpeg2000.py as
+                OpenJPEG's opj_decode gives it to cv2 (palette, cdef):
+                8-bit, 16-bit above 8 bits, sYCC through cvtColor's
+                YUV2BGR; grey + alpha, signed, below 8 bits, subsampled or
+                offset images refused as cv2 refuses them.
 
 The cv2 the JAX package runs here reads no OpenEXR (with or without
 OPENCV_IO_ENABLE_OPENEXR), so an EXR file is not read, as bytes no decoder
 takes are not: both raise
 OSError, as the JAX loader raises IOError where cv2.imread gives None, and
 so does a file that a decoder takes and then fails on. Content cv2 decodes
-and the port does not (JPEG 2000, PAM, Sun raster, the layouts above do
-not list) raises UnreadableImageError "... not ported".
+and the port does not (PAM, Sun raster, HTJ2K code-blocks, the layouts
+above do not list) raises UnreadableImageError "... not ported".
 """
 
 from __future__ import annotations
@@ -125,6 +130,11 @@ def _bmp(buf, path):
             return _expand(arr, pal)[..., 0]
         return _bgr(_expand(arr, pal))
     return _bgr(arr)
+
+
+def _jpeg2000(buf, path):
+    from . import jpeg2000
+    return jpeg2000.imread_jpeg2000(buf, path)
 
 
 def _webp(buf, path):
@@ -308,7 +318,7 @@ _DECODERS = (
     (lambda b: b.startswith((b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")), _tiff),
     (lambda b: b.startswith(b"\x76\x2f\x31\x01"), "OpenEXR"),
     (lambda b: b.startswith((b"\0\0\0\x0cjP  \r\n\x87\n",
-                             b"\xff\x4f\xff\x51")), "JPEG 2000"),
+                             b"\xff\x4f\xff\x51")), _jpeg2000),
     (lambda b: b.startswith(b"\x59\xa6\x6a\x95"), "Sun raster"),
 )
 

@@ -28,18 +28,20 @@ BUILD_DIR = ROOT / "build" / "irgs_tpu_torch"
 _LIB = None
 
 
-def build_library(src: Path, stem: str) -> Path:
-    """Compile the C++ source `src` into ``build/irgs_tpu_torch/lib<stem>_
-    <hash>.so`` unless the library for this source exists; returns its
-    path. A failed build raises."""
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+def build_library(src: Path, stem: str, flags: tuple = ()) -> Path:
+    """Compile the C++ source `src` (with g++'s extra `flags`, if any) into
+    ``build/irgs_tpu_torch/lib<stem>_<hash>.so`` unless the library for
+    this source and these flags exists; returns its path. A failed build
+    raises."""
+    key = src.read_bytes() + (" ".join(flags).encode() if flags else b"")
+    tag = hashlib.sha256(key).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{stem}_{tag}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-                          "-o", str(tmp), str(src), "-lpthread"],
+    res = subprocess.run(["g++", "-O3", "-std=c++17", *flags, "-shared",
+                          "-fPIC", "-o", str(tmp), str(src), "-lpthread"],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"g++ failed on {src.name} ({res.returncode}):\n"

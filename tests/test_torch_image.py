@@ -218,11 +218,12 @@ def test_resize_bilinear_matches_jax(src, dst, c):
 
 # each format Pillow writes here that PIL reads and the port does not
 PIL_FORMATS = {"AVIF": "RGB", "BLP": "P", "DDS": "RGB", "EPS": "RGB",
-               "ICNS": "RGB", "IM": "RGB", "JPEG2000": "RGB", "MSP": "1",
-               "SPIDER": "F", "XBM": "1"}
+               "ICNS": "RGB", "IM": "RGB", "MSP": "1", "SPIDER": "F",
+               "XBM": "1"}
 # ... and the ones the port reads as PIL does (CUR: written by hand)
-READ_FORMATS = {"CUR": "RGB", "DIB": "RGB", "ICO": "RGB", "PCX": "RGB",
-                "PPM": "RGB", "QOI": "RGB", "SGI": "RGB", "TGA": "RGB"}
+READ_FORMATS = {"CUR": "RGB", "DIB": "RGB", "ICO": "RGB",
+                "JPEG2000": "RGB", "PCX": "RGB", "PPM": "RGB", "QOI": "RGB",
+                "SGI": "RGB", "TGA": "RGB"}
 
 
 def _saved(tmp_path, fmt, mode):

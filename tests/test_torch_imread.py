@@ -1,10 +1,11 @@
 """A ``.hdr`` path whose bytes are not Radiance, as the JAX loader reads it
 (``cv2.imread(path, IMREAD_UNCHANGED)``, BGR flipped, float32 without a
 division by 255): utils/imread.imread_unchanged against cv2.imread on PNG,
-JPEG, TIFF, BMP, WebP, GIF, PNM and PFM content of every layout it reads,
-and the port's ``_load_image_any`` against the JAX one on the same files.
-Content cv2 cannot decode (EXR with OpenEXR off, Targa, QOI, bytes no
-decoder takes, a header its decoder refuses) raises OSError in both;
+JPEG, TIFF, BMP, WebP, GIF, PNM, PFM and JPEG 2000 content of every layout
+it reads, and the port's ``_load_image_any`` against the JAX one on the
+same files. Content cv2 cannot decode (EXR with OpenEXR off, Targa, QOI,
+bytes no decoder takes, a header its decoder refuses, JPEG 2000 with grey
++ alpha or signed samples, a cut codestream) raises OSError in both;
 content cv2 decodes and the port does not (PAM) raises "not ported".
 
 Tolerance: bit for bit (both decode the same bytes the same way).
@@ -119,7 +120,24 @@ def _tiff16(u16, rng):
     return bytes(out)
 
 
-CONTENTS = _contents()
+def _jpeg2000_contents():
+    """JPEG 2000 fixtures cv2 reads: a JP2 and a raw codestream, 8, 12 and
+    16 bits, grey, RGB, RGBA, sYCC, a palette on a grey codestream."""
+    import os
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                        "jp2")
+    names = {"jp2_rgb": "rgb_97_layers.jp2", "j2k_L": "L_97_layers.j2k",
+             "jp2_rgba": "RGBA.jp2", "j2k_rgb12": "rgb_12bit_97.j2k",
+             "j2k_I16": "I16_97.j2k", "jp2_sycc": "colr_sycc.jp2",
+             "jp2_pclr": "pclr_L.jp2", "j2k_tiles_sop_eph": "sop_eph_tiles.j2k"}
+    out = {}
+    for key, name in names.items():
+        with open(os.path.join(data, name), "rb") as f:
+            out[key] = f.read()
+    return out
+
+
+CONTENTS = {**_contents(), **_jpeg2000_contents()}
 
 
 @pytest.mark.parametrize("name", sorted(CONTENTS))
@@ -149,6 +167,11 @@ def _unreadable():
         "ppm_bad_header": b"P6\nx 1\n255\n" + bytes(3),
         "ppm_truncated": b"P6\n4 4\n255\n" + bytes(10),
         "radiance_no_format": b"#?RADIANCE\n\n-Y 1 +X 1\n" + bytes(4),
+        "jp2_grey_alpha": _pil(Image.fromarray(rgb[..., :2].copy(), "LA"),
+                               "JPEG2000"),
+        "j2k_signed": _pil(Image.fromarray(rgb), "JPEG2000", signed=True,
+                           no_jp2=True),
+        "j2k_cut": _pil(Image.fromarray(rgb), "JPEG2000", no_jp2=True)[:80],
     }
 
 
