@@ -190,26 +190,32 @@ Phases (JSON lines; any failure exits non-zero):
                 headers cv2 takes or refuses, and ms per 1297x840 RGB TIFF
                 at each compression, 24-bit BMP and GIF frame; the WebP
                 fixtures (tests/data/webp) among the containers,
-                and the median ms of 5 decodes of the three committed
+                and the median ms of 3 decodes of the three committed
                 1297x840 WebP frames (lossless, lossy q90, lossy with
                 alpha) and of the four committed TIFF frames (YCbCr
                 JPEG-in-TIFF 4:2:0, Zstandard and LZMA with predictor 2,
                 1297x840; a 1728-wide T.6 page), each held against the
                 SHA-256 of PIL's array; the fixtures of PIL's small readers
                 (tests/data/ppm, tga, ico, qoi, pcx, sgi) among the
-                containers, and the median ms of 5 decodes of each frame
+                containers, and the median ms of 3 decodes of each frame
                 of the Targa, Iris and PPM capture and of a 1297x840 P6
                 and uncompressed Targa written from the lossless WebP
-                frame (held equal to it); the median ms of 5 decodes of the
+                frame (held equal to it); the median ms of 3 decodes of the
                 eight committed 1297x840 legacy TIFF frames (old-style
                 JPEG and LZW, planar YCbCr and 16-bit RGB, float predictor
                 3, 12-bit grey, ThunderScan; a 1728-wide RLEW page), each
                 held against the SHA-256 of PIL's array, and of each frame
-                of the legacy TIFF capture; the median ms of 5 decodes of
+                of the legacy TIFF capture; the median ms of 3 decodes of
                 the two committed 1297x840 JPEG 2000 frames (5/3 lossless,
                 9/7 with 3 quality layers), each held against the SHA-256
                 of PIL's array, and of each frame of the JPEG 2000 capture
-                (the JPEG 2000 fixtures are held among the containers).
+                (the JPEG 2000 fixtures are held among the containers);
+                the PSD, DDS, FTEX, BLP and ICNS fixtures (tests/data/psd,
+                dds, ftex, blp, icns) among the containers, and the median
+                ms of 3 decodes of the committed 1297x840 BC7 DDS frame
+                (held against the SHA-256 of PIL's array), of a 1297x840
+                PackBits PSD written from the lossless WebP frame (held
+                equal to it) and of each frame of the texture capture.
                 Needs train_cli and eval_cli.
   webp_colmap   python -m irgs_tpu_torch.train for 3 iterations at the
                 BENCH budgets on the committed COLMAP capture of WebP frames
@@ -242,6 +248,11 @@ Phases (JSON lines; any failure exits non-zero):
                 RPCL order with 64x64 precincts, a 128x128-tiled raw J2K
                 codestream with SOP/EPH and BYPASS|TERMALL code-blocks, a
                 12-bit RGB JP2), a main path of its own.
+  texture_colmap  the same, 3 iterations, on the committed COLMAP capture
+                of texture and Photoshop frames (tests/data/texture/colmap:
+                the same 4 views as DXT1 and DXT5 DDS from Pillow's
+                encoder, an RGB PackBits PSD with one layer, a BLP1 JPEG),
+                a main path of its own.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -3400,7 +3411,9 @@ PI_FIXTURES = os.path.join(ROOT, "tests", "data", "process_images")
 CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif",
                       "webp": ".webp", "ppm": ".ppm", "tga": ".tga",
                       "ico": ".ico", "qoi": ".qoi", "pcx": ".pcx",
-                      "sgi": ".sgi", "jp2": ""}   # JPEG 2000: names end .jp2/.j2k
+                      "sgi": ".sgi", "jp2": "",   # JPEG 2000: .jp2/.j2k
+                      "dds": ".dds", "ftex": ".ftc", "blp": ".blp",
+                      "psd": ".psd", "icns": ".icns"}
 # re-saves that carry another fixture's coefficients, and so its array
 # (tests/make_jpeg_fixtures.py ARRAY_OF)
 JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
@@ -3433,8 +3446,9 @@ def jpeg_fixtures_exact():
 
 def container_fixtures_exact():
     """Every committed TIFF, BMP, GIF, WebP, Netpbm, Targa, ICO/CUR/DIB,
-    QOI, PCX, SGI and JPEG 2000 fixture through the content-sniffing reader
-    (utils/image.read_image_like_pil) -> ({"fmt/name": array, mode, palette
+    QOI, PCX, SGI, JPEG 2000, DDS, FTEX, BLP, PSD and ICNS fixture through
+    the content-sniffing reader (utils/image.read_image_like_pil) ->
+    ({"fmt/name": array, mode, palette
     and transparency equal to PIL's}, {"fmt/name" of a refused stream: the
     format's reader (for the small readers the content-sniffing one, as
     PIL tries its plugins) raised its own error, naming what is not ported
@@ -3445,7 +3459,8 @@ def container_fixtures_exact():
                "bmp": (bmp.read_bmp_like_pil, bmp.BmpError),
                "gif": (gif.read_gif_like_pil, gif.GifError),
                "webp": (webp.read_webp_like_pil, webp.WebpError)}
-    for fmt in ("ppm", "tga", "ico", "qoi", "pcx", "sgi", "jp2"):
+    for fmt in ("ppm", "tga", "ico", "qoi", "pcx", "sgi", "jp2", "dds", "ftex",
+                "blp", "psd", "icns"):
         readers[fmt] = (image.read_image_like_pil, ValueError)
     exact, refused = {}, {}
     for fmt, ext in CONTAINER_FIXTURES.items():
@@ -3578,7 +3593,7 @@ WEBP_FIXTURES = os.path.join(ROOT, "tests", "data", "webp")
 
 def large_frames_ms(fmt="webp", ext=".webp", folder=None):
     """The committed large frames of tests/data/<fmt>/large/ (three
-    1297x840 WebP; four TIFF), or of `folder` -> ({name: median ms of 5
+    1297x840 WebP; four TIFF), or of `folder` -> ({name: median ms of 3
     decodes}, {name: all ms}, {name: mode, shape and SHA-256 of the array
     equal to PIL's (bool as 0/1 bytes)}, {name: bytes})."""
     import hashlib
@@ -3603,7 +3618,7 @@ def large_frames_ms(fmt="webp", ext=".webp", folder=None):
 
 
 def small_decode_ms(tmp):
-    """The median ms of 5 decodes of each frame of the committed capture of
+    """The median ms of 3 decodes of each frame of the committed capture of
     Targa, Iris and PPM frames (tests/data/tga/colmap), and of a 1297x840
     binary PPM (P6) and an uncompressed Targa that this run writes from the
     committed lossless WebP frame -> ({name: median ms}, {name: all ms},
@@ -3632,6 +3647,36 @@ def small_decode_ms(tmp):
     equal = {name: list(src.shape) == [840, 1297, 3] and bool(
         np.array_equal(image.read_image_like_pil(paths[name])[0], src))
         for name in written}
+    return ms, ms_all, equal, sizes
+
+
+def texture_decode_ms(tmp):
+    """The median ms of 3 decodes of the committed 1297x840 BC7 DDS frame
+    (tests/data/dds/large, held against the SHA-256 of PIL's array), of a
+    1297x840 RGB PackBits PSD that this run writes from the committed
+    lossless WebP frame (tests/image_streams.write_psd; held equal to it)
+    and of each frame of the texture capture -> ({name: median ms}, {name:
+    all ms}, {name of a large frame: equal}, {name: bytes})."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import image_streams as ims
+    from irgs_tpu_torch.utils import image
+    ms, ms_all, equal, sizes = large_frames_ms("dds", "", DDS_LARGE)
+    src = image.read_rgb_like_pil(os.path.join(WEBP_FIXTURES, "large",
+                                               "large_lossless.webp"))
+    paths = {"large_packbits.psd": os.path.join(tmp, "large_packbits.psd")}
+    with open(paths["large_packbits.psd"], "wb") as f:
+        f.write(ims.write_psd([np.ascontiguousarray(src[..., k])
+                               for k in range(3)], mode=3))
+    equal["large_packbits.psd"] = list(src.shape) == [840, 1297, 3] and bool(
+        np.array_equal(image.read_image_like_pil(
+            paths["large_packbits.psd"])[0], src))
+    for name in sorted(os.listdir(os.path.join(TEXTURE_CAPTURE, "images"))):
+        paths[name] = os.path.join(TEXTURE_CAPTURE, "images", name)
+    for name, path in paths.items():
+        ms[name], ms_all[name] = _median_ms(
+            lambda: image.read_image_like_pil(path))
+        sizes[name] = os.path.getsize(path)
     return ms, ms_all, equal, sizes
 
 
@@ -4632,7 +4677,7 @@ def phase_overfit(results):
         fail("overfit", f"checks failed: {checks}")
 
 
-def _median_ms(fn, reps=5):
+def _median_ms(fn, reps=3):
     out = []
     for _ in range(reps):
         a = time.perf_counter()
@@ -4794,6 +4839,9 @@ def phase_images(results, tmp):
         path = os.path.join(JP2_CAPTURE, "images", name)
         jc_ms[name] = _median_ms(lambda: image.read_image_like_pil(path))[0]
     jp2_ms_s = time.perf_counter() - a
+    a = time.perf_counter()
+    x_ms, x_ms_all, x_equal, x_bytes = texture_decode_ms(tmp)
+    texture_ms_s = time.perf_counter() - a
 
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
@@ -4826,7 +4874,9 @@ def phase_images(results, tmp):
             "decode_legacy_capture_ms": lc_ms, "legacy_tiff_s": legacy_ms_s,
             "decode_large_jp2_ms": j_ms, "decode_large_jp2_ms_all": j_ms_all,
             "large_jp2_bytes": j_bytes, "decode_jp2_capture_ms": jc_ms,
-            "jp2_s": jp2_ms_s}
+            "jp2_s": jp2_ms_s, "decode_texture_ms": x_ms,
+            "decode_texture_ms_all": x_ms_all, "texture_bytes": x_bytes,
+            "texture_s": texture_ms_s}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4839,7 +4889,7 @@ def phase_images(results, tmp):
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
             crops[f][:2] == want_crop[f] for f in srcs),
-        "containers_bit_for_bit": len(containers) >= 574 + 98 and all(
+        "containers_bit_for_bit": len(containers) >= 574 + 98 + 133 and all(
             containers.values()),
         "containers_refused_raise": bool(container_refused) and all(
             container_refused.values()),
@@ -4857,7 +4907,10 @@ def phase_images(results, tmp):
         "small_formats_capture_timed": len(s_ms) == 6,
         "jp2_large_frames_equal": len(j_equal) == 2 and all(
             j_equal.values()),
-        "jp2_capture_timed": len(jc_ms) == 4}
+        "jp2_capture_timed": len(jc_ms) == 4,
+        "texture_large_frames_equal": len(x_equal) == 2 and all(
+            x_equal.values()),
+        "texture_capture_timed": len(x_ms) == 6}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4877,11 +4930,13 @@ LEGACY_TIFF_CAPTURE = os.path.join(ROOT, "tests", "data", "tiff",
 LEGACY_TIFF_LARGE = os.path.join(ROOT, "tests", "data", "tiff", "legacy",
                                  "large")
 JP2_CAPTURE = os.path.join(ROOT, "tests", "data", "jp2", "colmap")
+TEXTURE_CAPTURE = os.path.join(ROOT, "tests", "data", "texture", "colmap")
+DDS_LARGE = os.path.join(ROOT, "tests", "data", "dds", "large")
 # training iterations of each capture phase (the WebP, TIFF and Targa/Iris/
 # PPM captures cut from 5 to 3 to keep the whole smoke in its time)
 CAPTURE_ITERS = {"webp_colmap": 3, "tiff_colmap": 3,
                  "tga_sgi_ppm_colmap": 3, "tiff_legacy_colmap": 3,
-                 "jp2_colmap": 3}
+                 "jp2_colmap": 3, "texture_colmap": 3}
 
 
 def phase_webp_colmap(results, tmp):
@@ -4902,6 +4957,10 @@ def phase_tiff_legacy_colmap(results, tmp):
 
 def phase_jp2_colmap(results, tmp):
     _capture_phase(results, tmp, "jp2_colmap", JP2_CAPTURE)
+
+
+def phase_texture_colmap(results, tmp):
+    _capture_phase(results, tmp, "texture_colmap", TEXTURE_CAPTURE)
 
 
 def _capture_phase(results, tmp, phase, capture):
@@ -4990,7 +5049,8 @@ KERNELS = {
                "tiff_colmap": "tiff_colmap_400px",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
                "tiff_legacy_colmap": "tiff_legacy_colmap_400px",
-               "jp2_colmap": "jp2_colmap_400px"}),
+               "jp2_colmap": "jp2_colmap_400px",
+               "texture_colmap": "texture_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -5018,7 +5078,8 @@ KERNELS = {
                "tiff_colmap": "tiff_colmap_400px",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
                "tiff_legacy_colmap": "tiff_legacy_colmap_400px",
-               "jp2_colmap": "jp2_colmap_400px"}),
+               "jp2_colmap": "jp2_colmap_400px",
+               "texture_colmap": "texture_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -5048,7 +5109,8 @@ KERNELS = {
                "tiff_colmap": "tiff_colmap_400px_first_pass",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px_first_pass",
                "tiff_legacy_colmap": "tiff_legacy_colmap_400px_first_pass",
-               "jp2_colmap": "jp2_colmap_400px_first_pass"}),
+               "jp2_colmap": "jp2_colmap_400px_first_pass",
+               "texture_colmap": "texture_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -5079,7 +5141,8 @@ KERNELS = {
                "tiff_colmap": "tiff_colmap_largest",
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_largest",
                "tiff_legacy_colmap": "tiff_legacy_colmap_largest",
-               "jp2_colmap": "jp2_colmap_largest"}),
+               "jp2_colmap": "jp2_colmap_largest",
+               "texture_colmap": "texture_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -5120,7 +5183,7 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
           "load_reproducer", "run_grid", "overfit", "images", "webp_colmap",
           "tiff_colmap", "tga_sgi_ppm_colmap", "tiff_legacy_colmap",
-          "jp2_colmap")
+          "jp2_colmap", "texture_colmap")
 
 
 def nvidia_smi_line():
@@ -5192,6 +5255,7 @@ def main():
             "tga_sgi_ppm_colmap": lambda: phase_tga_sgi_ppm_colmap(results,
                                                                    tmp),
             "jp2_colmap": lambda: phase_jp2_colmap(results, tmp),
+            "texture_colmap": lambda: phase_texture_colmap(results, tmp),
         }
         for name in PHASES:
             if name in phases:

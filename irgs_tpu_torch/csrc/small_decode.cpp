@@ -1,7 +1,9 @@
 // Run-length and op-stream decoders of PIL's small readers, for
 // irgs_tpu_torch/utils/small_codecs.py: Targa RLE (TgaRleDecode.c), PCX RLE
 // (PcxDecode.c), SGI RLE (SgiRleDecode.c) and QOI (QoiImagePlugin's
-// QoiDecoder), and libtiff's ThunderScan decoder for the TIFF reader.
+// QoiDecoder), libImaging's PackBits (PackbitsDecode.c, for PSD), the
+// RLE of IcnsImagePlugin's read_32, and libtiff's ThunderScan decoder for
+// the TIFF reader.
 // Each writes the decoder's line buffers as PIL hands them to
 // its unpacker (the caller unpacks them to the mode), keeps the quirks
 // that decide what a damaged stream gives (a Targa run packet may not cross
@@ -313,6 +315,80 @@ int thunder_decode(const uint8_t* src, int64_t n, int64_t rows, int64_t cols,
     if (npix != cols) return -1;
   }
   return 0;
+}
+
+// libImaging's PackbitsDecode over one stream of `rows` lines of
+// `rowbytes` (a PSD channel, its per-row byte counts ignored): 0x80 is a
+// no-op, and a run or literal that crosses a line's end is cut there, the
+// rest dropped (libtiff's PackBits carries it into the next line). Returns
+// the bytes taken once every line is out, or -1 when the data ends first.
+int64_t packbits_pil_decode(const uint8_t* src, int64_t n, int64_t rowbytes,
+                            int64_t rows, uint8_t* out) {
+  const uint8_t* p = src;
+  int64_t left = n, x = 0, y = 0;
+  if (rows <= 0) return 0;
+  for (;;) {
+    if (left < 1) return -1;
+    uint8_t* line = out + y * rowbytes;
+    if (p[0] & 0x80) {
+      if (p[0] == 0x80) {
+        p++;
+        left--;
+        continue;
+      }
+      if (left < 2) return -1;
+      for (int k = 257 - p[0]; k > 0 && x < rowbytes; k--) line[x++] = p[1];
+      p += 2;
+      left -= 2;
+    } else {
+      int64_t cnt = p[0] + 2;
+      if (left < cnt) return -1;
+      for (int64_t i = 1; i < cnt && x < rowbytes; i++) line[x++] = p[i];
+      p += cnt;
+      left -= cnt;
+    }
+    if (x >= rowbytes) {
+      x = 0;
+      if (++y >= rows) return p - src;
+    }
+  }
+}
+
+// IcnsImagePlugin.read_32's RLE: `bands` planes of `count` bytes from one
+// stream; a byte b >= 0x80 repeats the next byte b - 125 times (nothing
+// where the file has ended), else the next b + 1 bytes are copied (fewer
+// where it ends). Returns 0, 1 where a plane's counts do not add up to
+// `count` (PIL's SyntaxError), or 2 where the file ended inside a plane
+// (PIL's "buffer is not large enough").
+int icns_rle_decode(const uint8_t* src, int64_t n, int64_t count, int bands,
+                    uint8_t* out) {
+  int64_t pos = 0;
+  int rc = 0;
+  for (int b = 0; b < bands; b++) {
+    uint8_t* plane = out + b * count;
+    int64_t left = count, got = 0;
+    while (left > 0) {
+      if (pos >= n) break;
+      int v = src[pos++];
+      int64_t block;
+      if (v & 0x80) {
+        block = v - 125;
+        if (pos < n) {
+          uint8_t c = src[pos++];
+          for (int64_t i = 0; i < block && got < count; i++) plane[got++] = c;
+        }
+      } else {
+        block = v + 1;
+        int64_t m = block < n - pos ? block : n - pos;
+        for (int64_t i = 0; i < m && got < count; i++) plane[got++] = src[pos + i];
+        pos += m;
+      }
+      left -= block;
+    }
+    if (left != 0) return 1;
+    if (got < count) rc = 2;
+  }
+  return rc;
 }
 
 }  // extern "C"

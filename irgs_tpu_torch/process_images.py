@@ -113,8 +113,7 @@ def crop(args):
         for fn in sorted(files):
             if not fn.lower().endswith((".png", ".jpg", ".jpeg")):
                 continue
-            arr, mode, info = image.read_image_like_pil(
-                os.path.join(root, fn))
+            arr, mode, info = image.open_like_pil(os.path.join(root, fn))
             out = os.path.join(args.out_dir, fn)
             h, w = arr.shape[:2]
             if args.downscale > 1:

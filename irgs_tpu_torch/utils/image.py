@@ -7,7 +7,8 @@ The JAX package reads LDR frames with ``np.asarray(Image.open(p))``
 the decoder from the file's content, whatever its name, and so does
 `read_image_like_pil`; the port's readers (utils/png.py, jpeg.py, tiff.py,
 bmp.py with DIB, gif.py, webp.py, ppm.py, tga.py, ico.py with CUR,
-qoi.py, pcx.py, sgi.py, jpeg2000.py for JP2 and J2K) return PIL's array
+qoi.py, pcx.py, sgi.py, jpeg2000.py for JP2 and J2K, psd.py, dds.py,
+ftex.py, blp.py and icns.py) return PIL's array
 together with its mode (and palette); `to_rgb_like_pil` then converts as
 Pillow's Convert.c does for each mode.
 
@@ -21,7 +22,7 @@ plugin whose prefix check passes is tried; where its header parse fails
 as PIL's _open fails (SyntaxError, IndexError, TypeError, KeyError,
 EOFError, struct.error, or no size: `NotThisFormat`), the next plugin is
 tried, as PIL does; errors in the pixel data (PIL's load) raise. A format
-PIL reads and the port does not (PSD, AVIF, DDS, ...) raises
+PIL reads and the port does not (AVIF, IM, XBM, ...) raises
 `UnreadableImageError` "<FORMAT> is not ported", naming PIL's format:
 for those plugins only their prefix check (and, where PIL has none, the
 first checks of their _open) is modelled, so a file such a plugin would
@@ -130,9 +131,8 @@ def _gbr(head):
 # (format, its _accept on the file's first 16 bytes -- None where the
 # plugin has none and PIL tries its _open on every file --, the port's
 # reader as "module.function", or None where the port does not read it:
-# AVIF, BLP, BUFR, DCX, DDS, EPS, FITS, FLI, FTEX, GBR, GRIB, HDF5, ICNS,
-# IM, IMT, IPTC, MCIDAS, MPEG, MSP, PCD, PIXAR, PSD, SPIDER, SUN, WMF, XBM,
-# XPM, XVThumb).
+# AVIF, BUFR, DCX, EPS, FITS, FLI, GBR, GRIB, HDF5, IM, IMT, IPTC, MCIDAS,
+# MPEG, MSP, PCD, PIXAR, SPIDER, SUN, WMF, XBM, XPM, XVThumb).
 # For the plugins the port does not read and PIL tries without a prefix
 # check (or whose prefix check a Targa header can pass), the accept
 # function stands for the first checks of their _open and takes the
@@ -151,18 +151,19 @@ _PLUGINS = (
      "png.read_png_like_pil"),
     ("AVIF", lambda h: h[4:8] == b"ftyp" and h[8:12] in (
         b"avif", b"avis", b"mif1", b"msf1"), None),
-    ("BLP", lambda h: h.startswith((b"BLP1", b"BLP2")), None),
+    ("BLP", lambda h: h.startswith((b"BLP1", b"BLP2")),
+     "blp.read_blp_like_pil"),
     ("BUFR", lambda h: h.startswith((b"BUFR", b"ZCZC")), None),
     ("CUR", lambda h: h.startswith(b"\0\0\2\0"), "ico.read_cur_like_pil"),
     ("PCX", lambda h: len(h) >= 2 and h[0] == 10 and h[1] in (0, 2, 3, 5),
      "pcx.read_pcx_like_pil"),
     ("DCX", lambda h: _i32(h) == 0x3ADE68B1, None),
-    ("DDS", lambda h: h.startswith(b"DDS "), None),
+    ("DDS", lambda h: h.startswith(b"DDS "), "dds.read_dds_like_pil"),
     ("EPS", lambda h: h.startswith(b"%!PS") or _i32(h) == 0xC6D3D0C5, None),
     ("FITS", lambda h: h.startswith(b"SIMPLE"), None),
     ("FLI", lambda h: len(h) >= 16 and _i16(h, 4) in (0xAF11, 0xAF12)
      and _i16(h, 14) in (0, 3), None),
-    ("FTEX", lambda h: h.startswith(b"FTEX"), None),
+    ("FTEX", lambda h: h.startswith(b"FTEX"), "ftex.read_ftex_like_pil"),
     ("GBR", _gbr, None),
     ("GRIB", lambda h: len(h) >= 8 and h.startswith(b"GRIB") and h[7] == 1,
      None),
@@ -170,7 +171,7 @@ _PLUGINS = (
     ("JPEG2000", lambda h: h.startswith(
         (b"\xff\x4f\xff\x51", b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a")),
      "jpeg2000.read_jpeg2000_like_pil"),
-    ("ICNS", lambda h: h.startswith(b"icns"), None),
+    ("ICNS", lambda h: h.startswith(b"icns"), "icns.read_icns_like_pil"),
     ("ICO", lambda h: h.startswith(b"\0\0\1\0"), "ico.read_ico_like_pil"),
     ("IM", _im, None),
     ("IMT", _imt, None),
@@ -183,7 +184,7 @@ _PLUGINS = (
     ("MSP", lambda h: h.startswith((b"DanM", b"LinS")), None),
     ("PCD", lambda h: h[2048:2052] == b"PCD_", None),
     ("PIXAR", lambda h: h.startswith(b"\200\350\000\000"), None),
-    ("PSD", lambda h: h.startswith(b"8BPS"), None),
+    ("PSD", lambda h: h.startswith(b"8BPS"), "psd.read_psd_like_pil"),
     ("QOI", lambda h: h.startswith(b"qoif"), "qoi.read_qoi_like_pil"),
     ("SGI", lambda h: len(h) >= 2 and h[:2] == b"\x01\xda",
      "sgi.read_sgi_like_pil"),
@@ -245,11 +246,17 @@ def _reader(spec: str):
     return getattr(importlib.import_module(f"{__package__}.{module}"), func)
 
 
-def read_image_like_pil(path: str):
-    """(array, mode, info) of ``im = PIL.Image.open(path)``, the decoder
-    chosen by the file's content: ``np.asarray(im)``, ``im.mode`` and
+def open_like_pil(path: str):
+    """(array, mode, info) of ``im = PIL.Image.open(path)`` once loaded, the
+    decoder chosen by the file's content: the pixels, ``im.mode`` and
     ``im.info``'s palette, transparency and comment where the file has
-    them."""
+    them; what PIL's methods (``convert``, ``resize``, ``crop``) see."""
+    arr, mode, info = _open(path)
+    info.pop("asarray", None)
+    return arr, mode, info
+
+
+def _open(path: str):
     with open(path, "rb") as f:
         head = f.read(4096)
     for name, accepts, reader in _PLUGINS:
@@ -264,6 +271,23 @@ def read_image_like_pil(path: str):
         except NotThisFormat:
             continue
     raise UnreadableImageError(f"cannot identify image file {path}")
+
+
+def read_image_like_pil(path: str):
+    """(array, mode, info) of ``im = PIL.Image.open(path)``:
+    ``np.asarray(im)``, ``im.mode`` and ``im.info`` as `open_like_pil`
+    gives them. Where a reader says that ``np.asarray`` of the fresh image
+    differs from its loaded pixels (``info["asarray"]``: ICNS), that answer
+    is returned, or raised, and the loaded pixels go in
+    ``info["loaded"]``."""
+    arr, mode, info = _open(path)
+    fresh = info.pop("asarray", None)
+    if fresh is None:
+        return arr, mode, info
+    if isinstance(fresh, Exception):
+        raise fresh
+    info["loaded"] = arr
+    return fresh, mode, info
 
 
 def _muldiv255(a, b):
@@ -326,7 +350,7 @@ def to_rgb_like_pil(arr: np.ndarray, mode: str, palette=None) -> np.ndarray:
 def read_rgb_like_pil(path: str) -> np.ndarray:
     """``np.asarray(PIL.Image.open(path).convert("RGB"))``: uint8
     [H, W, 3]."""
-    arr, mode, info = read_image_like_pil(path)
+    arr, mode, info = open_like_pil(path)
     return to_rgb_like_pil(arr, mode, info.get("palette"))
 
 

@@ -317,16 +317,18 @@ class _State:
         self.comment = None
 
 
-def decode_jpeg_like_pil(buf: bytes):
+def decode_jpeg_like_pil(buf: bytes, jpegmode: str = ""):
     """A JPEG stream -> (array, mode, info): ``np.asarray(im)``, ``im.mode``
     ("L", "RGB" or "CMYK") and the ``im.info`` entries the port carries
     (``comment``: the last COM segment before the first scan) of
-    ``im = PIL.Image.open(...)``."""
+    ``im = PIL.Image.open(...)``. `jpegmode` "CMYK" is the jpeg decoder's
+    colour-space argument as BlpImagePlugin sets it on a CMYK stream: four
+    components taken as CMYK whatever the Adobe transform says."""
     s = _parse(buf, _State())
     if s.frame is None:
         raise JpegError("no frame")
     info = {} if s.comment is None else {"comment": s.comment}
-    return _output(s), _MODES[len(s.frame["comps"])], info
+    return _output(s, jpegmode), _MODES[len(s.frame["comps"])], info
 
 
 def decode_tiff_jpeg(tables: bytes | None, strip: bytes, to_rgb: bool,
@@ -703,12 +705,14 @@ def _planes(s):
     return planes
 
 
-def _output(s):
+def _output(s, jpegmode=""):
     frame = s.frame
     planes = _planes(s)
     if len(planes) == 1:
         return planes[0]
     lossless = frame["process"] == "lossless"
+    if len(planes) == 4 and jpegmode == "CMYK":
+        return 255 - np.stack(planes, -1)
     if len(planes) == 4:
         if lossless and s.saw_adobe and s.adobe_transform != 0:
             raise _refused("lossless with a YCCK colour transform")
@@ -746,8 +750,9 @@ _PIL_SEGMENT = ({0xFFC4, 0xFFCC, 0xFFDA, 0xFFDB, 0xFFDC, 0xFFDD, 0xFFDF,
 _PIL_SOF = set(range(0xFFC0, 0xFFD0)) - {0xFFC4, 0xFFC8, 0xFFCC} | {0xFFDE}
 
 
-def _pil_open(buf: bytes) -> None:
-    """PIL's JpegImageFile._open up to the first SOS: JpegHeaderError where it
+def _pil_open(buf: bytes) -> str:
+    """PIL's JpegImageFile._open up to the first SOS (returns the mode the
+    SOF gives): JpegHeaderError where it
     fails as the next plugin's turn (a marker it does not know, the file
     ending before the scan, SOF samples of other than 8 bits or a layer
     count other than 1, 3 and 4, a SOF whose layers are cut mid-way, a
@@ -815,6 +820,7 @@ def _pil_open(buf: bytes) -> None:
         check_size(*size, "JPEG")
     except NotThisFormat as err:
         raise JpegHeaderError(str(err)) from None
+    return mode
 
 
 def read_jpeg_like_pil(path: str):

@@ -1,6 +1,7 @@
 """ctypes bindings of ``csrc/small_decode.cpp``: the run-length and op-stream
-decoders of PIL's small readers (Targa RLE, PCX RLE, SGI RLE, QOI) and the
-TIFF reader's ThunderScan, built with g++ at first use
+decoders of PIL's small readers (Targa RLE, PCX RLE, SGI RLE, QOI,
+libImaging's PackBits for PSD, ICNS's RLE) and the TIFF reader's
+ThunderScan, built with g++ at first use
 (`native.build_library`). Each returns the decoder's line buffers, which
 the reader unpacks to PIL's mode, and raises `SmallCodecError` where PIL's
 decoder fails ("image file is truncated", "buffer overrun when reading
@@ -35,8 +36,11 @@ def _lib():
                                        ctypes.POINTER(ctypes.c_int64)]
         lib.qoi_decode.argtypes = [_U8P, i64, i64, i32, _U8P]
         lib.thunder_decode.argtypes = [_U8P, i64, i64, i64, _U8P, _U8P]
+        lib.packbits_pil_decode.argtypes = [_U8P, i64, i64, i64, _U8P]
+        lib.packbits_pil_decode.restype = i64
+        lib.icns_rle_decode.argtypes = [_U8P, i64, i64, i32, _U8P]
         for f in (lib.tga_rle_decode, lib.pcx_decode, lib.sgi_rle_decode,
-                  lib.qoi_decode, lib.thunder_decode):
+                  lib.qoi_decode, lib.thunder_decode, lib.icns_rle_decode):
             f.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -115,3 +119,28 @@ def thunder(data: bytes, rows: int, cols: int):
         return None
     w = wrote[:rows * rowbytes].reshape(rows, rowbytes).astype(bool)
     return out[:rows * rowbytes].tobytes(), np.repeat(w, 2, 1)[:, :cols]
+
+
+def packbits_pil(data: bytes, rowbytes: int, rows: int) -> np.ndarray:
+    """libImaging's PackbitsDecode on the stream `data`: [rows, rowbytes]
+    uint8 lines (a run or literal cut at a line's end)."""
+    out = np.zeros((rows, rowbytes), np.uint8)
+    src = _src(data)
+    if _lib().packbits_pil_decode(src.ctypes.data_as(_U8P), len(data),
+                                  rowbytes, rows,
+                                  out.ctypes.data_as(_U8P)) < 0:
+        raise SmallCodecError("PackBits: image file is truncated")
+    return out
+
+
+def icns_rle(data: bytes, count: int, bands: int) -> np.ndarray:
+    """IcnsImagePlugin.read_32's RLE: [bands, count] uint8 planes."""
+    out = np.zeros((bands, count), np.uint8)
+    src = _src(data)
+    rc = _lib().icns_rle_decode(src.ctypes.data_as(_U8P), len(data), count,
+                                bands, out.ctypes.data_as(_U8P))
+    if rc == 1:
+        raise SmallCodecError("ICNS RLE: Error reading channel")
+    if rc == 2:
+        raise SmallCodecError("ICNS RLE: buffer is not large enough")
+    return out

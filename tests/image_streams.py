@@ -13,11 +13,14 @@ deferred clear; Targa 15/16-bit pixels and colour maps from any index,
 run-length packets across rows; SGI run-length rows (8 and 16 bits,
 shared rows); Netpbm in ASCII, at any maxval, and PFM; PCX at 1 bit in
 2 or 4 planes with padded strides; icons mixing DIB and PNG frames, and
-cursors.
+cursors; Photoshop files (raw or PackBits composites, colour-mode data,
+image resources, a layer section) and DirectDraw Surface headers around
+any pixel data, with a BC7 mode-6 block encoder.
 
 PIL decodes each file written, and its array is the oracle. Used by
-tests/make_{tiff,bmp,gif,small}_fixtures.py and their tests; pure Python, so
-the images stay small.
+tests/make_{tiff,bmp,gif,small,texture}_fixtures.py, their tests and the
+chip smoke's decode timings; pure Python and numpy, so the images stay
+small where a writer loops in Python.
 """
 
 from __future__ import annotations
@@ -984,3 +987,105 @@ def save_fixtures(out: str, files, refused, ext: str) -> None:
         notes[name] = why
     with open(os.path.join(out, "refused", "refused.json"), "w") as f:
         json.dump(notes, f, indent=0, sort_keys=True)
+
+
+# ---------------------------------------------------------------------------
+# Photoshop
+def psd_layer_section(layers) -> bytes:
+    """A layer and mask section's contents: each (top, left, planes [3 x
+    [h, w] uint8], name) as a layer of R, G, B channels, raw, blend mode
+    normal."""
+    records, data = b"", b""
+    for top, left, planes, name in layers:
+        h, w = planes[0].shape
+        records += struct.pack(">4iH", top, left, top + h, left + w,
+                               len(planes))
+        for k, plane in enumerate(planes):
+            records += struct.pack(">hI", k, 2 + plane.size)
+            data += struct.pack(">H", 0) + plane.tobytes()
+        pname = bytes([len(name)]) + name
+        pname += b"\0" * (-len(pname) % 4)
+        extra = struct.pack(">II", 0, 0) + pname
+        records += b"8BIMnorm" + bytes([255, 0, 0, 0])
+        records += struct.pack(">I", len(extra)) + extra
+    info = struct.pack(">h", len(layers)) + records + data
+    info += b"\0" * (len(info) & 1)
+    return struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+
+
+def write_psd(planes, *, mode: int, bits: int = 8, compression: int = 1,
+              channels=None, color_data: bytes = b"", resources=(),
+              layers: bytes = b"", size=None) -> bytes:
+    """A PSD file whose composite holds `planes` (each [h, rowbytes] uint8:
+    rows of 8-bit samples, or of packed bits at depth 1), raw or PackBits
+    (each row its own packets, the per-row byte counts first); `channels`
+    overrides the header's channel count, `resources` are (id, data)
+    image resources, `layers` the layer and mask section's contents."""
+    h = planes[0].shape[0]
+    w = size[0] if size else planes[0].shape[1] * (8 if bits == 1 else 1)
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or len(planes), h,
+                                 w, bits, mode)
+    res = b""
+    for rid, data in resources:
+        res += b"8BIM" + struct.pack(">H", rid) + b"\0\0"
+        res += struct.pack(">I", len(data)) + data + b"\0" * (len(data) & 1)
+    out = head + struct.pack(">I", len(color_data)) + color_data
+    out += struct.pack(">I", len(res)) + res
+    out += struct.pack(">I", len(layers)) + layers
+    if compression == 0:
+        return out + struct.pack(">H", 0) + b"".join(p.tobytes()
+                                                    for p in planes)
+    rows = [packbits_encode(r.tobytes()) for p in planes for r in p]
+    counts = b"".join(struct.pack(">H", len(r)) for r in rows)
+    return out + struct.pack(">H", compression) + counts + b"".join(rows)
+
+
+# ---------------------------------------------------------------------------
+# DirectDraw Surface
+def write_dds(w: int, h: int, data: bytes, *, pfflags: int = 0x4,
+              fourcc: bytes = b"\0\0\0\0", bitcount: int = 0,
+              masks=(0, 0, 0, 0), dxgi=None, header_size: int = 124) -> bytes:
+    """A DDS file of `data` after its 124-byte header (and a DX10 header
+    of DXGI format `dxgi`, with FourCC DX10)."""
+    if dxgi is not None:
+        fourcc = b"DX10"
+    head = struct.pack("<7I", header_size, 0x1007, h, w, 0, 0, 0)
+    head += b"\0" * 44 + struct.pack("<2I", 32, pfflags) + fourcc
+    head += struct.pack("<5I", bitcount, *masks)
+    head += struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi is not None:
+        head += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return b"DDS " + head + data
+
+
+def _field_bits(v: np.ndarray, n: int) -> np.ndarray:
+    return ((v[:, None] >> np.arange(n)) & 1).astype(np.uint8)
+
+
+def bc7_mode6_encode(rgba: np.ndarray) -> bytes:
+    """[H, W, 4] uint8 (H, W multiples of 4) -> BC7 blocks, all mode 6:
+    each block's per-channel minimum and maximum (even values: 7 bits and
+    a p-bit of 0) as endpoints, 4-bit indices by projection on the line
+    between them; row-major blocks."""
+    h, w = rgba.shape[:2]
+    blk = rgba.reshape(h // 4, 4, w // 4, 4, 4).transpose(0, 2, 1, 3, 4)
+    blk = blk.reshape(-1, 16, 4).astype(np.int64)
+    e0 = blk.min(1) >> 1
+    e1 = blk.max(1) >> 1
+    d = (e1 - e0) * 2
+    t = ((blk - 2 * e0[:, None]) * d[:, None]).sum(-1)
+    dd = np.maximum((d * d).sum(-1), 1)[:, None]
+    idx = np.clip((t * 15 + dd // 2) // dd, 0, 15)
+    swap = idx[:, 0] >= 8
+    e0[swap], e1[swap] = e1[swap].copy(), e0[swap].copy()
+    idx[swap] = 15 - idx[swap]
+    n = len(blk)
+    fields = [np.tile(np.array([0, 0, 0, 0, 0, 0, 1], np.uint8), (n, 1))]
+    for c in range(4):
+        fields += [_field_bits(e0[:, c], 7), _field_bits(e1[:, c], 7)]
+    fields.append(np.zeros((n, 2), np.uint8))
+    fields.append(_field_bits(idx[:, 0], 3))
+    fields += [_field_bits(idx[:, k], 4) for k in range(1, 16)]
+    bits = np.concatenate(fields, 1)
+    return np.packbits(bits, axis=1, bitorder="little").tobytes()
+

@@ -217,13 +217,12 @@ def test_resize_bilinear_matches_jax(src, dst, c):
 
 
 # each format Pillow writes here that PIL reads and the port does not
-PIL_FORMATS = {"AVIF": "RGB", "BLP": "P", "DDS": "RGB", "EPS": "RGB",
-               "ICNS": "RGB", "IM": "RGB", "MSP": "1", "SPIDER": "F",
-               "XBM": "1"}
+PIL_FORMATS = {"AVIF": "RGB", "EPS": "RGB", "IM": "RGB", "MSP": "1",
+               "SPIDER": "F", "XBM": "1"}
 # ... and the ones the port reads as PIL does (CUR: written by hand)
-READ_FORMATS = {"CUR": "RGB", "DIB": "RGB", "ICO": "RGB",
-                "JPEG2000": "RGB", "PCX": "RGB", "PPM": "RGB", "QOI": "RGB",
-                "SGI": "RGB", "TGA": "RGB"}
+READ_FORMATS = {"BLP": "P", "CUR": "RGB", "DDS": "RGB", "DIB": "RGB",
+                "ICNS": "RGB", "ICO": "RGB", "JPEG2000": "RGB", "PCX": "RGB",
+                "PPM": "RGB", "QOI": "RGB", "SGI": "RGB", "TGA": "RGB"}
 
 
 def _saved(tmp_path, fmt, mode):

@@ -12,6 +12,7 @@ Tolerance: bit for bit (both decode the same bytes the same way).
 """
 
 import io
+import os
 
 import cv2
 import numpy as np
@@ -202,3 +203,29 @@ def test_hdr_path_cv2_reads_and_port_does_not(tmp_path):
     assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
     with pytest.raises(image.UnreadableImageError, match="not ported"):
         tds._load_image_any(path)
+
+
+# one committed fixture of each Photoshop and GPU-texture format
+# (tests/make_texture_fixtures.py), which cv2.imread does not read
+TEXTURES = {"dds": "dds/pil_dxt5.dds", "psd": "psd/rgb_packbits.psd",
+            "blp": "blp/blp1_jpeg_rgb.blp", "ftex": "ftex/raw_rgb.ftc",
+            "icns": "icns/is32_s8mk.icns"}
+
+
+@pytest.mark.parametrize("name", sorted(TEXTURES))
+def test_hdr_path_texture_formats_cv2_cannot_read(tmp_path, name):
+    """A DDS, PSD, BLP, FTEX or ICNS file named .hdr: cv2.imread returns
+    None, the JAX loader raises its IOError, and so does the port (the
+    .hdr path reads by content as cv2 does, never through PIL's
+    readers)."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       TEXTURES[name])
+    path = str(tmp_path / f"{name}.hdr")
+    with open(src, "rb") as f:
+        (tmp_path / f"{name}.hdr").write_bytes(f.read())
+    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is None
+    with pytest.raises(IOError):
+        jds._load_image_any(path)
+    with pytest.raises(OSError):
+        tds._load_image_any(path)
+    assert image.read_image_like_pil(src)[0].size > 0
