@@ -215,8 +215,17 @@ Phases (JSON lines; any failure exits non-zero):
                 ms of 3 decodes of the committed 1297x840 BC7 DDS frame
                 (held against the SHA-256 of PIL's array), of a 1297x840
                 PackBits PSD written from the lossless WebP frame (held
-                equal to it) and of each frame of the texture capture.
-                Needs train_cli and eval_cli.
+                equal to it) and of each frame of the texture capture;
+                the fixtures of Pillow's last small rasters (tests/data/im,
+                xbm, xpm, sun, msp, spider, fits, dcx, fli, pixar, gbr,
+                mcidas, imt, xvthumb, iptc) among the containers, the Sun
+                raster and PAM files of tests/data/sun/cv2 through the
+                .hdr path against cv2's arrays, and the median ms of 3
+                decodes of the two committed 768x512 PhotoCD frames (held
+                against the SHA-256 of PIL's array), of a 1297x840 24-bit
+                RLE Sun raster written from the lossless WebP frame (held
+                equal to it) and of each frame of the IM/Sun/XPM/FLI
+                capture. Needs train_cli and eval_cli.
   webp_colmap   python -m irgs_tpu_torch.train for 3 iterations at the
                 BENCH budgets on the committed COLMAP capture of WebP frames
                 (tests/data/webp/colmap: 4 views at 400², two lossy, one
@@ -253,6 +262,12 @@ Phases (JSON lines; any failure exits non-zero):
                 the same 4 views as DXT1 and DXT5 DDS from Pillow's
                 encoder, an RGB PackBits PSD with one layer, a BLP1 JPEG),
                 a main path of its own.
+  im_sun_xpm_fli_colmap  the same, 3 iterations, on the committed COLMAP
+                capture of Pillow's small rasters (tests/data/im_sun_xpm_fli/
+                colmap: the same 4 views as an RGB IM from Pillow's
+                encoder, a 24-bit RLE Sun raster, a P XPM of 256 colours,
+                an FLI BRUN frame with a COLOR_256 chunk), a main path of
+                its own.
 Each of the tool phases from bench on runs its tool's main in this process
 and holds the kernels at the path's first inputs (the scatter-add at its
 largest).
@@ -3413,7 +3428,16 @@ CONTAINER_FIXTURES = {"tiff": ".tif", "bmp": ".bmp", "gif": ".gif",
                       "ico": ".ico", "qoi": ".qoi", "pcx": ".pcx",
                       "sgi": ".sgi", "jp2": "",   # JPEG 2000: .jp2/.j2k
                       "dds": ".dds", "ftex": ".ftc", "blp": ".blp",
-                      "psd": ".psd", "icns": ".icns"}
+                      "psd": ".psd", "icns": ".icns", "im": ".im",
+                      "xbm": ".xbm", "xpm": ".xpm", "sun": ".ras",
+                      "msp": ".msp", "spider": ".spi", "fits": ".fits",
+                      "dcx": ".dcx", "fli": ".fli", "pixar": ".pxr",
+                      "gbr": ".gbr", "mcidas": ".area", "imt": ".imt",
+                      "xvthumb": ".xv", "iptc": ".iim"}
+# the fixtures of Pillow's last small rasters among them (PhotoCD's, whose
+# arrays are kept as SHA-256s, are checked by small_rasters_exact)
+SMALL_RASTERS = ("im", "xbm", "xpm", "sun", "msp", "spider", "fits", "dcx",
+                 "fli", "pixar", "gbr", "mcidas", "imt", "xvthumb", "iptc")
 # re-saves that carry another fixture's coefficients, and so its array
 # (tests/make_jpeg_fixtures.py ARRAY_OF)
 JPEG_ARRAY_OF = {"large_1297x840_q95_progressive": "large_1297x840_q95",
@@ -3446,7 +3470,9 @@ def jpeg_fixtures_exact():
 
 def container_fixtures_exact():
     """Every committed TIFF, BMP, GIF, WebP, Netpbm, Targa, ICO/CUR/DIB,
-    QOI, PCX, SGI, JPEG 2000, DDS, FTEX, BLP, PSD and ICNS fixture through
+    QOI, PCX, SGI, JPEG 2000, DDS, FTEX, BLP, PSD, ICNS, IM, XBM, XPM, SUN,
+    MSP, SPIDER, FITS, DCX, FLI, PIXAR, GBR, McIdas, IMT, XVThumb and IPTC
+    fixture through
     the content-sniffing reader (utils/image.read_image_like_pil) ->
     ({"fmt/name": array, mode, palette
     and transparency equal to PIL's}, {"fmt/name" of a refused stream: the
@@ -3460,7 +3486,7 @@ def container_fixtures_exact():
                "gif": (gif.read_gif_like_pil, gif.GifError),
                "webp": (webp.read_webp_like_pil, webp.WebpError)}
     for fmt in ("ppm", "tga", "ico", "qoi", "pcx", "sgi", "jp2", "dds", "ftex",
-                "blp", "psd", "icns"):
+                "blp", "psd", "icns") + SMALL_RASTERS:
         readers[fmt] = (image.read_image_like_pil, ValueError)
     exact, refused = {}, {}
     for fmt, ext in CONTAINER_FIXTURES.items():
@@ -3471,11 +3497,13 @@ def container_fixtures_exact():
             arr, mode, info = image.read_image_like_pil(
                 os.path.join(folder, name + ext))
             npy = np.load(os.path.join(folder, name + ".npy"))
+            t = info.get("transparency")      # an XPM's key is bytes
             ok = (mode == want["mode"] and arr.dtype == npy.dtype
                   and arr.shape == npy.shape
                   and bool(np.array_equal(arr, npy,
                                           equal_nan=arr.dtype.kind == "f"))
-                  and info.get("transparency") == want["transparency"])
+                  and (list(t) if isinstance(t, bytes) else t)
+                  == want["transparency"])
             if want["palette"] is not None and mode in ("P", "PA"):
                 pal = np.asarray(want["palette"]).reshape(-1, 3)
                 got = np.asarray(info["palette"])
@@ -3679,6 +3707,57 @@ def texture_decode_ms(tmp):
         sizes[name] = os.path.getsize(path)
     return ms, ms_all, equal, sizes
 
+
+def small_rasters_exact(tmp):
+    """Pillow's last small rasters and cv2's Sun raster and PAM decoders
+    on the card's machine: every committed file of tests/data/sun/cv2
+    through utils/imread.imread_unchanged against the array cv2 gave
+    (dtype, shape, values); the two committed 768x512 PhotoCD frames
+    against the SHA-256 of PIL's array and their refused cut copy; the
+    median ms of 3 decodes of those frames, of a 1297x840 24-bit RLE Sun
+    raster that this run writes from the committed lossless WebP frame
+    (tests/image_streams.write_sun; held equal to it) and of each frame of
+    the IM/Sun/XPM/FLI capture -> ({cv2 file: equal}, {name: median ms},
+    {name: all ms}, {name of a large frame: equal}, {name: bytes},
+    PhotoCD's refused copy refused)."""
+    import glob
+
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import image_streams as ims
+    from irgs_tpu_torch.utils import image
+    from irgs_tpu_torch.utils.imread import imread_unchanged
+    cv2_exact = {}
+    for path in sorted(glob.glob(os.path.join(SUN_CV2, "*.hdr"))):
+        name = os.path.basename(path)[:-4]
+        want = np.load(os.path.join(SUN_CV2, name + ".npy"))
+        got = imread_unchanged(path)
+        cv2_exact[name] = (got.dtype == want.dtype and got.shape == want.shape
+                           and bool(np.array_equal(got, want)))
+    ms, ms_all, equal, sizes = large_frames_ms("pcd", ".pcd", PCD_FIXTURES)
+    try:
+        image.read_image_like_pil(os.path.join(PCD_FIXTURES, "refused",
+                                               "cut_base.pcd"))
+        pcd_refused = False
+    except ValueError:
+        pcd_refused = True
+    src = image.read_rgb_like_pil(os.path.join(WEBP_FIXTURES, "large",
+                                               "large_lossless.webp"))
+    paths = {"large_rle24.ras": os.path.join(tmp, "large_rle24.ras")}
+    with open(paths["large_rle24.ras"], "wb") as f:
+        f.write(ims.write_sun(src.shape[1], src.shape[0], 24, ims.sun_rle(
+            np.ascontiguousarray(src[..., ::-1]).tobytes()), 2))
+    equal["large_rle24.ras"] = list(src.shape) == [840, 1297, 3] and bool(
+        np.array_equal(image.read_image_like_pil(
+            paths["large_rle24.ras"])[0], src))
+    for name in sorted(os.listdir(os.path.join(SMALL_RASTER_CAPTURE,
+                                               "images"))):
+        paths[name] = os.path.join(SMALL_RASTER_CAPTURE, "images", name)
+    for name, path in paths.items():
+        ms[name], ms_all[name] = _median_ms(
+            lambda: image.read_image_like_pil(path))
+        sizes[name] = os.path.getsize(path)
+    return cv2_exact, ms, ms_all, equal, sizes, pcd_refused
 
 def _render_frames(params, aux, cams, spp):
     """Each camera's render_ir_eval frame at `spp` diffuse samples on a
@@ -4842,6 +4921,10 @@ def phase_images(results, tmp):
     a = time.perf_counter()
     x_ms, x_ms_all, x_equal, x_bytes = texture_decode_ms(tmp)
     texture_ms_s = time.perf_counter() - a
+    a = time.perf_counter()
+    (r_cv2, r_ms, r_ms_all, r_equal, r_bytes,
+     r_pcd_refused) = small_rasters_exact(tmp)
+    small_rasters_s = time.perf_counter() - a
 
     line = {"phase": "images", "jpeg_fixtures": len(jpeg_exact),
             "jpeg_modes": sorted({m for _, m in jpeg_exact.values()}),
@@ -4876,7 +4959,11 @@ def phase_images(results, tmp):
             "large_jp2_bytes": j_bytes, "decode_jp2_capture_ms": jc_ms,
             "jp2_s": jp2_ms_s, "decode_texture_ms": x_ms,
             "decode_texture_ms_all": x_ms_all, "texture_bytes": x_bytes,
-            "texture_s": texture_ms_s}
+            "texture_s": texture_ms_s, "sun_pam_cv2_fixtures": len(r_cv2),
+            "decode_small_rasters_ms": r_ms,
+            "decode_small_rasters_ms_all": r_ms_all,
+            "small_rasters_bytes": r_bytes,
+            "small_rasters_s": small_rasters_s}
     checks = {
         "jpeg_bit_for_bit": bool(jpeg_exact) and all(
             ok for ok, _ in jpeg_exact.values()),
@@ -4889,8 +4976,8 @@ def phase_images(results, tmp):
                                 for p in panels),
         "crop_sizes": sorted(crops) == srcs and all(
             crops[f][:2] == want_crop[f] for f in srcs),
-        "containers_bit_for_bit": len(containers) >= 574 + 98 + 133 and all(
-            containers.values()),
+        "containers_bit_for_bit": len(containers) >= 574 + 98 + 133 + 116
+        and all(containers.values()),
         "containers_refused_raise": bool(container_refused) and all(
             container_refused.values()),
         "mislabelled_read_by_content": all(mislabelled.values()),
@@ -4910,7 +4997,12 @@ def phase_images(results, tmp):
         "jp2_capture_timed": len(jc_ms) == 4,
         "texture_large_frames_equal": len(x_equal) == 2 and all(
             x_equal.values()),
-        "texture_capture_timed": len(x_ms) == 6}
+        "texture_capture_timed": len(x_ms) == 6,
+        "sun_pam_cv2_bit_for_bit": len(r_cv2) == 12 and all(r_cv2.values()),
+        "pcd_and_sun_large_frames_equal": len(r_equal) == 3 and all(
+            r_equal.values()),
+        "pcd_cut_refused": r_pcd_refused,
+        "small_rasters_capture_timed": len(r_ms) == 7}
     line["checks"] = checks
     line["ok"] = all(checks.values())
     emit(line)
@@ -4919,7 +5011,8 @@ def phase_images(results, tmp):
              f"{[k for k, v in jpeg_exact.items() if not v[0]]}, png: "
              f"{[k for k, v in png_exact.items() if not v]}, process_images: "
              f"{[k for k, v in committed.items() if not v]}, containers: "
-             f"{[k for k, v in containers.items() if not v]})")
+             f"{[k for k, v in containers.items() if not v]}, cv2: "
+             f"{[k for k, v in r_cv2.items() if not v]})")
 
 
 WEBP_CAPTURE = os.path.join(WEBP_FIXTURES, "colmap")
@@ -4932,11 +5025,16 @@ LEGACY_TIFF_LARGE = os.path.join(ROOT, "tests", "data", "tiff", "legacy",
 JP2_CAPTURE = os.path.join(ROOT, "tests", "data", "jp2", "colmap")
 TEXTURE_CAPTURE = os.path.join(ROOT, "tests", "data", "texture", "colmap")
 DDS_LARGE = os.path.join(ROOT, "tests", "data", "dds", "large")
+SMALL_RASTER_CAPTURE = os.path.join(ROOT, "tests", "data", "im_sun_xpm_fli",
+                                    "colmap")
+SUN_CV2 = os.path.join(ROOT, "tests", "data", "sun", "cv2")
+PCD_FIXTURES = os.path.join(ROOT, "tests", "data", "pcd")
 # training iterations of each capture phase (the WebP, TIFF and Targa/Iris/
 # PPM captures cut from 5 to 3 to keep the whole smoke in its time)
 CAPTURE_ITERS = {"webp_colmap": 3, "tiff_colmap": 3,
                  "tga_sgi_ppm_colmap": 3, "tiff_legacy_colmap": 3,
-                 "jp2_colmap": 3, "texture_colmap": 3}
+                 "jp2_colmap": 3, "texture_colmap": 3,
+                 "im_sun_xpm_fli_colmap": 3}
 
 
 def phase_webp_colmap(results, tmp):
@@ -4961,6 +5059,11 @@ def phase_jp2_colmap(results, tmp):
 
 def phase_texture_colmap(results, tmp):
     _capture_phase(results, tmp, "texture_colmap", TEXTURE_CAPTURE)
+
+
+def phase_im_sun_xpm_fli_colmap(results, tmp):
+    _capture_phase(results, tmp, "im_sun_xpm_fli_colmap",
+                   SMALL_RASTER_CAPTURE)
 
 
 def _capture_phase(results, tmp, phase, capture):
@@ -5050,7 +5153,8 @@ KERNELS = {
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
                "tiff_legacy_colmap": "tiff_legacy_colmap_400px",
                "jp2_colmap": "jp2_colmap_400px",
-               "texture_colmap": "texture_colmap_400px"}),
+               "texture_colmap": "texture_colmap_400px",
+               "im_sun_xpm_fli_colmap": "im_sun_xpm_fli_colmap_400px"}),
     "blend_bwd": dict(
         route="cuda", source="irgs_tpu_torch/csrc/raster_blend.cu",
         replaces="irgs_tpu/ops/raster_pallas.py:222",
@@ -5079,7 +5183,8 @@ KERNELS = {
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px",
                "tiff_legacy_colmap": "tiff_legacy_colmap_400px",
                "jp2_colmap": "jp2_colmap_400px",
-               "texture_colmap": "texture_colmap_400px"}),
+               "texture_colmap": "texture_colmap_400px",
+               "im_sun_xpm_fli_colmap": "im_sun_xpm_fli_colmap_400px"}),
     "gather_rows": dict(
         route="cuda", source="irgs_tpu_torch/csrc/gather_rows.cu",
         replaces=("irgs_tpu/ops/gather_pallas.py:28; "
@@ -5110,7 +5215,9 @@ KERNELS = {
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_400px_first_pass",
                "tiff_legacy_colmap": "tiff_legacy_colmap_400px_first_pass",
                "jp2_colmap": "jp2_colmap_400px_first_pass",
-               "texture_colmap": "texture_colmap_400px_first_pass"}),
+               "texture_colmap": "texture_colmap_400px_first_pass",
+               "im_sun_xpm_fli_colmap":
+                   "im_sun_xpm_fli_colmap_400px_first_pass"}),
     # no Pallas kernel: the deterministic scatter-add of the gathers'
     # gradients (XLA's scatter-add in the JAX package, the VJP of its slab
     # gather and of blend_hits' gathers); index_add_ is its library call
@@ -5142,7 +5249,8 @@ KERNELS = {
                "tga_sgi_ppm_colmap": "tga_sgi_ppm_colmap_largest",
                "tiff_legacy_colmap": "tiff_legacy_colmap_largest",
                "jp2_colmap": "jp2_colmap_largest",
-               "texture_colmap": "texture_colmap_largest"}),
+               "texture_colmap": "texture_colmap_largest",
+               "im_sun_xpm_fli_colmap": "im_sun_xpm_fli_colmap_largest"}),
 }
 _CASE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
               "library_ms")
@@ -5183,7 +5291,7 @@ PHASES = ("build", "kernels", "stage2_small", "stage2", "stage2_full",
           "bench", "bench_stage1", "bench_frame", "raster_oracle", "drives",
           "load_reproducer", "run_grid", "overfit", "images", "webp_colmap",
           "tiff_colmap", "tga_sgi_ppm_colmap", "tiff_legacy_colmap",
-          "jp2_colmap", "texture_colmap")
+          "jp2_colmap", "texture_colmap", "im_sun_xpm_fli_colmap")
 
 
 def nvidia_smi_line():
@@ -5256,6 +5364,8 @@ def main():
                                                                    tmp),
             "jp2_colmap": lambda: phase_jp2_colmap(results, tmp),
             "texture_colmap": lambda: phase_texture_colmap(results, tmp),
+            "im_sun_xpm_fli_colmap": lambda: phase_im_sun_xpm_fli_colmap(
+                results, tmp),
         }
         for name in PHASES:
             if name in phases:

@@ -8,9 +8,11 @@ the decoder from the file's content, whatever its name, and so does
 `read_image_like_pil`; the port's readers (utils/png.py, jpeg.py, tiff.py,
 bmp.py with DIB, gif.py, webp.py, ppm.py, tga.py, ico.py with CUR,
 qoi.py, pcx.py, sgi.py, jpeg2000.py for JP2 and J2K, psd.py, dds.py,
-ftex.py, blp.py and icns.py) return PIL's array
-together with its mode (and palette); `to_rgb_like_pil` then converts as
-Pillow's Convert.c does for each mode.
+ftex.py, blp.py, icns.py, and for Pillow's last small rasters im.py,
+xbm.py, xpm.py, sun.py, msp.py, spider.py, fits.py, dcx.py, fli.py,
+pcd.py, pixar.py, gbr.py, mcidas.py, imt.py, xvthumb.py and iptc.py)
+return PIL's array together with its mode (and palette);
+`to_rgb_like_pil` then converts as Pillow's Convert.c does for each mode.
 
 Plugins are tried as Image.open tries them in a fresh process (_PLUGINS):
 first the six Image.preinit loads (BMP, DIB, GIF, JPEG, PPM, PNG), then,
@@ -22,12 +24,15 @@ plugin whose prefix check passes is tried; where its header parse fails
 as PIL's _open fails (SyntaxError, IndexError, TypeError, KeyError,
 EOFError, struct.error, or no size: `NotThisFormat`), the next plugin is
 tried, as PIL does; errors in the pixel data (PIL's load) raise. A format
-PIL reads and the port does not (AVIF, IM, XBM, ...) raises
-`UnreadableImageError` "<FORMAT> is not ported", naming PIL's format:
-for those plugins only their prefix check (and, where PIL has none, the
-first checks of their _open) is modelled, so a file such a plugin would
-refuse in _open stops there. Bytes that no plugin takes raise "cannot
-identify image file", as PIL's UnidentifiedImageError. The PNG, JPEG,
+PIL reads and the port does not (AVIF, BUFR, EPS, GRIB, HDF5, MPEG, WMF)
+raises `UnreadableImageError` "<FORMAT> is not ported", naming PIL's
+format: for those plugins only their prefix check is modelled, so a file
+such a plugin would refuse in _open stops there. The plugins without a
+prefix check (IM, IMT, IPTC, PCD, SPIDER, TGA) run their whole _open on
+every file that reaches them, as PIL does, each a literal port of the
+plugin's (`pil_open` maps its errors). Bytes that no plugin takes raise
+"cannot identify image file", as PIL's UnidentifiedImageError. The PNG,
+JPEG,
 TIFF and GIF readers model their plugin's _open up to the pixel data (PNG:
 the chunks before IDAT with their CRCs; JPEG: the markers up to the first
 SOS; TIFF: the IFD as PIL loads it and _setup's checks; GIF: the blocks up
@@ -39,7 +44,6 @@ does not hand on, so a bad WebP header raises.
 
 from __future__ import annotations
 
-import re
 import struct
 
 import numpy as np
@@ -62,81 +66,13 @@ def _i32be(b, at=0):
     return struct.unpack_from(">I", b, at)[0] if len(b) >= at + 4 else -1
 
 
-def _is_int(v):
-    try:
-        return v == int(v)
-    except (OverflowError, ValueError):
-        return False
-
-
-def _spider(head):
-    """SpiderImagePlugin.isSpiderHeader, either byte order."""
-    if len(head) < 92:
-        return False
-    for e in "><":
-        h = (99,) + struct.unpack(e + "23f", head[:92])
-        if all(_is_int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23)) \
-                and int(h[5]) in (1, 3, -11, -12, -21, -22) \
-                and int(h[22]) == int(h[13]) * int(h[23]):
-            return True
-    return False
-
-
-_IM_KEY = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = {b"Comment", b"Date", b"Digitalization equipment",
-            b"File size (no of images)", b"Lut", b"Name", b"Scale (x,y)",
-            b"Image size (x*y)", b"Image type"}
-
-
-def _im(head):
-    """ImImagePlugin's header: text lines of 'key: value' up to a NUL or
-    ^Z, at least one of them a known key."""
-    if b"\n" not in head[:100]:
-        return False
-    known = 0
-    for line in re.split(rb"\r?\n", head.split(b"\0")[0].split(b"\x1a")[0]):
-        line = line.lstrip(b"\r")
-        if not line:
-            continue
-        m = _IM_KEY.match(line)
-        if not m or len(line) > 100:
-            return False
-        known += m.group(1) in _IM_TAGS
-    return known > 0
-
-
-def _imt(head):
-    """ImtImagePlugin: 'width N', 'height N' and 'pixel n8' lines before a
-    form feed."""
-    if b"\n" not in head[:100] or b"\x0c" not in head:
-        return False
-    keys = dict(re.findall(rb"^([a-z]*) ([^ \r\n]*)",
-                           head.split(b"\x0c")[0], re.M))
-    return (keys.get(b"pixel") == b"n8" and keys.get(b"width", b"0").isdigit()
-            and keys.get(b"height", b"0").isdigit()
-            and int(keys[b"width"]) > 0 and int(keys[b"height"]) > 0)
-
-
-def _gbr(head):
-    """GbrImagePlugin's _accept and the checks of its _open: header size,
-    version, a size and a colour depth of 1 or 4 (version 2: "GIMP")."""
-    if len(head) < 20 or _i32be(head) < 20 or _i32be(head, 4) not in (1, 2):
-        return False
-    w, h, depth = (_i32be(head, 8), _i32be(head, 12), _i32be(head, 16))
-    return (w > 0 and h > 0 and depth in (1, 4)
-            and (_i32be(head, 4) == 1 or head[20:24] == b"GIMP"))
-
-
 # Pillow 12's plugins in the order PIL tries them in a fresh process:
 # (format, its _accept on the file's first 16 bytes -- None where the
 # plugin has none and PIL tries its _open on every file --, the port's
 # reader as "module.function", or None where the port does not read it:
-# AVIF, BUFR, DCX, EPS, FITS, FLI, GBR, GRIB, HDF5, IM, IMT, IPTC, MCIDAS,
-# MPEG, MSP, PCD, PIXAR, SPIDER, SUN, WMF, XBM, XPM, XVThumb).
-# For the plugins the port does not read and PIL tries without a prefix
-# check (or whose prefix check a Targa header can pass), the accept
-# function stands for the first checks of their _open and takes the
-# file's first 4,096 bytes (_WHOLE_HEAD).
+# AVIF, BUFR, EPS, GRIB, HDF5, MPEG, WMF). The accept function of WMF,
+# which the port does not read, takes the file's first 4,096 bytes
+# (_WHOLE_HEAD).
 _PLUGINS = (
     ("BMP", lambda h: h.startswith(b"BM"), "bmp.read_bmp_like_pil"),
     ("DIB", lambda h: _i32(h) in (12, 40, 52, 56, 64, 108, 124),
@@ -157,14 +93,15 @@ _PLUGINS = (
     ("CUR", lambda h: h.startswith(b"\0\0\2\0"), "ico.read_cur_like_pil"),
     ("PCX", lambda h: len(h) >= 2 and h[0] == 10 and h[1] in (0, 2, 3, 5),
      "pcx.read_pcx_like_pil"),
-    ("DCX", lambda h: _i32(h) == 0x3ADE68B1, None),
+    ("DCX", lambda h: _i32(h) == 0x3ADE68B1, "dcx.read_dcx_like_pil"),
     ("DDS", lambda h: h.startswith(b"DDS "), "dds.read_dds_like_pil"),
     ("EPS", lambda h: h.startswith(b"%!PS") or _i32(h) == 0xC6D3D0C5, None),
-    ("FITS", lambda h: h.startswith(b"SIMPLE"), None),
+    ("FITS", lambda h: h.startswith(b"SIMPLE"), "fits.read_fits_like_pil"),
     ("FLI", lambda h: len(h) >= 16 and _i16(h, 4) in (0xAF11, 0xAF12)
-     and _i16(h, 14) in (0, 3), None),
+     and _i16(h, 14) in (0, 3), "fli.read_fli_like_pil"),
     ("FTEX", lambda h: h.startswith(b"FTEX"), "ftex.read_ftex_like_pil"),
-    ("GBR", _gbr, None),
+    ("GBR", lambda h: len(h) >= 8 and _i32be(h) >= 20
+     and _i32be(h, 4) in (1, 2), "gbr.read_gbr_like_pil"),
     ("GRIB", lambda h: len(h) >= 8 and h.startswith(b"GRIB") and h[7] == 1,
      None),
     ("HDF5", lambda h: h.startswith(b"\x89HDF\r\n\x1a\n"), None),
@@ -173,33 +110,37 @@ _PLUGINS = (
      "jpeg2000.read_jpeg2000_like_pil"),
     ("ICNS", lambda h: h.startswith(b"icns"), "icns.read_icns_like_pil"),
     ("ICO", lambda h: h.startswith(b"\0\0\1\0"), "ico.read_ico_like_pil"),
-    ("IM", _im, None),
-    ("IMT", _imt, None),
-    ("IPTC", lambda h: len(h) >= 5 and h[0] == 0x1C
-     and h[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240), None),
-    ("MCIDAS", lambda h: h.startswith(b"\0\0\0\0\0\0\0\4"), None),
+    ("IM", None, "im.read_im_like_pil"),
+    ("IMT", None, "imt.read_imt_like_pil"),
+    ("IPTC", None, "iptc.read_iptc_like_pil"),
+    ("MCIDAS", lambda h: h.startswith(b"\0\0\0\0\0\0\0\4"),
+     "mcidas.read_mcidas_like_pil"),
     ("MPEG", lambda h: h.startswith(b"\0\0\1\xb3"), None),
     ("TIFF", lambda h: h.startswith(_TIFF_PREFIXES),
      "tiff.read_tiff_like_pil"),
-    ("MSP", lambda h: h.startswith((b"DanM", b"LinS")), None),
-    ("PCD", lambda h: h[2048:2052] == b"PCD_", None),
-    ("PIXAR", lambda h: h.startswith(b"\200\350\000\000"), None),
+    ("MSP", lambda h: h.startswith((b"DanM", b"LinS")),
+     "msp.read_msp_like_pil"),
+    ("PCD", None, "pcd.read_pcd_like_pil"),
+    ("PIXAR", lambda h: h.startswith(b"\200\350\000\000"),
+     "pixar.read_pixar_like_pil"),
     ("PSD", lambda h: h.startswith(b"8BPS"), "psd.read_psd_like_pil"),
     ("QOI", lambda h: h.startswith(b"qoif"), "qoi.read_qoi_like_pil"),
     ("SGI", lambda h: len(h) >= 2 and h[:2] == b"\x01\xda",
      "sgi.read_sgi_like_pil"),
-    ("SPIDER", _spider, None),
-    ("SUN", lambda h: _i32be(h) == 0x59A66A95, None),
+    ("SPIDER", None, "spider.read_spider_like_pil"),
+    ("SUN", lambda h: _i32be(h) == 0x59A66A95, "sun.read_sun_like_pil"),
     ("TGA", None, "tga.read_tga_like_pil"),
     ("WEBP", lambda h: h.startswith(b"RIFF") and h[8:12] == b"WEBP"
      and h[12:16] in (b"VP8 ", b"VP8L", b"VP8X"), "webp.read_webp_like_pil"),
     ("WMF", lambda h: h.startswith(b"\xd7\xcd\xc6\x9a\x00\x00") or (
         h.startswith(b"\x01\x00\x00\x00") and h[40:44] == b" EMF"), None),
-    ("XBM", lambda h: h.lstrip().startswith(b"#define"), None),
-    ("XPM", lambda h: h.startswith(b"/* XPM */"), None),
-    ("XVThumb", lambda h: h.startswith(b"P7 332"), None),
+    ("XBM", lambda h: h.lstrip().startswith(b"#define"),
+     "xbm.read_xbm_like_pil"),
+    ("XPM", lambda h: h.startswith(b"/* XPM */"), "xpm.read_xpm_like_pil"),
+    ("XVThumb", lambda h: h.startswith(b"P7 332"),
+     "xvthumb.read_xvthumb_like_pil"),
 )
-_WHOLE_HEAD = {"GBR", "IM", "IMT", "IPTC", "PCD", "SPIDER", "WMF"}
+_WHOLE_HEAD = {"WMF"}
 # Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as many pixels
 # (DecompressionBombError)
 MAX_IMAGE_PIXELS = 1024 * 1024 * 1024 // 4 // 3
@@ -216,6 +157,24 @@ class NotThisFormat(ValueError):
     with SyntaxError, IndexError, TypeError, KeyError, EOFError or
     struct.error, or leaves the image without a size: PIL goes on to the
     next plugin, and so does `read_image_like_pil`."""
+
+
+# what Image.open hands on to the next plugin when a plugin's _open raises
+# it (ImageFile wraps the last five in SyntaxError)
+HANDED_ON = (SyntaxError, IndexError, TypeError, KeyError, EOFError,
+             struct.error)
+
+
+def pil_open(opener, fp, name: str, error):
+    """``opener(fp)``, a plugin's _open written as PIL's: the errors PIL
+    hands on raise NotThisFormat, any other raises `error` (a ValueError
+    subclass), as PIL raises it."""
+    try:
+        return opener(fp)
+    except HANDED_ON as e:
+        raise NotThisFormat(f"{name}: {e!r}") from None
+    except Exception as e:
+        raise error(f"{name}: {e!r}") from None
 
 
 def check_size(w: int, h: int, name: str) -> None:
@@ -251,12 +210,20 @@ def open_like_pil(path: str):
     decoder chosen by the file's content: the pixels, ``im.mode`` and
     ``im.info``'s palette, transparency and comment where the file has
     them; what PIL's methods (``convert``, ``resize``, ``crop``) see."""
-    arr, mode, info = _open(path)
+    arr, mode, info = _open(path)[1]
     info.pop("asarray", None)
     return arr, mode, info
 
 
+def format_like_pil(path: str) -> str:
+    """``PIL.Image.open(path).format`` where the port reads the file: the
+    plugin that took it (raises where `read_image_like_pil` raises)."""
+    return _open(path)[0]
+
+
 def _open(path: str):
+    """-> (format, (array, mode, info)) of the first plugin that takes the
+    file."""
     with open(path, "rb") as f:
         head = f.read(4096)
     for name, accepts, reader in _PLUGINS:
@@ -267,7 +234,7 @@ def _open(path: str):
             raise UnreadableImageError(f"{path}: {name} is not ported (PIL "
                                        f"reads it as {name})")
         try:
-            return _reader(reader)(path)
+            return name, _reader(reader)(path)
         except NotThisFormat:
             continue
     raise UnreadableImageError(f"cannot identify image file {path}")
@@ -280,7 +247,7 @@ def read_image_like_pil(path: str):
     differs from its loaded pixels (``info["asarray"]``: ICNS), that answer
     is returned, or raised, and the loaded pixels go in
     ``info["loaded"]``."""
-    arr, mode, info = _open(path)
+    arr, mode, info = _open(path)[1]
     fresh = info.pop("asarray", None)
     if fresh is None:
         return arr, mode, info
@@ -301,14 +268,17 @@ def to_rgb_like_pil(arr: np.ndarray, mode: str, palette=None) -> np.ndarray:
 
       1      0 or 255;                L, LA   the grey replicated;
       I;16,  the grey clamped at 255;  I       the grey clipped to 0..255;
+      I;16L,
       I;16B
       F      the grey truncated, 0 at or below 0 (and NaN), 255 at or
              above 255;
       P, PA  the palette's colour, black past its last entry (so too an
-             "L" image that carries a palette, as a GIF frame can);
+             "L" image that carries a palette, as a GIF frame can; all
+             black without a palette);
       RGB    as is;                    RGBA    alpha dropped;
       CMYK   cmyk2rgb: each of R, G, B is 255 - K - C (M, Y) * (255 - K)
-             / 255, rounded as MULDIV255.
+             / 255, rounded as MULDIV255;
+      YCbCr  ConvertYCbCr.c's fixed-point tables (utils/ycbcr.py).
     CIELab (LAB) raises: PIL converts it through LittleCMS (ImageCms's
     built-in LAB profile to sRGB, an optimized 8-bit transform), which the
     port does not emulate.
@@ -318,7 +288,7 @@ def to_rgb_like_pil(arr: np.ndarray, mode: str, palette=None) -> np.ndarray:
         g = np.where(arr, 255, 0).astype(np.uint8)
     elif mode == "L" and palette is None:
         g = arr.astype(np.uint8)
-    elif mode in ("I;16", "I;16B"):
+    elif mode in ("I;16", "I;16L", "I;16B"):
         g = np.minimum(arr, 255).astype(np.uint8)
     elif mode == "I":
         g = np.clip(arr, 0, 255).astype(np.uint8)
@@ -330,13 +300,17 @@ def to_rgb_like_pil(arr: np.ndarray, mode: str, palette=None) -> np.ndarray:
         g = arr[..., 0].astype(np.uint8)
     elif mode in ("P", "PA", "L"):
         lut = np.zeros((256, 3), np.uint8)
-        pal = np.asarray(palette, np.uint8).reshape(-1, 3)[:256]
+        pal = np.asarray(palette if palette is not None else (),
+                         np.uint8).reshape(-1, 3)[:256]
         lut[:len(pal)] = pal
         return lut[arr[..., 0] if mode == "PA" else arr]
     elif mode == "RGB":
         return arr.astype(np.uint8)
     elif mode == "RGBA":
         return np.ascontiguousarray(arr[..., :3], np.uint8)
+    elif mode == "YCbCr":
+        from .ycbcr import ycbcr_to_rgb
+        return ycbcr_to_rgb(arr)
     elif mode == "CMYK":
         nk = 255 - arr[..., 3:4].astype(np.int32)
         return np.clip(nk - _muldiv255(arr[..., :3], nk), 0, 255).astype(

@@ -33,18 +33,27 @@ the same with the port's readers, as OpenCV's decoders differ from PIL's:
                 8-bit, 16-bit above 8 bits, sYCC through cvtColor's
                 YUV2BGR; grey + alpha, signed, below 8 bits, subsampled or
                 offset images refused as cv2 refuses them.
+  Sun raster    OpenCV's decoder, not PIL's: types 0 and 1 (RLE and
+                RGB-order files refused), depths 1, 8, 24 (BGR as stored)
+                and 32 (XBGR), colour maps on 1- and 8-bit data (BGR, or
+                grey where every entry is grey), grey data without a map
+                read as 0 (OpenCV leaves that palette zeroed);
+  PAM           P7 headers as OpenCV's line reader takes them, samples as
+                stored (no channel swap, no scaling by MAXVAL), 16-bit
+                above MAXVAL 255, 0/255 bits at MAXVAL 1.
 
 The cv2 the JAX package runs here reads no OpenEXR (with or without
 OPENCV_IO_ENABLE_OPENEXR), so an EXR file is not read, as bytes no decoder
 takes are not: both raise
 OSError, as the JAX loader raises IOError where cv2.imread gives None, and
 so does a file that a decoder takes and then fails on. Content cv2 decodes
-and the port does not (PAM, Sun raster, HTJ2K code-blocks, the layouts
-above do not list) raises UnreadableImageError "... not ported".
+and the port does not (AVIF, HTJ2K code-blocks, the layouts above do not
+list) raises UnreadableImageError "... not ported".
 """
 
 from __future__ import annotations
 
+import re
 import struct
 
 import numpy as np
@@ -237,6 +246,151 @@ def _pxm(buf, path):
     return _bgr(v) if cn == 3 else v[..., 0]
 
 
+_CSPACE = b" \t\n\v\f\r"                    # C's isspace
+_PAM_TUPLES = {b"": 0, b"BLACKANDWHITE": 1, b"GRAYSCALE": 1,
+               b"GRAYSCALE_ALPHA": 2, b"RGB": 3, b"RGB_ALPHA": 4}
+
+
+def _pam_line(s: _Stream):
+    """grfmt_pam.cpp's ReadPAMHeaderLine -> (field, value); field None for
+    a comment. ValueError where it fails."""
+    c = s.byte()
+    while c in _CSPACE:
+        c = s.byte()
+    if c == 35:                                          # '#'
+        while c not in (10, 13):
+            c = s.byte()
+        return None, b""
+    ident = bytearray()
+    for _ in range(8):
+        if c in _CSPACE:
+            break
+        ident.append(c)
+        c = s.byte()
+    if c not in _CSPACE or bytes(ident) not in (
+            b"HEIGHT", b"WIDTH", b"DEPTH", b"MAXVAL", b"TUPLTYPE", b"ENDHDR"):
+        raise ValueError("PAM: bad header line")
+    if c in (10, 13):
+        return bytes(ident), b""
+    c = s.byte()
+    while c in _CSPACE:
+        c = s.byte()
+    value = bytearray()
+    for _ in range(255):
+        if c in (10, 13):
+            break
+        value.append(c)
+        c = s.byte()
+    if c not in (10, 13):
+        raise ValueError("PAM: header value too long")
+    while len(value) > 1 and value[-1] in _CSPACE:
+        value.pop()
+    return bytes(ident), bytes(value)
+
+
+def _pam_number(value: bytes) -> int:
+    """ParseNumber: a decimal integer, the whole value; a C long cast to
+    int."""
+    if not re.fullmatch(rb"-?[0-9]+", value) or abs(int(value)) > 2 ** 63:
+        raise ValueError("PAM: bad number")
+    return (int(value) + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def _pam(buf, path):
+    """OpenCV's PAM decoder at IMREAD_UNCHANGED: the samples as stored (no
+    channel swap, no scaling by MAXVAL), 16-bit above MAXVAL 255, and at
+    MAXVAL 1 a row of WIDTH * DEPTH bytes whose first bits are the
+    pixels (0 or 255; grey, or white/black at DEPTH 3)."""
+    if buf[2:3] not in (b"\n", b"\r"):
+        raise ValueError("PAM: bad signature")
+    s = _Stream(buf, 3)
+    got, tupl = {}, 0
+    while True:
+        field, value = _pam_line(s)
+        if field is None:
+            continue
+        if field == b"ENDHDR":
+            break
+        if field == b"TUPLTYPE":
+            if value not in _PAM_TUPLES:
+                raise ValueError(f"PAM: unknown TUPLTYPE {value!r}")
+            tupl = _PAM_TUPLES[value]
+            continue
+        if field in got:
+            raise ValueError(f"PAM: {field!r} twice")
+        got[field] = _pam_number(value)
+    if len(got) < 4:
+        raise ValueError("PAM: a field is missing")
+    w, h, cn, maxval = (got[b"WIDTH"], got[b"HEIGHT"], got[b"DEPTH"],
+                        got[b"MAXVAL"])
+    if maxval > 65535:
+        raise ValueError("PAM: MAXVAL over 65535")
+    if tupl == 0:
+        if cn not in (1, 3) or maxval >= 256:
+            raise ValueError("PAM: Can't determine selected_fmt")
+    elif cn != tupl:
+        raise ValueError("PAM: DEPTH against TUPLTYPE")
+    if not (0 < w <= 1 << 20 and 0 < h <= 1 << 20 and w * h <= 1 << 30):
+        raise ValueError("PAM: image size")
+    sample = 2 if maxval > 255 else 1
+    row = w * cn * sample
+    data = buf[s.pos:s.pos + row * h]
+    if len(data) < row * h:
+        raise EOFError
+    rows = np.frombuffer(data, np.uint8).reshape(h, row)
+    if maxval == 1:
+        if cn == 2 or cn == 4:
+            raise ValueError("PAM: bit mode at DEPTH 2 or 4")
+        v = np.unpackbits(rows[:, :(w + 7) // 8], axis=1)[:, :w] * 255
+        return np.repeat(v[..., None], 3, -1) if cn == 3 else v
+    v = rows.view(">u2").astype(np.uint16) if sample == 2 else rows
+    return (v.reshape(h, w, cn) if cn > 1 else v).copy()
+
+
+def _sunras(buf, path):
+    """OpenCV's Sun raster decoder: types 0 and 1 only (RLE and RGB-order
+    files give None), depths 1, 8, 24 and 32 (XBGR), a colour map of type
+    1 on 1- and 8-bit data (at most 2**depth entries), BGR where the map
+    has a colour and grey where it has none; grey data without a map
+    reads as 0, as OpenCV's grey palette is left zeroed then. Rows are
+    padded to 16 bits; a cut file gives None."""
+    if len(buf) < 32:
+        raise EOFError
+    w, h, bpp, _, enc, maptype, maplen = struct.unpack_from(">7i", buf, 4)
+    if not (w > 0 and h > 0 and bpp in (1, 8, 24, 32)):
+        raise ValueError("Sun raster: bad header")
+    pal_size = (1 << bpp) * 3 if bpp <= 8 else 0
+    if enc not in (0, 1) or not ((maptype == 0 and maplen == 0) or (
+            maptype == 1 and 0 < maplen <= pal_size and bpp <= 8)):
+        raise ValueError("Sun raster: unsupported type or colour map")
+    if not (w <= 1 << 20 and h <= 1 << 20 and w * h <= 1 << 30):
+        raise ValueError("Sun raster: image size")
+    pal = np.zeros((256, 3), np.uint8)          # BGR
+    if maplen:
+        raw = np.frombuffer(buf[32:32 + maplen], np.uint8)
+        if len(raw) < maplen:
+            raise EOFError
+        n = maplen // 3
+        pal[:n] = raw[:3 * n].reshape(3, n).T[:, ::-1]
+    colour = bpp > 8 or bool((pal[:1 << bpp] != pal[:1 << bpp, :1]).any())
+    pitch = (((w * bpp + 7) // 8) + 1) & -2
+    off = 32 + maplen
+    data = buf[off:off + pitch * h]
+    if len(data) < pitch * h:
+        raise EOFError
+    rows = np.frombuffer(data, np.uint8).reshape(h, pitch)
+    if bpp == 24:
+        return rows[:, :3 * w].reshape(h, w, 3).copy()
+    if bpp == 32:
+        return rows[:, :4 * w].reshape(h, w, 4)[..., 1:].copy()
+    idx = (np.unpackbits(rows, axis=1)[:, :w] if bpp == 1
+           else rows[:, :w])
+    if colour:
+        return pal[idx]
+    grey = pal[:, 0] if maptype == 1 else np.zeros(256, np.uint8)
+    return grey[idx]
+
+
 def _pfm_token(s: _Stream) -> bytes:
     c = s.byte()
     while chr(c).isspace():
@@ -301,8 +455,54 @@ def _tiff(buf, path):
     return out[..., 0] if grey else _bgr(out)
 
 
+def _boxes(buf):
+    """The top-level ISO BMFF boxes of `buf` -> [(type, start, end)];
+    ValueError where one runs past the end of the file."""
+    out, at = [], 0
+    while at + 8 <= len(buf):
+        size, kind = struct.unpack_from(">I4s", buf, at)
+        head = 8
+        if size == 1:
+            if at + 16 > len(buf):
+                raise ValueError("AVIF: truncated box header")
+            size, head = struct.unpack_from(">Q", buf, at + 8)[0], 16
+        elif size == 0:
+            size = len(buf) - at
+        if size < head or at + size > len(buf):
+            raise ValueError(f"AVIF: box {kind!r} runs past the end")
+        out.append((kind, at, at + size))
+        at += size
+    return out
+
+
+def _is_avif(b) -> bool:
+    """cv2's AVIF signature check (avifDecoderParse on the first bytes): an
+    ftyp box first whose major or compatible brands hold ``avif``, or
+    ``avis`` beside a top-level ``moov`` box (an image sequence's track);
+    a cut or malformed ftyp box is not taken."""
+    if len(b) < 16 or b[4:8] != b"ftyp":
+        return False
+    size = struct.unpack_from(">I", b)[0]
+    if size < 16 or (size - 16) % 4 or size > len(b):
+        return False
+    brands = {b[8:12]} | {b[k:k + 4] for k in range(16, size, 4)}
+    if b"avif" in brands:
+        return True
+    try:
+        return b"avis" in brands and any(k == b"moov" for k, _, _ in
+                                         _boxes(b))
+    except ValueError:
+        return False
+
+
+def _avif(buf, path):
+    _boxes(buf)               # a cut file: libavif's parse fails (None)
+    raise _not_ported(path, "AVIF")
+
+
 # cv2's decoders by signature, in OpenCV's order of registration
 _DECODERS = (
+    (_is_avif, _avif),
     (lambda b: b.startswith(b"BM"), _bmp),
     (lambda b: b.startswith((b"#?RADIANCE", b"#?RGBE")), "hdr"),
     (lambda b: b.startswith(b"\xff\xd8\xff"), _jpeg),
@@ -312,14 +512,14 @@ _DECODERS = (
     (lambda b: len(b) >= 3 and b[:1] == b"P" and b[1:2] in b"123456"
      and chr(b[2]).isspace(), _pxm),
     (lambda b: len(b) >= 3 and b[:2] == b"P7" and chr(b[2]).isspace(),
-     "PAM"),
+     _pam),
     (lambda b: len(b) >= 3 and b[:1] == b"P" and b[1:2] in b"Ff"
      and chr(b[2]).isspace(), _pfm),
     (lambda b: b.startswith((b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")), _tiff),
     (lambda b: b.startswith(b"\x76\x2f\x31\x01"), "OpenEXR"),
     (lambda b: b.startswith((b"\0\0\0\x0cjP  \r\n\x87\n",
                              b"\xff\x4f\xff\x51")), _jpeg2000),
-    (lambda b: b.startswith(b"\x59\xa6\x6a\x95"), "Sun raster"),
+    (lambda b: b.startswith(b"\x59\xa6\x6a\x95"), _sunras),
 )
 
 
@@ -329,12 +529,10 @@ def imread_unchanged(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         buf = f.read()
     for accepts, decoder in _DECODERS:
-        if not accepts(buf[:16]):
+        if not accepts(buf):
             continue
         if decoder == "OpenEXR":
             break
-        if isinstance(decoder, str) and decoder != "hdr":
-            raise _not_ported(path, decoder)
         try:
             if decoder == "hdr":
                 return _bgr(hdr.decode_hdr(buf))

@@ -49,10 +49,11 @@ def _unpack(rows: np.ndarray, rawmode: str, w: int) -> np.ndarray:
     return out
 
 
-def decode_pcx(buf: bytes, name: str = "PCX"):
-    """(array, mode, info) of a PCX file's bytes (info: the palette of
-    mode P, uint8 [n, 3])."""
-    s = buf[:68]
+def decode_pcx(buf: bytes, name: str = "PCX", base: int = 0):
+    """(array, mode, info) of a PCX file's bytes, its header at `base` (a
+    DCX file's first frame; the 769-byte palette is still the file's last
+    bytes) (info: the palette of mode P, uint8 [n, 3])."""
+    s = buf[base:base + 68]
     if len(s) < 2 or s[0] != 10 or s[1] not in (0, 2, 3, 5) or len(s) < 12:
         raise NotThisFormat(f"{name}: not a PCX file")
     x0, y0, x1, y1 = struct.unpack_from("<HHHH", s, 4)
@@ -91,11 +92,11 @@ def decode_pcx(buf: bytes, name: str = "PCX"):
     check_size(w, h, name)
     # a run packet yields at most 63 bytes: too short a stream fails before
     # the lines are allocated
-    if planes * stride * h > 63 * (len(buf) - 128):
+    if planes * stride * h > 63 * (len(buf) - base - 128):
         raise PcxError(f"{name}: image file is truncated")
     try:
-        rows = small_codecs.pcx(buf[128:], w, BITS[rawmode], planes * stride,
-                                h)
+        rows = small_codecs.pcx(buf[base + 128:], w, BITS[rawmode],
+                                planes * stride, h)
     except small_codecs.SmallCodecError as e:
         raise PcxError(f"{name}: {e}") from None
     return _unpack(rows, rawmode, w), mode, info

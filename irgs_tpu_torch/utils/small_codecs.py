@@ -1,7 +1,8 @@
 """ctypes bindings of ``csrc/small_decode.cpp``: the run-length and op-stream
 decoders of PIL's small readers (Targa RLE, PCX RLE, SGI RLE, QOI,
-libImaging's PackBits for PSD, ICNS's RLE) and the TIFF reader's
-ThunderScan, built with g++ at first use
+libImaging's PackBits for PSD, ICNS's RLE, Sun RLE, XBM's hex, MSP's
+RLE, FLI/FLC frames, PhotoCD's base image, IM's n-bit floats) and the
+TIFF reader's ThunderScan, built with g++ at first use
 (`native.build_library`). Each returns the decoder's line buffers, which
 the reader unpacks to PIL's mode, and raises `SmallCodecError` where PIL's
 decoder fails ("image file is truncated", "buffer overrun when reading
@@ -39,8 +40,19 @@ def _lib():
         lib.packbits_pil_decode.argtypes = [_U8P, i64, i64, i64, _U8P]
         lib.packbits_pil_decode.restype = i64
         lib.icns_rle_decode.argtypes = [_U8P, i64, i64, i32, _U8P]
+        lib.sun_rle_decode.argtypes = [_U8P, i64, i64, i64, _U8P]
+        lib.xbm_decode.argtypes = [_U8P, i64, i64, i64, _U8P]
+        lib.msp_rle_decode.argtypes = [_U8P, i64, ctypes.POINTER(
+            ctypes.c_uint16), i64, i64, _U8P, i64]
+        lib.msp_rle_decode.restype = i64
+        lib.fli_decode.argtypes = [_U8P, i64, i64, i64, i64, _U8P]
+        lib.pcd_decode.argtypes = [_U8P, i64, i64, i64, _U8P]
+        lib.bit_decode.argtypes = [_U8P, i64, i32, i64, i64,
+                                   ctypes.POINTER(ctypes.c_float)]
         for f in (lib.tga_rle_decode, lib.pcx_decode, lib.sgi_rle_decode,
-                  lib.qoi_decode, lib.thunder_decode, lib.icns_rle_decode):
+                  lib.qoi_decode, lib.thunder_decode, lib.icns_rle_decode,
+                  lib.sun_rle_decode, lib.xbm_decode, lib.fli_decode,
+                  lib.pcd_decode, lib.bit_decode):
             f.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -143,4 +155,70 @@ def icns_rle(data: bytes, count: int, bands: int) -> np.ndarray:
         raise SmallCodecError("ICNS RLE: Error reading channel")
     if rc == 2:
         raise SmallCodecError("ICNS RLE: buffer is not large enough")
+    return out
+
+
+def sun_rle(data: bytes, linebytes: int, rows: int) -> np.ndarray:
+    """SunRleDecode: [rows, linebytes] uint8 lines in the order decoded."""
+    out = np.zeros((rows, linebytes), np.uint8)
+    src = _src(data)
+    _check(_lib().sun_rle_decode(src.ctypes.data_as(_U8P), len(data),
+                                 linebytes, rows, out.ctypes.data_as(_U8P)),
+           "Sun RLE")
+    return out
+
+
+def xbm(data: bytes, linebytes: int, rows: int) -> np.ndarray:
+    """XbmDecode: [rows, linebytes] uint8 lines (bits LSB first)."""
+    out = np.zeros((rows, linebytes), np.uint8)
+    src = _src(data)
+    _check(_lib().xbm_decode(src.ctypes.data_as(_U8P), len(data), linebytes,
+                             rows, out.ctypes.data_as(_U8P)), "XBM")
+    return out
+
+
+def msp_rle(data: bytes, rowlen, stride: int, need: int) -> bytes:
+    """MspDecoder's rows after the row map: their bytes concatenated (at
+    most `need` of them kept)."""
+    lens = np.ascontiguousarray(rowlen, np.uint16)
+    out = np.zeros(max(need, 1), np.uint8)
+    src = _src(data)
+    got = _lib().msp_rle_decode(
+        src.ctypes.data_as(_U8P), len(data),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)), len(lens),
+        stride, out.ctypes.data_as(_U8P), need)
+    if got < 0:
+        raise SmallCodecError("MSP: Truncated or corrupted MSP file")
+    return out[:min(got, need)].tobytes()
+
+
+def fli(data: bytes, block: int, w: int, h: int,
+        img: np.ndarray) -> np.ndarray:
+    """One FLI/FLC frame (the file from the frame's offset) decoded over
+    `img` ([h, w] uint8, changed in place and returned)."""
+    src = _src(data)
+    _check(_lib().fli_decode(src.ctypes.data_as(_U8P), len(data), block, w,
+                             h, img.ctypes.data_as(_U8P)), "FLI")
+    return img
+
+
+def pcd(data: bytes, w: int, rows: int) -> np.ndarray:
+    """PcdDecode with the YCC;P unpacker: [rows, w, 3] uint8 RGB."""
+    out = np.zeros((rows, w, 3), np.uint8)
+    src = _src(data)
+    _check(_lib().pcd_decode(src.ctypes.data_as(_U8P), len(data), w, rows,
+                             out.ctypes.data_as(_U8P)), "PCD")
+    return out
+
+
+def bits(data: bytes, nbits: int, w: int, rows: int) -> np.ndarray:
+    """BitDecode as IM's F;n tile drives it: float32 [rows, w]."""
+    out = np.zeros((rows, w), np.float32)
+    src = _src(data)
+    rc = _lib().bit_decode(src.ctypes.data_as(_U8P), len(data), nbits, w,
+                           rows, out.ctypes.data_as(
+                               ctypes.POINTER(ctypes.c_float)))
+    if rc < 0:
+        raise SmallCodecError("bit decoder: decoder error -8")
+    _check(rc, "bit decoder")
     return out

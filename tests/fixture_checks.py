@@ -43,7 +43,8 @@ def check_fixture(fmt: str, ext: str, name: str, read) -> None:
         pal = np.asarray(want["palette"]).reshape(-1, 3)
         got = np.asarray(info["palette"])
         np.testing.assert_array_equal(got, pal[:len(got)])
-    assert info.get("transparency") == want["transparency"]
+    t = info.get("transparency")
+    assert (list(t) if isinstance(t, bytes) else t) == want["transparency"]
     # the same file through the content-sniffing entry point
     arr2, mode2, _ = image.read_image_like_pil(path)
     assert mode2 == mode and np.array_equal(arr2, arr, equal_nan=True)

@@ -940,6 +940,34 @@ def write_ico(frames, *, cur: bool = False, hotspot=(0, 0)) -> bytes:
 # fixtures
 
 
+def write_sun(w, h, depth, data, ftype=1, cmap=b"", ctype=None) -> bytes:
+    """A Sun raster: the 32-byte header (big-endian magic, size, depth,
+    data length, type, colour map type and length), the colour map
+    (three planes) and `data` as given."""
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(data), ftype,
+                       (1 if cmap else 0) if ctype is None else ctype,
+                       len(cmap)) + cmap + data
+
+
+def sun_rle(data: bytes) -> bytes:
+    """Sun's byte RLE of `data` (runs of 3 and more, 0x80 escaped)."""
+    out, i = bytearray(), 0
+    while i < len(data):
+        j = i
+        while j < len(data) and data[j] == data[i] and j - i < 256:
+            j += 1
+        n = j - i
+        if n >= 3 or data[i] == 0x80:
+            if n == 1:
+                out += b"\x80\x00"
+            else:
+                out += bytes([0x80, n - 1, data[i]])
+        else:
+            out += data[i:j]
+        i = j
+    return bytes(out)
+
+
 def save_fixtures(out: str, files, refused, ext: str) -> None:
     """Write each (name, bytes) of `files` as ``out/<name><ext>`` beside
     the ``.npy`` PIL decodes from it and, in ``modes.json``, its PIL mode,
@@ -963,8 +991,11 @@ def save_fixtures(out: str, files, refused, ext: str) -> None:
         with Image.open(path) as im:
             arr = np.asarray(im)
             pal = im.getpalette() if im.mode in ("P", "PA") else None
+            t = im.info.get("transparency")
             modes[name] = {"mode": im.mode, "palette": pal,
-                           "transparency": im.info.get("transparency")}
+                           # an XPM's transparent key is bytes
+                           "transparency": list(t) if isinstance(t, bytes)
+                           else t}
         np.save(os.path.join(out, name + ".npy"), arr)
     with open(os.path.join(out, "modes.json"), "w") as f:
         json.dump(modes, f, indent=0, sort_keys=True)

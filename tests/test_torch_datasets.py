@@ -152,11 +152,10 @@ def test_downscale_r2_matches_cv2_inter_area(scenes):
 
 
 def test_unported_inputs_raise(scenes, tmp_path):
-    """What the port does not read raises: a folder of no known layout, a
-    JPEG frame PIL cannot identify (12-bit samples), and an image format the
-    port has no codec for yet (IM). A progressive JPEG frame, a BMP frame,
-    a WebP frame and a PPM frame, which the port once refused, now read as
-    PIL reads them."""
+    """What the port does not read raises: a folder of no known layout and
+    a JPEG frame PIL cannot identify (12-bit samples). A progressive JPEG
+    frame, a BMP frame, a WebP frame, a PPM frame and an IM frame, which
+    the port once refused, now read as PIL reads them."""
     with pytest.raises(ValueError, match="recognize"):
         tds.load_scene(str(tmp_path))
     img = np.zeros((8, 8, 3), np.uint8)
@@ -187,8 +186,9 @@ def test_unported_inputs_raise(scenes, tmp_path):
         tds._load_image_any(str(tmp_path / "f.ppm")),
         np.asarray(Image.open(tmp_path / "f.ppm"), np.float32) / 255.0)
     Image.fromarray(img).save(tmp_path / "f.im")
-    with pytest.raises(UnreadableImageError, match="IM is not ported"):
-        tds._load_image_any(str(tmp_path / "f.im"))
+    np.testing.assert_array_equal(
+        tds._load_image_any(str(tmp_path / "f.im")),
+        np.asarray(Image.open(tmp_path / "f.im"), np.float32) / 255.0)
 
 
 # --- Stanford-ORB ---------------------------------------------------------

@@ -157,10 +157,12 @@ def test_unidentified_and_queued_files_raise(tmp_path):
     p = tmp_path / "x.png"
     p.write_bytes(b"#define im_width 1\n#define im_height 1\nstatic char "
                   b"im_bits[] = {0x00};\n")
+    # XBM, once queued, reads as PIL reads it (by content, named .png)
+    arr, mode, _ = image.read_image_like_pil(str(p))
     with Image.open(p) as im:
         assert im.format == "XBM"
-    with pytest.raises(image.UnreadableImageError, match="XBM is not ported"):
-        image.read_image_like_pil(str(p))
+        assert mode == im.mode == "1"
+        np.testing.assert_array_equal(arr, np.asarray(im))
     # PPM, once queued, reads as PIL reads it
     p.write_bytes(b"P6\n1 1\n255\n\x00\x07\x00")
     arr, mode, _ = image.read_image_like_pil(str(p))
@@ -217,12 +219,12 @@ def test_resize_bilinear_matches_jax(src, dst, c):
 
 
 # each format Pillow writes here that PIL reads and the port does not
-PIL_FORMATS = {"AVIF": "RGB", "EPS": "RGB", "IM": "RGB", "MSP": "1",
-               "SPIDER": "F", "XBM": "1"}
+PIL_FORMATS = {"AVIF": "RGB", "EPS": "RGB"}
 # ... and the ones the port reads as PIL does (CUR: written by hand)
 READ_FORMATS = {"BLP": "P", "CUR": "RGB", "DDS": "RGB", "DIB": "RGB",
-                "ICNS": "RGB", "ICO": "RGB", "JPEG2000": "RGB", "PCX": "RGB",
-                "PPM": "RGB", "QOI": "RGB", "SGI": "RGB", "TGA": "RGB"}
+                "ICNS": "RGB", "ICO": "RGB", "IM": "RGB", "JPEG2000": "RGB",
+                "MSP": "1", "PCX": "RGB", "PPM": "RGB", "QOI": "RGB",
+                "SGI": "RGB", "SPIDER": "F", "TGA": "RGB", "XBM": "1"}
 
 
 def _saved(tmp_path, fmt, mode):

@@ -1,12 +1,15 @@
 """A ``.hdr`` path whose bytes are not Radiance, as the JAX loader reads it
 (``cv2.imread(path, IMREAD_UNCHANGED)``, BGR flipped, float32 without a
 division by 255): utils/imread.imread_unchanged against cv2.imread on PNG,
-JPEG, TIFF, BMP, WebP, GIF, PNM, PFM and JPEG 2000 content of every layout
-it reads, and the port's ``_load_image_any`` against the JAX one on the
-same files. Content cv2 cannot decode (EXR with OpenEXR off, Targa, QOI,
-bytes no decoder takes, a header its decoder refuses, JPEG 2000 with grey
-+ alpha or signed samples, a cut codestream) raises OSError in both;
-content cv2 decodes and the port does not (PAM) raises "not ported".
+JPEG, TIFF, BMP, WebP, GIF, PNM, PFM, JPEG 2000, Sun raster and PAM
+content of every layout it reads, and the port's ``_load_image_any``
+against the JAX one on the same files. Content cv2 cannot decode (EXR with
+OpenEXR off, Targa, QOI, bytes no decoder takes, a header its decoder
+refuses, JPEG 2000 with grey + alpha or signed samples, a cut codestream,
+an XV thumbnail, which reaches the PAM decoder, and one file of each of
+Pillow's last small rasters) raises OSError in both; content cv2 decodes
+and the port does not (AVIF) raises "not ported", and where the AVIF
+decoder's checks end is probed against cv2.
 
 Tolerance: bit for bit (both decode the same bytes the same way).
 """
@@ -138,7 +141,20 @@ def _jpeg2000_contents():
     return out
 
 
-CONTENTS = {**_contents(), **_jpeg2000_contents()}
+def _sun_pam_contents():
+    """The committed Sun raster and PAM files cv2 reads (cv2's writes and
+    hand-made ones, tests/make_im_sun_xpm_fli_fixtures.py)."""
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "data", "sun", "cv2")
+    out = {}
+    for name in sorted(os.listdir(folder)):
+        if name.endswith(".hdr"):
+            with open(os.path.join(folder, name), "rb") as f:
+                out["sunpam_" + name[:-4]] = f.read()
+    return out
+
+
+CONTENTS = {**_contents(), **_jpeg2000_contents(), **_sun_pam_contents()}
 
 
 @pytest.mark.parametrize("name", sorted(CONTENTS))
@@ -195,13 +211,61 @@ def test_hdr_path_cv2_cannot_read(tmp_path, name):
         tds._load_image_any(path)
 
 
+def _avif() -> bytes:
+    rgb = np.random.default_rng(21).integers(0, 256, (16, 16, 3), np.uint8)
+    return _pil(Image.fromarray(rgb), "AVIF")
+
+
 def test_hdr_path_cv2_reads_and_port_does_not(tmp_path):
-    path = str(tmp_path / "pam.hdr")
-    (tmp_path / "pam.hdr").write_bytes(
-        b"P7\nWIDTH 2\nHEIGHT 1\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n"
-        + bytes(range(6)))
-    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None
-    with pytest.raises(image.UnreadableImageError, match="not ported"):
+    """An AVIF file named .hdr: cv2.imread reads it (libavif), the port
+    names it not ported instead of saying that cv2 cannot read it."""
+    path = str(tmp_path / "avif.hdr")
+    (tmp_path / "avif.hdr").write_bytes(_avif())
+    assert cv2.imread(path, cv2.IMREAD_UNCHANGED).shape == (16, 16, 3)
+    with pytest.raises(image.UnreadableImageError, match="AVIF.*not ported"):
+        tds._load_image_any(path)
+
+
+def _brands(data, major, compat):
+    """`data`'s 32-byte ftyp box with other brands, its size kept (the
+    item locations are absolute offsets)."""
+    assert data[:4] == b"\0\0\0 " and len(compat) == 4
+    return data[:8] + major + data[12:16] + b"".join(compat) + data[32:]
+
+
+def _avif_probes():
+    data = _avif()
+    return {"avif_major": (data, True),
+            "avif_compatible_only": (_brands(data, b"mif1", [
+                b"mif1", b"avif", b"miaf", b"MA1B"]), True),
+            "mif1_alone": (_brands(data, b"mif1", [
+                b"mif1", b"miaf", b"MA1B", b"MA1B"]), False),
+            "avis_compatible_only": (_brands(data, b"mif1", [
+                b"mif1", b"avis", b"miaf", b"MA1B"]), False),
+            "ftyp_cut": (data[:20], False),
+            "file_cut_after_ftyp": (data[:40], False),
+            "ftyp_size_zero": (bytes(4) + data[4:], False)}
+
+
+AVIF_PROBES = _avif_probes()
+
+
+@pytest.mark.parametrize("name", sorted(AVIF_PROBES))
+def test_hdr_path_avif_boundary_as_cv2(tmp_path, name):
+    """Where cv2 reads an ftyp-branded file the port names AVIF not
+    ported; where cv2 gives None (no avif brand, a cut box) both loaders
+    raise the JAX loader's IOError."""
+    data, reads = AVIF_PROBES[name]
+    path = str(tmp_path / f"{name}.hdr")
+    (tmp_path / f"{name}.hdr").write_bytes(data)
+    assert (cv2.imread(path, cv2.IMREAD_UNCHANGED) is not None) == reads
+    if reads:
+        with pytest.raises(image.UnreadableImageError, match="not ported"):
+            tds._load_image_any(path)
+        return
+    with pytest.raises(IOError):
+        jds._load_image_any(path)
+    with pytest.raises(OSError):
         tds._load_image_any(path)
 
 
@@ -220,6 +284,39 @@ def test_hdr_path_texture_formats_cv2_cannot_read(tmp_path, name):
     readers)."""
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        TEXTURES[name])
+    path = str(tmp_path / f"{name}.hdr")
+    with open(src, "rb") as f:
+        (tmp_path / f"{name}.hdr").write_bytes(f.read())
+    assert cv2.imread(path, cv2.IMREAD_UNCHANGED) is None
+    with pytest.raises(IOError):
+        jds._load_image_any(path)
+    with pytest.raises(OSError):
+        tds._load_image_any(path)
+    assert image.read_image_like_pil(src)[0].size > 0
+
+
+# one committed fixture of each of Pillow's last small rasters
+# (tests/make_im_sun_xpm_fli_fixtures.py) that cv2.imread does not read:
+# the Sun raster is RLE, which OpenCV's decoder refuses; the XV thumbnail
+# (P7 332) reaches the PAM decoder, which refuses its header
+SMALL_RASTERS = {"im": "im/pil_RGB.im", "xbm": "xbm/pil_save.xbm",
+                 "xpm": "xpm/p_two_chars.xpm", "sun_rle": "sun/d8_rle.ras",
+                 "msp": "msp/v1_pil.msp", "spider": "spider/pil_save.spi",
+                 "fits": "fits/bitpix8.fits", "dcx": "dcx/rgb_one_frame.dcx",
+                 "fli": "fli/brun_colour256.fli",
+                 "pcd": "pcd/base_orientation0.pcd", "pixar": "pixar/rgb.pxr",
+                 "gbr": "gbr/v2_rgba.gbr", "mcidas": "mcidas/L.area",
+                 "imt": "imt/L.imt", "xvthumb": "xvthumb/p332.xv",
+                 "iptc": "iptc/raw_grey.iim"}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_RASTERS))
+def test_hdr_path_small_rasters_cv2_cannot_read(tmp_path, name):
+    """Each such file named .hdr: cv2.imread returns None, the JAX loader
+    raises its IOError, and so does the port, which PIL's reader
+    (utils/image.py) reads under the file's own name."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                       SMALL_RASTERS[name])
     path = str(tmp_path / f"{name}.hdr")
     with open(src, "rb") as f:
         (tmp_path / f"{name}.hdr").write_bytes(f.read())
